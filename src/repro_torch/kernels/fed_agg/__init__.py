@@ -1,0 +1,3 @@
+"""Staleness-discounted model aggregation (paper eq. 14): a CUDA kernel and
+its plain PyTorch version."""
+from repro_torch.kernels.fed_agg.ops import fed_agg
