@@ -23,7 +23,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      device trace over 200 calls, inputs cycled through more than the
      50 MB L2; CUDA events and the host clock beside it), the warm 3-epoch
      wall time and a ``torch.profiler`` table of the top device ops;
-  7. one JSON line of per-kernel numbers.
+  7. ``flash_attention`` against its plain version on the card: the JAX
+     package's kernel sweep (S = 200 and KV = 1 included; causal, window
+     48 and non-causal; f32 and bf16), a strided-view case, and the
+     serving path's prefill shape (B 4, S 2048, H 32, KV 8, hd 128, bf16,
+     causal and window 512).  At the sweep's input spread the max abs
+     error is within 1e-5 (f32) and 2e-2 (bf16); every bf16 case, also
+     at a spread of 2 that makes the softmax peaked, holds each element
+     within 2^-7 |want| + 2^-8 rms(want's row);
+  8. model-level route parity: qwen3-4b at full width with 2 layers in
+     f32, prefill logits through the kernel route against the plain route
+     (2e-4), and 16 decode steps against the full forward (1e-4);
+  9. the serving path: ``repro_torch.serve_decode.main`` at
+     ``--full-width`` qwen3-4b (36 layers), B 4, a 2048-token prefill
+     through the kernel, 32 greedy decode steps over a 2048-slot cache.
+     ``flash_attention`` must launch exactly 36 times per prefill; the
+     logits must be finite.  Prefill wall, decode ms/token (warm), the
+     device busy share and the top device ops of one prefill plus decode;
+ 10. ``flash_attention`` timed at the prefill shape beside its plain
+     version, ``scaled_dot_product_attention`` (the library yardstick,
+     never called by the port) and its bound;
+ 11. one JSON line of per-kernel numbers.
 
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -43,10 +63,28 @@ SRC = ROOT / "src"
 
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
+H100_BF16_FLOP_PER_S = 989e12       # bf16 tensor cores, dense
 F32_EPS = 2.0 ** -24
 L2_BYTES = 50 * 2 ** 20
 FED_AGG_TOL = 1e-5                  # max abs error, outputs of order 1
 PDIST_TOL = 1e-5                    # error / max(D, 1)
+# max abs error of attention outputs of order 0.5, inputs randn * 0.5 (the
+# JAX package's kernel sweep, tests/test_kernels.py): f32 only reorders
+# sums; bf16 rounds the output
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# bf16, every element and every input spread: |got - want| <= 2^-7 |want|
+# + 2^-8 rms(want's row).  The kernel and the plain version both compute
+# in f32 and round once to bf16, so they differ by at most one bf16
+# spacing (<= 2^-7 |want|); the row term covers elements near zero.
+FLASH_BF16_REL, FLASH_BF16_ROW = 2.0 ** -7, 2.0 ** -8
+# input spreads: the sweep's 0.5 (scores of std 0.25, a near-uniform
+# softmax, so each output is a mean over the keys) and 2.0 (scores of std
+# about 4: a peaked softmax whose outputs move with any error in the
+# scores' scale, the mask or the probabilities)
+FLASH_SPREADS = (0.5, 2.0)
+ROUTE_TOL = 2e-4                    # kernel vs plain route, model logits
+DECODE_TOL = 1e-4                   # decode vs full forward, model logits
+PREFILL = dict(B=4, S=2048, H=32, KV=8, hd=128)   # the serving prefill
 
 
 def fail(msg: str) -> None:
@@ -106,10 +144,34 @@ def time_device(torch, fn, sets, reps: int = 200):
     return dev_us / reps / 1e3, queue, host
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak=H100_F32_FLOP_PER_S):
     t_b = nbytes / H100_BYTES_PER_S * 1e3
-    t_f = flops / H100_F32_FLOP_PER_S * 1e3
+    t_f = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: the work this mask needs."""
+    total = 0
+    for q in range(Sq):
+        hi = min(Sk, q + 1) if causal else Sk
+        lo = max(0, q - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def top_device_ops(prof, n: int = 12):
+    """(busy ms, device kernel launches, the n kernels with the most
+    device time) of a trace."""
+    dev_ops = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in dev_ops) / 1e3
+    count = sum(e.count for e in dev_ops)
+    dev_ops.sort(key=lambda e: -e.self_device_time_total)
+    return busy_ms, count, [dict(name=e.key[:90],
+                                 ms=e.self_device_time_total / 1e3,
+                                 count=e.count) for e in dev_ops[:n]]
 
 
 def main() -> None:
@@ -391,27 +453,27 @@ def main() -> None:
         run_schemes(["asyncfleo-hap"], sim_workload(sim), epochs=3)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
-    dev_ops = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")
-               and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in dev_ops) / 1e3
-    dev_ops.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms, _, top = top_device_ops(prof)
     wall_ms = min(warm) * 1e3
     share = busy_ms / wall_ms if busy_ms else float("nan")
-    print(f"profile: device busy {busy_ms:.1f} ms over {len(dev_ops)} kernel "
-          f"names; warm wall {wall_ms:.1f} ms unprofiled ({wall_prof * 1e3:.1f}"
-          f" ms profiled); busy share of the unprofiled wall {share:.3f}"
+    print(f"profile: device busy {busy_ms:.1f} ms; warm wall {wall_ms:.1f} "
+          f"ms unprofiled ({wall_prof * 1e3:.1f} ms profiled); busy share "
+          f"of the unprofiled wall {share:.3f}"
           + ("" if busy_ms else " — the profiler showed no device time: "
              "not measured"))
-    top = [dict(name=e.key[:90], ms=e.self_device_time_total / 1e3,
-                count=e.count) for e in dev_ops[:12]]
     for t in top:
         print(f"  {t['ms']:9.3f} ms x{t['count']:<6d} {t['name']}")
     report["profile"] = dict(busy_ms=busy_ms, wall_ms=wall_ms,
                              wall_ms_profiled=wall_prof * 1e3,
                              busy_share=share, top=top)
 
-    # ---- 7. the kernel line -----------------------------------------------
+    # ---- 7-10. the LM serving slice ---------------------------------------
+    fa_err = flash_vs_plain(torch, dev, gen, report)
+    route_parity(torch, dev, report)
+    serve_launches = serving_path(torch, dev, report)
+    fa = flash_timings(torch, dev, gen, report)
+
+    # ---- 11. the kernel line ----------------------------------------------
     fb, pg = timings["fed_agg_bank"], timings["pairwise_dist_grouping"]
     kernel_line = {"kernels": [
         dict(name="fed_agg", route="cuda",
@@ -426,6 +488,12 @@ def main() -> None:
              launches=group_launches, max_abs_err=pd_abs, ms=pg["ms"],
              plain_ms=pg["plain_ms"], bound_ms=pg["bound_ms"],
              bound_by=pg["bound_by"], library_ms=pg["library_ms"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:29",
+             launches=serve_launches, max_abs_err=fa_err, ms=fa["ms"],
+             plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
+             bound_by=fa["bound_by"], library_ms=fa["library_ms"]),
     ]}
     report["kernels"] = kernel_line["kernels"]
     if args.report is not None:
@@ -447,6 +515,262 @@ def sim_workload(sim):
     """The main path's workload again, from its initial model."""
     from repro_torch.fl_constellation_sim import Workload
     return Workload(sim.trainer, sim.evaluator, results_w0(sim))
+
+
+def flash_vs_plain(torch, dev, gen, report) -> float:
+    """Phase 7: the kernel against its plain version; the largest abs
+    error at the sweep's input spread (where its tolerances hold)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+    phase("phase 7: flash_attention kernel vs plain (max abs error; bf16 "
+          "also error / (2^-7 |want| + 2^-8 rms(want row)))")
+
+    def check(name, q, k, v, causal, window, spread):
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = attention_ref_bshd(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if got.dtype != q.dtype:
+            fail(f"flash_attention {name}: output dtype {got.dtype}")
+        got, want = got.float(), want.float()
+        diff = (got - want).abs()
+        err = float(diff.max())
+        rms = float(want.square().mean().sqrt())
+        dt = str(q.dtype).split(".")[-1]
+        scaled = None
+        if dt == "bfloat16":
+            row_rms = want.square().mean(-1, keepdim=True).sqrt()
+            limit = FLASH_BF16_REL * want.abs() + FLASH_BF16_ROW * row_rms
+            scaled = float((diff / limit).max())
+        print(f"  {name}: max abs error {err:.3e}, rms |want| {rms:.3e}"
+              + (f", scaled error {scaled:.3f}" if scaled is not None
+                 else ""))
+        abs_tol = FLASH_TOL[dt] if spread == FLASH_SPREADS[0] else None
+        if abs_tol is not None and not err <= abs_tol:
+            fail(f"flash_attention {name}: max abs error {err} > {abs_tol} "
+                 f"(rms |want| {rms})")
+        if scaled is not None and not scaled <= 1.0:
+            fail(f"flash_attention {name}: scaled error {scaled} > 1 (max "
+                 f"abs error {err}, rms |want| {rms})")
+        return dict(name=name, spread=spread, max_abs_err=err,
+                    rms_want=rms, scaled_err=scaled)
+
+    def randn(shape, dtype, spread):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * spread).to(dtype)
+
+    cases = []
+    for B, S, H, KV, hd in ((1, 128, 2, 2, 64), (2, 256, 4, 2, 64),
+                            (1, 200, 4, 1, 32), (2, 64, 8, 8, 128)):
+        for causal, window in ((True, 0), (True, 48), (False, 0)):
+            cases.append((B, S, H, KV, hd, causal, window, "float32",
+                          FLASH_SPREADS[0]))
+            for spread in FLASH_SPREADS:
+                cases.append((B, S, H, KV, hd, causal, window, "bfloat16",
+                              spread))
+    P = PREFILL
+    for window in (0, 512):
+        for spread in FLASH_SPREADS:
+            cases.append((P["B"], P["S"], P["H"], P["KV"], P["hd"], True,
+                          window, "bfloat16", spread))
+    results = []
+    for B, S, H, KV, hd, causal, window, dt, spread in cases:
+        dtype = getattr(torch, dt)
+        q = randn((B, S, H, hd), dtype, spread)
+        k = randn((B, S, KV, hd), dtype, spread)
+        v = randn((B, S, KV, hd), dtype, spread)
+        results.append(check(
+            f"B={B} S={S:4d} H={H:2d} KV={KV} hd={hd:3d} causal={causal:d} "
+            f"window={window:3d} {dt:8s} spread {spread}", q, k, v, causal,
+            window, spread))
+    # q, k, v as strided views into one fused (B, S, (H + 2 KV) hd) tensor
+    for dt in ("float32", "bfloat16"):
+        B, S, H, KV, hd = 2, 300, 8, 2, 64
+        fused = randn((B, S, (H + 2 * KV) * hd), getattr(torch, dt),
+                      FLASH_SPREADS[0])
+        q = fused[..., :H * hd].view(B, S, H, hd)
+        k = fused[..., H * hd:(H + KV) * hd].view(B, S, KV, hd)
+        v = fused[..., (H + KV) * hd:].view(B, S, KV, hd)
+        results.append(check(
+            f"strided views B={B} S={S} H={H} KV={KV} hd={hd} window=100 "
+            f"{dt}", q, k, v, True, 100, FLASH_SPREADS[0]))
+    worst = max(r["max_abs_err"] for r in results
+                if r["spread"] == FLASH_SPREADS[0])
+    scaled = max(r["scaled_err"] for r in results
+                 if r["scaled_err"] is not None)
+    print(f"flash_attention: {len(results)} cases pass; max abs error at "
+          f"spread {FLASH_SPREADS[0]} {worst:.3e} (tolerances "
+          f"{FLASH_TOL}), largest bf16 scaled error {scaled:.3f} (limit 1)")
+    report["flash_errors"] = results
+    return worst
+
+
+def route_parity(torch, dev, report) -> None:
+    """Phase 8: qwen3-4b at full width, 2 layers, f32: kernel route vs
+    plain route, and decode vs the full forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import registry as R
+    phase("phase 8: model-level route parity — qwen3-4b full width, 2 "
+          "layers, f32")
+    cfg = get_config("qwen3-4b").replace(num_layers=2, dtype="float32",
+                                         remat=False)
+    params = R.init_params(1, cfg, device=dev)
+    B, S = 2, 300
+    toks = torch.tensor(token_stream(1, B * S, cfg.vocab_size)
+                        .reshape(B, S), dtype=torch.long, device=dev)
+    plain, _ = R.apply(params, cfg, {"tokens": toks}, impl="plain")
+    flash, _ = R.apply(params, cfg, {"tokens": toks}, impl="flash")
+    route_err = float((flash - plain).abs().max())
+    T = 16
+    full, _ = R.apply(params, cfg, {"tokens": toks[:, :T]}, impl="flash")
+    cache = R.init_cache(cfg, B, T, torch.float32, device=dev)
+    outs = []
+    for t in range(T):
+        lg, cache = R.decode_step(params, cfg, cache, toks[:, t:t + 1])
+        outs.append(lg[:, 0])
+    dec_err = float((torch.stack(outs, 1) - full).abs().max())
+    scale = float(plain.abs().max())
+    print(f"kernel vs plain route: logits ({B}, {S}, {cfg.vocab_size}) max "
+          f"abs difference {route_err:.3e} (tolerance {ROUTE_TOL}; max "
+          f"|logit| {scale:.2f}); {T} decode steps vs the full forward "
+          f"{dec_err:.3e} (tolerance {DECODE_TOL})")
+    if not route_err <= ROUTE_TOL:
+        fail(f"kernel and plain routes differ by {route_err}")
+    if not dec_err < DECODE_TOL:
+        fail(f"decode differs from the full forward by {dec_err}")
+    report["route_parity"] = dict(route_err=route_err, decode_err=dec_err,
+                                  max_logit=scale)
+    del params, plain, flash, full, cache
+    torch.cuda.empty_cache()
+
+
+def serving_path(torch, dev, report) -> int:
+    """Phase 9: the serving entry point at full width; returns the flash
+    kernel's launches in that run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.fed_agg import fed_agg
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_sq
+    from repro_torch.serve_decode import main as serve_main, serve
+    B, P, T = PREFILL["B"], PREFILL["S"], 32
+    phase(f"phase 9: serving path — repro_torch.serve_decode.main "
+          f"--full-width qwen3-4b, B={B}, prefill {P}, {T} decode tokens, "
+          f"cache {P}")
+    argv = ["--full-width", "--arch", "qwen3-4b", "--batch", str(B),
+            "--prefill-len", str(P), "--tokens", str(T), "--cache-len",
+            str(P), "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    fed_agg.launches = pairwise_dist_sq.launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    res = serve_main(argv)
+    first_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    others = fed_agg.launches + pairwise_dist_sq.launches
+    cfg, params = res["cfg"], res["params"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"first run (with init): {first_s:.2f} s; prefill "
+          f"{res['prefill_s'] * 1e3:.1f} ms; flash_attention launches "
+          f"{launches}; peak memory {peak_gb:.1f} GB")
+    if launches != cfg.num_layers:
+        fail(f"flash_attention launched {launches} times in one prefill of "
+             f"{cfg.num_layers} layers")
+    if others:
+        fail(f"the serving path launched epoch-loop kernels ({others})")
+    if res["prefill_logits_shape"] != (B, P, cfg.vocab_size):
+        fail(f"prefill logits {res['prefill_logits_shape']}")
+    if res["tokens"].shape != (B, T) or not bool(
+            torch.isfinite(res["logits"]).all()):
+        fail("decode gave no finite logits")
+
+    kw = dict(batch=B, tokens=T, cache_len=P, prefill_len=P, device=dev)
+    before = flash_attention.launches
+    t0 = time.perf_counter()
+    warm = serve(params, cfg, **kw)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if flash_attention.launches - before != cfg.num_layers:
+        fail("the warm prefill did not launch flash_attention once a layer")
+    steps_ms = sorted(x * 1e3 for x in warm["step_s"][1:])
+    decode_ms = steps_ms[len(steps_ms) // 2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(params, cfg, **kw)
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, n_kernels, top = top_device_ops(prof)
+    share = busy_ms / wall_ms if busy_ms else float("nan")
+    print(f"warm: prefill {warm['prefill_s'] * 1e3:.1f} ms ({B}x{P} "
+          f"tokens, {B * P / warm['prefill_s']:.0f} tok/s); decode median "
+          f"{decode_ms:.2f} ms/token-step (min {steps_ms[0]:.2f}, max "
+          f"{steps_ms[-1]:.2f}; {B / decode_ms * 1e3:.1f} tok/s at B={B}); "
+          f"prefill + {T} steps {wall_ms:.1f} ms unprofiled "
+          f"({prof_ms:.1f} ms profiled)")
+    print(f"profile of one prefill + {T} decode steps: device busy "
+          f"{busy_ms:.1f} ms over {n_kernels} kernel launches, busy share "
+          f"of the unprofiled wall {share:.3f}"
+          + ("" if busy_ms else " — no device time recorded: not measured"))
+    for t in top:
+        print(f"  {t['ms']:9.3f} ms x{t['count']:<6d} {t['name']}")
+    report["serving"] = dict(
+        first_run_s=first_s, prefill_ms_first=res["prefill_s"] * 1e3,
+        prefill_ms=warm["prefill_s"] * 1e3, decode_ms_median=decode_ms,
+        decode_ms_steps=steps_ms, wall_ms=wall_ms, wall_ms_profiled=prof_ms,
+        busy_ms=busy_ms, busy_share=share, kernel_launches=n_kernels,
+        top=top, launches=launches,
+        peak_gb=peak_gb)
+    del res, warm, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def flash_timings(torch, dev, gen, report) -> dict:
+    """Phase 10: the kernel at the prefill shape, beside its plain version,
+    the library yardstick and its bound."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+    F = torch.nn.functional
+    phase("phase 10: flash_attention timings at the prefill shape (device "
+          "time from the profiler trace; inputs cycled through > 2x L2)")
+    B, S, H, KV, hd = (PREFILL[k] for k in ("B", "S", "H", "KV", "hd"))
+    elt = 2
+    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * elt
+    out = {}
+    for window in (0, 512):
+        def make():
+            return tuple((torch.randn(*shape, generator=gen, device=dev)
+                          * 0.5).to(torch.bfloat16)
+                         for shape in ((B, S, H, hd), (B, S, KV, hd),
+                                       (B, S, KV, hd)))
+        sets = cycled_inputs(make, nbytes)
+        k_ms, q_ms, host_ms = time_device(
+            torch, lambda q, k, v: flash_attention(q, k, v, causal=True,
+                                                   window=window), sets)
+        p_ms, _, _ = time_device(
+            torch, lambda q, k, v: attention_ref_bshd(
+                q, k, v, causal=True, window=window), sets, reps=10)
+        l_ms = None
+        if not window:    # the library call has no sliding window
+            l_ms, _, _ = time_device(
+                torch, lambda q, k, v: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True), sets)
+        flops = 4.0 * hd * B * H * attention_pairs(S, S, True, window)
+        b_ms, by = bound_ms(nbytes, flops, H100_BF16_FLOP_PER_S)
+        t = dict(shape=[B, S, H, KV, hd], window=window, ms=k_ms,
+                 queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms,
+                 library_ms=l_ms, bound_ms=b_ms, bound_by=by, flops=flops,
+                 tflops=flops / k_ms / 1e9)
+        out[window] = t
+        print(f"flash_attention [{B}, {S}, {H}, {KV}, {hd}] bf16 causal "
+              f"window={window}: kernel {k_ms:.4f} ms ({t['tflops']:.1f} "
+              f"TFLOP/s; queued {q_ms:.4f} ms/call, host enqueue "
+              f"{host_ms * 1e3:.1f} us/call), bound {b_ms:.4f} ms ({by}), "
+              f"plain {p_ms:.3f} ms, library "
+              + (f"{l_ms:.4f} ms (scaled_dot_product_attention)"
+                 if l_ms is not None else "none (no windowed SDPA)"))
+    report["flash_timings"] = out
+    return out[0]
 
 
 if __name__ == "__main__":

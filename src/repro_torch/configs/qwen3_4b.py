@@ -1,0 +1,10 @@
+"""qwen3-4b — dense, qk_norm, GQA. [hf:Qwen/Qwen3-8B family card]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-4b", family="dense",
+    num_layers=36, d_model=2560, num_heads=32, num_kv_heads=8,
+    d_ff=9728, vocab_size=151936, head_dim=128,
+    qk_norm=True, rope_theta=1_000_000.0,
+    citation="hf:Qwen/Qwen3-8B",
+)

@@ -1,0 +1,10 @@
+"""starcoder2-3b — GQA kv=2, RoPE. [arXiv:2402.19173]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-3b", family="dense",
+    num_layers=30, d_model=3072, num_heads=24, num_kv_heads=2,
+    d_ff=12288, vocab_size=49152,
+    rope_theta=999999.0,
+    citation="arXiv:2402.19173",
+)

@@ -106,18 +106,24 @@ class ModelBank:
         return ModelBank(self.spec, gather_rows(self.stack, list(idx)))
 
 
-def params_from_jax(np_params: Dict[str, np.ndarray], *,
-                    device="cuda") -> Dict[str, torch.Tensor]:
+def params_from_jax(np_params, *, device="cuda"):
     """The JAX package's parameters, as numpy arrays
-    (``jax.device_get(cnn.init_params(...))``), as a dict of float32
-    tensors on ``device`` with the same keys and shapes."""
+    (``jax.device_get(init_params(...))``), as float32 tensors on
+    ``device`` with the same keys and shapes.  Nested dicts (the LM
+    parameter tree, with its layer-stacked leaves) keep their nesting."""
     dev = resolve_device(device)
-    return {k: torch.tensor(np.asarray(v, np.float32), device=dev)
-            for k, v in np_params.items()}
+
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return torch.tensor(np.asarray(v, np.float32), device=dev)
+
+    return conv(np_params)
 
 
-def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Inverse of :func:`params_from_jax`: float32 numpy arrays that the
-    JAX package takes as parameters."""
-    return {k: v.detach().cpu().numpy().astype(np.float32, copy=True)
-            for k, v in params.items()}
+def params_to_jax(params):
+    """Inverse of :func:`params_from_jax`: float32 numpy arrays, nested as
+    ``params`` is, that the JAX package takes as parameters."""
+    if isinstance(params, dict):
+        return {k: params_to_jax(v) for k, v in params.items()}
+    return params.detach().cpu().numpy().astype(np.float32, copy=True)

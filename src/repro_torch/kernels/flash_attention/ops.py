@@ -1,0 +1,102 @@
+"""The flash_attention wrapper: GQA attention over the model's
+(B, S, H, hd) layout.
+
+A tensor on the CPU takes the plain version (``ref.attention_ref_bshd``:
+repeat the KV heads and flatten, as the JAX package's wrapper does); a CUDA
+tensor launches the CUDA kernel (``csrc/flash_attention.cu``), which maps
+query head h to KV head h // (H // KV) and reads every operand through
+its strides, or raises.  ``flash_attention.launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+
+HEAD_DIMS = (32, 64, 128)      # the kernel's instantiations
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_BH = 65535                # the grid's y extent
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_SIGNATURES = {
+    "flash_attention_launch": ([_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                                _INT, _INT, _INT, _INT, _PTR, _INT, _INT,
+                                ctypes.c_float, _PTR], _INT),
+}
+
+
+def _check(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q must be (B, Sq, H, hd) and k, "
+                         f"v (B, Sk, KV, hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
+                         f"q {tuple(q.shape)} (same B and hd, H % KV == 0)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q, k, v must all be float32 or "
+                         f"all bfloat16, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"flash_attention: q, k, v on {q.device}, "
+                         f"{k.device}, {v.device}")
+    if Sk == 0 or window < 0:
+        raise ValueError(f"flash_attention: need Sk > 0 and window >= 0, got "
+                         f"Sk={Sk}, window={window}")
+    per = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.stride(3) != 1 or t.data_ptr() % 16
+                or any(s % per for s in t.stride()[:3])):
+            raise ValueError(f"flash_attention: {name} needs a contiguous "
+                             f"head dim and 16-byte aligned rows (strides "
+                             f"{t.stride()})")
+    if B * H > _MAX_BH:
+        raise ValueError(f"flash_attention: B * H = {B * H} > {_MAX_BH}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0, all
+    float32 or all bfloat16, hd in ``HEAD_DIMS``, the head dim contiguous.
+    Returns (B, Sq, H, hd) in q's dtype: softmax(q k^T / sqrt(hd)) v under
+    the causal (kpos <= qpos) and window (qpos - kpos < window) masks, by
+    row and column index."""
+    _check(q, k, v, window)
+    dev = q.device
+    if dev.type == "cpu":
+        return attention_ref_bshd(q, k, v, causal=causal, window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {dev}")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    if Sq == 0 or B == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3])
+    lib = kernels.library("flash_attention", _SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], B, Sq, Sk, H, KV, hd,
+            ctypes.cast(strides, _PTR), int(bool(causal)), int(window),
+            1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise kernels.launch_error(lib, "flash_attention", rc)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
