@@ -37,13 +37,44 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   9. the serving path: ``repro_torch.serve_decode.main`` at
      ``--full-width`` qwen3-4b (36 layers), B 4, a 2048-token prefill
      through the kernel, 32 greedy decode steps over a 2048-slot cache.
-     ``flash_attention`` must launch exactly 36 times per prefill; the
-     logits must be finite.  Prefill wall, decode ms/token (warm), the
-     device busy share and the top device ops of one prefill plus decode;
+     ``flash_attention`` must launch exactly 36 times per prefill and the
+     other kernels never; the logits must be finite.  Prefill wall, decode
+     ms/token (warm), the device busy share and the top device ops of one
+     prefill plus decode; the qwen3-4b weights are freed after it;
  10. ``flash_attention`` timed at the prefill shape beside its plain
      version, ``scaled_dot_product_attention`` (the library yardstick,
-     never called by the port) and its bound;
- 11. one JSON line of per-kernel numbers.
+     never called by the port; with a boolean band mask for window 512)
+     and its bound;
+ 11. ``chunk_scan`` against its plain version (the sequential recurrence)
+     on the card: the JAX package's kernel sweep (three shapes, RWKV6 and
+     Mamba2 modes, f32 and bf16), a zamba2-shaped Mamba2 case (H 40, K 64,
+     V 128), a strided-view case, short and ragged chunks, the serving
+     shape (B 4, T 2048, H 64, K = V = 64, chunk 128, bf16, RWKV6) and
+     every log-decay at the clamp (-1) at chunk 128 in both modes, where
+     the TPU kernel's factorisation overflows.  f32: max abs error <= 5e-5
+     on y and the final state; bf16: every y element within 2^-7 |want| +
+     2^-8 rms(want's row), the state within 5e-5; all of it finite;
+ 12. model-level route parity: rwkv6-7b at full width with 2 layers,
+     B 2 x 256 tokens (two chunks): f32 logits through the kernel route
+     against the plain route (2e-4); 16 decode steps against the full
+     forward in float64 (1e-4; the plain route: the kernel takes f32 and
+     bf16), with the same comparison in f32 through the kernel and the
+     plain route printed beside it.  In f32 the first positions are
+     ill-conditioned at this width (a rank-1 WKV state under the per-head
+     group norm, eps 64e-5, turns rounding of 1e-7 into logit differences
+     of ~3e-4, whichever route computes the forward), so f32 does not
+     gate;
+ 13. the serving path: ``repro_torch.serve_decode.main`` at
+     ``--full-width`` rwkv6-7b (32 layers), B 4, a 2048-token prefill
+     through ``chunk_scan``, 32 greedy decode steps over the recurrent
+     state.  ``chunk_scan`` must launch exactly 32 times per prefill and
+     the other kernels never; the logits must be finite.  The same numbers
+     as phase 9, and the lowest in-chunk cumulative log-decay of the
+     prefill's 32 layers (how close the JAX package's factorisation came
+     to overflowing on this input);
+ 14. ``chunk_scan`` timed at the serving shape beside its plain version
+     and its bound (no single PyTorch call computes the recurrence);
+ 15. one JSON line of per-kernel numbers.
 
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -85,6 +116,12 @@ FLASH_SPREADS = (0.5, 2.0)
 ROUTE_TOL = 2e-4                    # kernel vs plain route, model logits
 DECODE_TOL = 1e-4                   # decode vs full forward, model logits
 PREFILL = dict(B=4, S=2048, H=32, KV=8, hd=128)   # the serving prefill
+# chunk_scan, max abs error of y and the final state in f32 (the JAX
+# package's sweep atol, without its rtol = 0.1 slack), and of the f32 final
+# state in every case (both sides widen the same bf16 inputs to f32)
+SCAN_TOL = 5e-5
+SCAN_SERVE = dict(B=4, T=2048, H=64, K=64, V=64, chunk=128)  # rwkv6-7b
+F32_EXP_MAX = 88.72                 # log of the largest finite f32
 
 
 def fail(msg: str) -> None:
@@ -112,12 +149,13 @@ def cycled_inputs(make, nbytes: int):
     return [make() for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)))]
 
 
-def time_device(torch, fn, sets, reps: int = 200):
+def time_device(torch, fn, sets, reps: int = 200, only=None):
     """Per call of ``fn`` over ``reps`` calls cycling through ``sets``:
-    (device ms: the summed durations of the kernels it launched, from the
-    profiler's CUPTI trace; queue ms: CUDA events around the queued calls,
-    which include the gaps when the host enqueues slower than the card
-    runs; host ms: the wall time of one enqueue)."""
+    (device ms: the summed durations of the kernels it launched — of those
+    whose name holds ``only``, if given — from the profiler's CUPTI trace;
+    queue ms: CUDA events around the queued calls, which include the gaps
+    when the host enqueues slower than the card runs; host ms: the wall
+    time of one enqueue)."""
     from torch.profiler import ProfilerActivity, profile
     for s in sets[:2]:
         fn(*s)
@@ -138,9 +176,13 @@ def time_device(torch, fn, sets, reps: int = 200):
             fn(*sets[i % len(sets)])
         torch.cuda.synchronize()
     dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if str(e.device_type).endswith("CUDA"))
+                 if str(e.device_type).endswith("CUDA")
+                 and (only is None or only in e.key))
     if dev_us <= 0:
-        fail("the profiler recorded no device time for a timed kernel")
+        fail("the profiler recorded no device time for a timed kernel"
+             + (f" named {only!r}; it saw "
+                f"{sorted({e.key[:60] for e in prof.key_averages()})}"
+                if only else ""))
     return dev_us / reps / 1e3, queue, host
 
 
@@ -467,13 +509,27 @@ def main() -> None:
                              wall_ms_profiled=wall_prof * 1e3,
                              busy_share=share, top=top)
 
-    # ---- 7-10. the LM serving slice ---------------------------------------
+    # ---- 7-10. LM serving, dense family ----------------------------------
+    from repro_torch.kernels.chunk_scan import chunk_scan
+    from repro_torch.kernels.flash_attention import flash_attention
     fa_err = flash_vs_plain(torch, dev, gen, report)
     route_parity(torch, dev, report)
-    serve_launches = serving_path(torch, dev, report)
+    fa_launches = serving_path(
+        torch, dev, report, arch="qwen3-4b", phase_no=9,
+        kernel=flash_attention, others=(fed_agg, pairwise_dist_sq, chunk_scan),
+        extra_argv=["--cache-len", str(PREFILL["S"])])
     fa = flash_timings(torch, dev, gen, report)
 
-    # ---- 11. the kernel line ----------------------------------------------
+    # ---- 11-14. LM serving, RWKV6 -----------------------------------------
+    cs_err = scan_vs_plain(torch, dev, gen, report)
+    rwkv_route_parity(torch, dev, report)
+    cs_launches = serving_path(
+        torch, dev, report, arch="rwkv6-7b", phase_no=13, kernel=chunk_scan,
+        others=(fed_agg, pairwise_dist_sq, flash_attention), extra_argv=[],
+        after=lowest_in_chunk_decay)
+    cs = scan_timings(torch, dev, gen, report)
+
+    # ---- 15. the kernel line ----------------------------------------------
     fb, pg = timings["fed_agg_bank"], timings["pairwise_dist_grouping"]
     kernel_line = {"kernels": [
         dict(name="fed_agg", route="cuda",
@@ -491,9 +547,15 @@ def main() -> None:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:29",
-             launches=serve_launches, max_abs_err=fa_err, ms=fa["ms"],
+             launches=fa_launches, max_abs_err=fa_err, ms=fa["ms"],
              plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
              bound_by=fa["bound_by"], library_ms=fa["library_ms"]),
+        dict(name="chunk_scan", route="cuda",
+             source="src/repro_torch/csrc/chunk_scan.cu",
+             replaces="src/repro/kernels/chunk_scan/kernel.py:20",
+             launches=cs_launches, max_abs_err=cs_err, ms=cs["ms"],
+             plain_ms=cs["plain_ms"], bound_ms=cs["bound_ms"],
+             bound_by=cs["bound_by"], library_ms=None),
     ]}
     report["kernels"] = kernel_line["kernels"]
     if args.report is not None:
@@ -619,10 +681,10 @@ def route_parity(torch, dev, report) -> None:
     toks = torch.tensor(token_stream(1, B * S, cfg.vocab_size)
                         .reshape(B, S), dtype=torch.long, device=dev)
     plain, _ = R.apply(params, cfg, {"tokens": toks}, impl="plain")
-    flash, _ = R.apply(params, cfg, {"tokens": toks}, impl="flash")
+    flash, _ = R.apply(params, cfg, {"tokens": toks}, impl="kernel")
     route_err = float((flash - plain).abs().max())
     T = 16
-    full, _ = R.apply(params, cfg, {"tokens": toks[:, :T]}, impl="flash")
+    full, _ = R.apply(params, cfg, {"tokens": toks[:, :T]}, impl="kernel")
     cache = R.init_cache(cfg, B, T, torch.float32, device=dev)
     outs = []
     for t in range(T):
@@ -644,40 +706,42 @@ def route_parity(torch, dev, report) -> None:
     torch.cuda.empty_cache()
 
 
-def serving_path(torch, dev, report) -> int:
-    """Phase 9: the serving entry point at full width; returns the flash
-    kernel's launches in that run."""
+def serving_path(torch, dev, report, *, arch, phase_no, kernel, others,
+                 extra_argv, after=None) -> int:
+    """Phases 9 and 13: the serving entry point at full width of ``arch``;
+    ``kernel`` (a wrapper) must launch once a layer per prefill and
+    ``others`` never.  ``after(torch, params, cfg, out)`` runs on the model
+    before its weights are freed, with the phase's numbers ``out``.
+    Returns the kernel's launches in the entry point's run."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.fed_agg import fed_agg
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.pairwise_dist import pairwise_dist_sq
     from repro_torch.serve_decode import main as serve_main, serve
     B, P, T = PREFILL["B"], PREFILL["S"], 32
-    phase(f"phase 9: serving path — repro_torch.serve_decode.main "
-          f"--full-width qwen3-4b, B={B}, prefill {P}, {T} decode tokens, "
-          f"cache {P}")
-    argv = ["--full-width", "--arch", "qwen3-4b", "--batch", str(B),
-            "--prefill-len", str(P), "--tokens", str(T), "--cache-len",
-            str(P), "--device", "cuda"]
+    name = kernel.__name__
+    phase(f"phase {phase_no}: serving path — repro_torch.serve_decode.main "
+          f"--full-width {arch}, B={B}, prefill {P}, {T} decode tokens "
+          + " ".join(extra_argv))
+    argv = ["--full-width", "--arch", arch, "--batch", str(B),
+            "--prefill-len", str(P), "--tokens", str(T), "--device", "cuda",
+            *extra_argv]
     torch.cuda.reset_peak_memory_stats(dev)
-    fed_agg.launches = pairwise_dist_sq.launches = 0
-    flash_attention.launches = 0
+    for w in (kernel, *others):
+        w.launches = 0
     t0 = time.perf_counter()
     res = serve_main(argv)
     first_s = time.perf_counter() - t0
-    launches = flash_attention.launches
-    others = fed_agg.launches + pairwise_dist_sq.launches
+    launches = kernel.launches
+    other = {w.__name__: w.launches for w in others}
     cfg, params = res["cfg"], res["params"]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"first run (with init): {first_s:.2f} s; prefill "
-          f"{res['prefill_s'] * 1e3:.1f} ms; flash_attention launches "
-          f"{launches}; peak memory {peak_gb:.1f} GB")
+          f"{res['prefill_s'] * 1e3:.1f} ms; {name} launches {launches}; "
+          f"other kernels {other}; peak memory {peak_gb:.1f} GB")
     if launches != cfg.num_layers:
-        fail(f"flash_attention launched {launches} times in one prefill of "
+        fail(f"{name} launched {launches} times in one prefill of "
              f"{cfg.num_layers} layers")
-    if others:
-        fail(f"the serving path launched epoch-loop kernels ({others})")
+    if any(other.values()):
+        fail(f"the {arch} serving path launched other kernels: {other}")
     if res["prefill_logits_shape"] != (B, P, cfg.vocab_size):
         fail(f"prefill logits {res['prefill_logits_shape']}")
     if res["tokens"].shape != (B, T) or not bool(
@@ -685,12 +749,12 @@ def serving_path(torch, dev, report) -> int:
         fail("decode gave no finite logits")
 
     kw = dict(batch=B, tokens=T, cache_len=P, prefill_len=P, device=dev)
-    before = flash_attention.launches
+    before = kernel.launches
     t0 = time.perf_counter()
     warm = serve(params, cfg, **kw)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    if flash_attention.launches - before != cfg.num_layers:
-        fail("the warm prefill did not launch flash_attention once a layer")
+    if kernel.launches - before != cfg.num_layers:
+        fail(f"the warm prefill did not launch {name} once a layer")
     steps_ms = sorted(x * 1e3 for x in warm["step_s"][1:])
     decode_ms = steps_ms[len(steps_ms) // 2]
     with profile(activities=[ProfilerActivity.CPU,
@@ -712,13 +776,15 @@ def serving_path(torch, dev, report) -> int:
           + ("" if busy_ms else " — no device time recorded: not measured"))
     for t in top:
         print(f"  {t['ms']:9.3f} ms x{t['count']:<6d} {t['name']}")
-    report["serving"] = dict(
+    out = dict(
         first_run_s=first_s, prefill_ms_first=res["prefill_s"] * 1e3,
         prefill_ms=warm["prefill_s"] * 1e3, decode_ms_median=decode_ms,
         decode_ms_steps=steps_ms, wall_ms=wall_ms, wall_ms_profiled=prof_ms,
         busy_ms=busy_ms, busy_share=share, kernel_launches=n_kernels,
-        top=top, launches=launches,
-        peak_gb=peak_gb)
+        top=top, launches=launches, peak_gb=peak_gb)
+    report[f"serving_{arch}"] = out
+    if after is not None:
+        after(torch, params, cfg, out)
     del res, warm, params
     torch.cuda.empty_cache()
     return launches
@@ -749,28 +815,295 @@ def flash_timings(torch, dev, gen, report) -> dict:
         p_ms, _, _ = time_device(
             torch, lambda q, k, v: attention_ref_bshd(
                 q, k, v, causal=True, window=window), sets, reps=10)
-        l_ms = None
-        if not window:    # the library call has no sliding window
-            l_ms, _, _ = time_device(
-                torch, lambda q, k, v: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, enable_gqa=True), sets)
+        # the library call: causal SDPA, or SDPA with the window's boolean
+        # band mask (qpos - window < kpos <= qpos)
+        pos = torch.arange(S, device=dev)
+        band = ((pos[None, :] <= pos[:, None])
+                & (pos[:, None] - pos[None, :] < window)) if window else None
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=band, is_causal=band is None,
+                enable_gqa=True).transpose(1, 2)
+        lib_err = float((library(*sets[0]).float() - flash_attention(
+            *sets[0], causal=True, window=window).float()).abs().max())
+        if not lib_err <= FLASH_TOL["bfloat16"]:
+            fail(f"the library yardstick at window {window} computes another "
+                 f"function: {lib_err} from the kernel")
+        l_ms, _, _ = time_device(torch, library, sets)
         flops = 4.0 * hd * B * H * attention_pairs(S, S, True, window)
         b_ms, by = bound_ms(nbytes, flops, H100_BF16_FLOP_PER_S)
         t = dict(shape=[B, S, H, KV, hd], window=window, ms=k_ms,
                  queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms,
-                 library_ms=l_ms, bound_ms=b_ms, bound_by=by, flops=flops,
-                 tflops=flops / k_ms / 1e9)
+                 library_ms=l_ms, library_err=lib_err, bound_ms=b_ms,
+                 bound_by=by, flops=flops, tflops=flops / k_ms / 1e9)
         out[window] = t
         print(f"flash_attention [{B}, {S}, {H}, {KV}, {hd}] bf16 causal "
               f"window={window}: kernel {k_ms:.4f} ms ({t['tflops']:.1f} "
               f"TFLOP/s; queued {q_ms:.4f} ms/call, host enqueue "
               f"{host_ms * 1e3:.1f} us/call), bound {b_ms:.4f} ms ({by}), "
-              f"plain {p_ms:.3f} ms, library "
-              + (f"{l_ms:.4f} ms (scaled_dot_product_attention)"
-                 if l_ms is not None else "none (no windowed SDPA)"))
+              f"plain {p_ms:.3f} ms, library {l_ms:.4f} ms "
+              f"(scaled_dot_product_attention"
+              + (", boolean band mask" if window else ", causal")
+              + f"; {lib_err:.2e} from the kernel)")
     report["flash_timings"] = out
     return out[0]
+
+
+def scan_vs_plain(torch, dev, gen, report) -> float:
+    """Phase 11: the chunk_scan kernel against its plain version (the
+    sequential recurrence); returns the largest abs error of the f32 cases
+    (y and the final state)."""
+    from repro_torch.kernels.chunk_scan import chunk_scan
+    from repro_torch.kernels.chunk_scan.ref import chunk_scan_ref
+    phase("phase 11: chunk_scan kernel vs plain (max abs error of y and the "
+          "final state; bf16 y also error / (2^-7 |want| + 2^-8 rms(want "
+          "row)))")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def check(B, T, H, K, V, chunk, mode, dt, ld_const=None, ld_scale=0.8,
+              strided=False):
+        dtype = getattr(torch, dt)
+        rwkv = mode == "rwkv"
+        if strided:       # r, k, v as views into one fused projection
+            fused = (randn(B, T, H, 2 * K + V) * 0.3).to(dtype)
+            r, k, v = fused[..., :K], fused[..., K:2 * K], fused[..., 2 * K:]
+        else:
+            r, k = ((randn(B, T, H, K) * 0.3).to(dtype) for _ in range(2))
+            v = (randn(B, T, H, V) * 0.3).to(dtype)
+        s0 = randn(B, H, K, V) * 0.1
+        shape = (B, T, H, K) if rwkv else (B, T, H)
+        ld = (-torch.rand(*shape, generator=gen, device=dev) * ld_scale
+              if ld_const is None else torch.full(shape, ld_const,
+                                                  device=dev))
+        u = randn(H, K) * 0.2 if rwkv else None
+        kw = dict(include_current=not rwkv, bonus=u)
+        y, s_fin = chunk_scan(r, k, v, ld, s0, chunk=chunk, **kw)
+        y_want, s_want = chunk_scan_ref(r, k, v, ld, s0, **kw)
+        torch.cuda.synchronize()
+        name = (f"B={B} T={T:4d} H={H:2d} K={K:2d} V={V:3d} chunk={chunk:3d} "
+                f"{mode:5s} {dt:8s}" + (" strided" if strided else "")
+                + (f" ld={ld_const}" if ld_const is not None else ""))
+        if y.dtype != dtype or s_fin.dtype != torch.float32:
+            fail(f"chunk_scan {name}: output dtypes {y.dtype}, {s_fin.dtype}")
+        if not (bool(torch.isfinite(y).all())
+                and bool(torch.isfinite(s_fin).all())):
+            fail(f"chunk_scan {name}: non-finite output")
+        yg, yw = y.float(), y_want.float()
+        y_err = float((yg - yw).abs().max())
+        s_err = float((s_fin - s_want).abs().max())
+        scaled = None
+        if dt == "bfloat16":
+            row_rms = yw.square().mean(-1, keepdim=True).sqrt()
+            limit = FLASH_BF16_REL * yw.abs() + FLASH_BF16_ROW * row_rms
+            scaled = float(((yg - yw).abs() / limit).max())
+        print(f"  {name}: y {y_err:.3e}, state {s_err:.3e}, rms |y| "
+              f"{float(yw.square().mean().sqrt()):.3e}"
+              + (f", scaled {scaled:.3f}" if scaled is not None else ""))
+        if dt == "float32" and not y_err <= SCAN_TOL:
+            fail(f"chunk_scan {name}: y error {y_err} > {SCAN_TOL}")
+        if not s_err <= SCAN_TOL:
+            fail(f"chunk_scan {name}: state error {s_err} > {SCAN_TOL}")
+        if scaled is not None and not scaled <= 1.0:
+            fail(f"chunk_scan {name}: scaled error {scaled} > 1")
+        return dict(name=name, dtype=dt, y_err=y_err, s_err=s_err,
+                    scaled_err=scaled)
+
+    results = []
+    for B, T, H, K, V, chunk in ((1, 64, 2, 8, 16, 16),
+                                 (2, 128, 3, 16, 32, 32),
+                                 (1, 96, 1, 4, 64, 32)):
+        for mode in ("rwkv", "mamba"):
+            for dt in ("float32", "bfloat16"):
+                results.append(check(B, T, H, K, V, chunk, mode, dt))
+    for dt in ("float32", "bfloat16"):
+        results.append(check(1, 256, 40, 64, 128, 128, "mamba", dt))  # zamba2
+        results.append(check(2, 300, 3, 64, 64, 100, "rwkv", dt,
+                             strided=True))
+    results.append(check(2, 24, 2, 64, 64, 128, "rwkv", "float32"))
+    results.append(check(2, 21, 2, 12, 20, 128, "mamba", "float32"))
+    c = SCAN_SERVE
+    results.append(check(c["B"], c["T"], c["H"], c["K"], c["V"], c["chunk"],
+                         "rwkv", "bfloat16", ld_scale=1.2))
+    # every step at the clamp: the TPU kernel's factor exp(-L) reaches
+    # exp(128) within a chunk of 128, past f32's exp(88.72)
+    for mode in ("rwkv", "mamba"):
+        for dt in ("float32", "bfloat16"):
+            results.append(check(1, 256, 2, 64, 64, 128, mode, dt,
+                                 ld_const=-1.0))
+    print(f"  at ld = -1, chunk 128: the TPU kernel's exp(-L) would reach "
+          f"exp(128.0) > exp({F32_EXP_MAX}) (not a finite f32)")
+    worst = max(max(r["y_err"], r["s_err"]) for r in results
+                if r["dtype"] == "float32")
+    scaled = max(r["scaled_err"] for r in results
+                 if r["scaled_err"] is not None)
+    print(f"chunk_scan: {len(results)} cases pass; max abs error in f32 "
+          f"{worst:.3e} (tolerance {SCAN_TOL}), largest bf16 scaled error "
+          f"{scaled:.3f} (limit 1), every output finite")
+    report["chunk_scan_errors"] = results
+    return worst
+
+
+def rwkv_route_parity(torch, dev, report) -> None:
+    """Phase 12: rwkv6-7b at full width, 2 layers: the kernel route vs the
+    plain route in f32, and decode vs the full forward in float64 (and,
+    printed, in f32 through the kernel route)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import registry as R
+    phase("phase 12: model-level route parity — rwkv6-7b full width, 2 "
+          "layers; decode vs the full forward in float64")
+    cfg = get_config("rwkv6-7b").replace(num_layers=2, dtype="float32",
+                                         remat=False)
+    params = R.init_params(1, cfg, device=dev)
+    B, S = 2, 2 * cfg.chunk_size
+    toks = torch.tensor(token_stream(1, B * S, cfg.vocab_size)
+                        .reshape(B, S), dtype=torch.long, device=dev)
+    plain, _ = R.apply(params, cfg, {"tokens": toks}, impl="plain")
+    kern, _ = R.apply(params, cfg, {"tokens": toks}, impl="kernel")
+    route_err = float((kern - plain).abs().max())
+    scale = float(plain.abs().max())
+    del plain, kern
+    T = 16
+
+    def decode_vs_full(cfg, params, impl):
+        full, _ = R.apply(params, cfg, {"tokens": toks[:, :T]}, impl=impl)
+        cache = R.init_cache(cfg, B, T, getattr(torch, cfg.dtype),
+                             device=dev)
+        outs = []
+        for t in range(T):
+            lg, cache = R.decode_step(params, cfg, cache, toks[:, t:t + 1])
+            outs.append(lg[:, 0])
+        return (torch.stack(outs, 1) - full).abs().amax(dim=(0, 2)).tolist()
+
+    dec_f32 = decode_vs_full(cfg, params, "kernel")
+    dec_f32_plain = decode_vs_full(cfg, params, "plain")
+    cfg64 = cfg.replace(dtype="float64")
+    params = {k: ({n: t.double() for n, t in v.items()}
+                  if isinstance(v, dict) else v.double())
+              for k, v in params.items()}
+    dec_f64 = decode_vs_full(cfg64, params, "plain")
+    dec_err = max(dec_f64)
+    print(f"kernel vs plain route (f32): logits ({B}, {S}, {cfg.vocab_size}) "
+          f"max abs difference {route_err:.3e} (tolerance {ROUTE_TOL}; max "
+          f"|logit| {scale:.2f}); {T} decode steps vs the full forward in "
+          f"float64 {dec_err:.3e} (tolerance {DECODE_TOL}); in f32 (not "
+          f"gated) through the kernel route {max(dec_f32):.3e}, the plain "
+          f"route {max(dec_f32_plain):.3e}; by position, kernel route: "
+          + " ".join(f"{x:.1e}" for x in dec_f32))
+    if not (math.isfinite(scale) and route_err <= ROUTE_TOL):
+        fail(f"rwkv6-7b kernel and plain routes differ by {route_err}")
+    if not dec_err < DECODE_TOL:
+        fail(f"rwkv6-7b decode differs from the full forward by {dec_err}")
+    report["rwkv_route_parity"] = dict(
+        route_err=route_err, decode_err_f64=dec_err, max_logit=scale,
+        decode_err_f64_by_position=dec_f64,
+        decode_err_f32_by_position=dec_f32,
+        decode_err_f32_plain_by_position=dec_f32_plain)
+    del params
+    torch.cuda.empty_cache()
+
+
+def lowest_in_chunk_decay(torch, params, cfg, out) -> None:
+    """Phase 13, after the timed runs: one more prefill of the serving
+    prompt, recording each layer's clamped log-decay — its mean, the share
+    of steps at the clamp, and the lowest cumulative sum within a chunk
+    (where the JAX package's factor exp(-L) would overflow below
+    -88.72)."""
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import scan_ops
+    from repro_torch.serve_decode import SEED
+    B, P = PREFILL["B"], PREFILL["S"]
+    layers = []
+    orig = scan_ops.chunked_scan
+
+    def spy(r, k, v, log_decay, state0=None, *, chunk, **kw):
+        ld = scan_ops._prep_decay(log_decay, r.shape[-1])
+        L = ld.reshape(ld.shape[0], -1, chunk, *ld.shape[2:]).cumsum(2)
+        layers.append(dict(
+            lowest_cumsum=float(L.min()), mean=float(ld.mean()),
+            at_clamp=float((ld <= -scan_ops.LOG_DECAY_CLAMP).float().mean())))
+        return orig(r, k, v, log_decay, state0, chunk=chunk, **kw)
+
+    prompt = torch.tensor(token_stream(SEED, B * P, cfg.vocab_size)
+                          .reshape(B, P), dtype=torch.long,
+                          device=params["final_norm"].device)
+    scan_ops.chunked_scan = spy
+    try:
+        logits = make_prefill_step(cfg)(params, {"tokens": prompt})
+    finally:
+        scan_ops.chunked_scan = orig
+    if len(layers) != cfg.num_layers or not bool(
+            torch.isfinite(logits).all()):
+        fail("the recorded prefill did not run every layer to finite logits")
+    low = min(range(len(layers)), key=lambda i: layers[i]["lowest_cumsum"])
+    print(f"log-decay over the prefill's {len(layers)} layers: mean "
+          f"{sum(x['mean'] for x in layers) / len(layers):.4f} a step, "
+          f"{max(x['at_clamp'] for x in layers) * 100:.2f} % of steps at "
+          f"the clamp in the layer with most; lowest in-chunk cumulative "
+          f"sum {layers[low]['lowest_cumsum']:.2f} (layer {low}; the JAX "
+          f"package's exp(-L) overflows below -{F32_EXP_MAX})")
+    out["decay"] = dict(layers=layers, lowest_layer=low)
+
+
+def scan_timings(torch, dev, gen, report) -> dict:
+    """Phase 14: the kernel at the serving shape, beside its plain version
+    and its bound."""
+    from repro_torch.kernels.chunk_scan import chunk_scan
+    from repro_torch.kernels.chunk_scan.ref import chunk_scan_ref
+    c = SCAN_SERVE
+    B, T, H, K, V, Lc = (c[x] for x in ("B", "T", "H", "K", "V", "chunk"))
+    phase(f"phase 14: chunk_scan timings at the serving shape [{B}, {T}, {H}, "
+          f"{K}, {V}] chunk {Lc} bf16 RWKV6 (device time from the profiler "
+          f"trace; inputs cycled through > 2x L2)")
+    # r, k, v and y in bf16, ld in f32, s0 and s_fin in f32, u
+    nbytes = (B * T * H * (3 * K + V) * 2 + B * T * H * K * 4
+              + 2 * B * H * K * V * 4 + H * K * 4)
+
+    def make():
+        return ((torch.randn(B, T, H, K, generator=gen, device=dev) * 0.3)
+                .bfloat16(),
+                (torch.randn(B, T, H, K, generator=gen, device=dev) * 0.3)
+                .bfloat16(),
+                (torch.randn(B, T, H, V, generator=gen, device=dev) * 0.3)
+                .bfloat16(),
+                -torch.rand(B, T, H, K, generator=gen, device=dev) * 1.2,
+                torch.randn(B, H, K, V, generator=gen, device=dev) * 0.1,
+                torch.randn(H, K, generator=gen, device=dev) * 0.2)
+
+    def kernel(r, k, v, ld, s0, u):
+        return chunk_scan(r, k, v, ld, s0, include_current=False, bonus=u,
+                          chunk=Lc)
+
+    def plain(r, k, v, ld, s0, u):
+        return chunk_scan_ref(r, k, v, ld, s0, include_current=False,
+                              bonus=u)
+
+    sets = cycled_inputs(make, nbytes)
+    k_ms, q_ms, host_ms = time_device(torch, kernel, sets,
+                                      only="chunk_scan_kernel")
+    w_ms, _, _ = time_device(torch, kernel, sets)
+    p_ms, _, _ = time_device(torch, plain, sets, reps=3)
+    pairs = Lc * (Lc - 1) // 2
+    flops = B * H * (T // Lc) * 2.0 * (Lc * K * V + pairs * K + pairs * V
+                                       + K * Lc * V)
+    b_ms, by = bound_ms(nbytes, flops)
+    t = dict(shape=[B, T, H, K, V], chunk=Lc, ms=k_ms, wrapper_ms=w_ms,
+             queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms, library_ms=None,
+             bound_ms=b_ms, bound_by=by, flops=flops, nbytes=nbytes,
+             tflops=flops / k_ms / 1e9)
+    print(f"chunk_scan [{B}, {T}, {H}, {K}, {V}] chunk {Lc} bf16 RWKV6: "
+          f"kernel {k_ms:.4f} ms ({t['tflops']:.1f} TFLOP/s; the wrapper "
+          f"with its decay clamp {w_ms:.4f} ms; queued {q_ms:.4f} ms/call, "
+          f"host enqueue {host_ms * 1e3:.1f} us/call), bound {b_ms:.4f} ms "
+          f"({by}; {flops:.3e} flops, {nbytes / 1e6:.1f} MB), plain "
+          f"{p_ms:.2f} ms, library none (no single PyTorch call computes "
+          f"the recurrence)")
+    report["chunk_scan_timings"] = t
+    return t
 
 
 if __name__ == "__main__":

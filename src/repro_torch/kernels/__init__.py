@@ -9,7 +9,9 @@ all at once, and waits for every one of them.
 
   fed_agg        — staleness-discounted model aggregation (paper eq. 14)
   pairwise_dist  — pairwise squared-L2 between flattened models (grouping)
-  flash_attention — online-softmax GQA attention (the LM prefill)
+  flash_attention — online-softmax GQA attention (the dense LM prefill)
+  chunk_scan     — chunked linear recurrence, RWKV6 and Mamba2-SSD modes
+                   (the RWKV6 prefill)
 
 Each kernel's wrapper (``kernels/<name>/ops.py``) takes its plain PyTorch
 version (``kernels/<name>/ref.py``) only for a tensor on the CPU; for a
@@ -28,7 +30,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("fed_agg", "pairwise_dist", "flash_attention")
+SOURCES = ("fed_agg", "pairwise_dist", "flash_attention", "chunk_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 

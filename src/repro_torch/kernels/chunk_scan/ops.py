@@ -1,0 +1,109 @@
+"""The chunk_scan wrapper: the chunked linear recurrence over the model's
+(B, T, H, ·) layout, as the JAX package's ``kernels/chunk_scan/ops.py``.
+
+The log-decay is clamped (and a scalar per-head decay broadcast over K)
+by ``scan_ops._prep_decay`` before the kernel, as in the JAX package.  A
+tensor on the CPU takes the plain version (``ref.chunk_scan_ref``, the
+sequential recurrence); a CUDA tensor launches the CUDA kernel
+(``csrc/chunk_scan.cu``), which reads r, k, v and the decay through their
+strides, or raises.  ``chunk_scan.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.chunk_scan.ref import chunk_scan_ref
+from repro_torch.models.scan_ops import _prep_decay, check_chunk
+
+MAX_K = 64                     # the kernel's shared-memory tiles
+MAX_CHUNK = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_SIGNATURES = {
+    "chunk_scan_launch": ([_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                           _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                           _PTR, _PTR], _INT),
+}
+
+
+def _check(r, k, v, log_decay, state0, bonus, include_current, chunk):
+    if r.dim() != 4 or k.shape != r.shape or v.dim() != 4 \
+            or v.shape[:3] != r.shape[:3]:
+        raise ValueError(f"chunk_scan: r, k must be (B, T, H, K) and v (B, "
+                         f"T, H, V), got {tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    if tuple(log_decay.shape) not in ((B, T, H), (B, T, H, K)):
+        raise ValueError(f"chunk_scan: log_decay must be (B, T, H) or (B, T, "
+                         f"H, K), got {tuple(log_decay.shape)}")
+    if not 0 < K <= MAX_K or K % 4 or V == 0 or V % 4:
+        raise ValueError(f"chunk_scan: need 0 < K <= {MAX_K} and K, V "
+                         f"multiples of 4, got K={K}, V={V}")
+    if T == 0 or not 0 < min(chunk, T) <= MAX_CHUNK:
+        raise ValueError(f"chunk_scan: need T > 0 and a chunk of 1.."
+                         f"{MAX_CHUNK} steps, got T={T}, chunk={chunk}")
+    check_chunk(T, min(chunk, T))
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"chunk_scan: r, k, v must all be float32 or all "
+                         f"bfloat16, got {r.dtype}, {k.dtype}, {v.dtype}")
+    if state0 is not None and tuple(state0.shape) != (B, H, K, V):
+        raise ValueError(f"chunk_scan: state0 must be {(B, H, K, V)}, got "
+                         f"{tuple(state0.shape)}")
+    if not include_current and (bonus is None
+                                or tuple(bonus.shape) != (H, K)):
+        raise ValueError(f"chunk_scan: include_current=False needs a bonus "
+                         f"of shape {(H, K)}")
+    devs = {t.device for t in (r, k, v, log_decay, state0, bonus)
+            if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"chunk_scan: operands on {sorted(map(str, devs))}")
+
+
+def chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_decay: torch.Tensor, state0=None, *,
+               include_current: bool = True, bonus=None, chunk: int = 64):
+    """Same contract as ``models.scan_ops.chunked_scan`` (B, T, H, ·):
+    r, k (B, T, H, K), v (B, T, H, V), all float32 or all bfloat16;
+    log_decay (B, T, H, K) or (B, T, H); state0 (B, H, K, V); bonus (H, K)
+    (RWKV6 mode, ``include_current=False``).  Chunks of ``min(chunk, T)``
+    steps, which must divide T.  Returns (y (B, T, H, V) in v's dtype,
+    final state (B, H, K, V) f32)."""
+    _check(r, k, v, log_decay, state0, bonus, include_current, chunk)
+    dev = r.device
+    if dev.type == "cpu":
+        return chunk_scan_ref(r, k, v, log_decay, state0,
+                              include_current=include_current, bonus=bonus)
+    if dev.type != "cuda":
+        raise ValueError(f"chunk_scan: no kernel for device {dev}")
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    ld = _prep_decay(log_decay, K).float()
+    s0 = (torch.zeros((B, H, K, V), dtype=torch.float32, device=dev)
+          if state0 is None else state0.float().contiguous())
+    u = None if include_current else bonus.float().contiguous()
+    y = torch.empty((B, T, H, V), dtype=v.dtype, device=dev)
+    s_fin = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 16)(*r.stride(), *k.stride(),
+                                       *v.stride(), *ld.stride())
+    lib = kernels.library("chunk_scan", _SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.chunk_scan_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), ld.data_ptr(),
+            s0.data_ptr(), None if u is None else u.data_ptr(),
+            y.data_ptr(), s_fin.data_ptr(), _DTYPES[r.dtype], B, T, H, K, V,
+            min(chunk, T), int(bool(include_current)),
+            ctypes.cast(strides, _PTR),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise kernels.launch_error(lib, "chunk_scan", rc)
+    chunk_scan.launches += 1
+    return y, s_fin
+
+
+chunk_scan.launches = 0

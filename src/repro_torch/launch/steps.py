@@ -28,14 +28,25 @@ def cache_len_for(cfg: ModelConfig, shape: ShapeConfig) -> int:
 
 
 def make_prefill_step(cfg: ModelConfig, window: int = 0,
-                      impl: str = "flash", q_chunks: int = 1):
-    """``impl``: "flash" (the JAX package's "pallas"), the flash_attention
-    kernel, or "plain" (its "xla"), which only comparisons ask for."""
+                      impl: str = "kernel", q_chunks: int = 1):
+    """``impl``: "kernel" (the JAX package's "pallas"), the family's CUDA
+    kernel (flash_attention, or chunk_scan for RWKV6), or "plain" (its
+    "xla"), which only comparisons ask for."""
     def prefill_step(params, batch):
         logits, _aux = R.apply(params, cfg, batch, window=window, impl=impl,
                                q_chunks=q_chunks)
         return logits
     return prefill_step
+
+
+def check_prefill_len(cfg: ModelConfig, prefill_len: int) -> None:
+    """The RWKV6 prefill runs in chunks of ``min(cfg.chunk_size, S)``
+    steps, which must divide S (the JAX package asserts): raise
+    ``ValueError`` for a length they do not divide."""
+    c = cfg.chunk_size
+    if (cfg.family == "ssm" and prefill_len > c and prefill_len % c):
+        raise ValueError(f"{cfg.name}: a prefill of {prefill_len} tokens is "
+                         f"not a multiple of the chunk length {c}")
 
 
 def make_decode_step(cfg: ModelConfig, window: int = 0):

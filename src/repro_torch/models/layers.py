@@ -11,7 +11,7 @@ Conventions
   JAX package does.
 * Attention weights are stored 3-D ``(embed, heads, head_dim)`` and
   ``(heads, head_dim, embed)``, so weights carry across one to one.
-* Attention has two routes: ``impl="flash"`` (the JAX package's
+* Attention has two routes: ``impl="kernel"`` (the JAX package's
   ``"pallas"``), the hand-written CUDA kernel ``kernels.flash_attention``
   and the default, and ``impl="plain"`` (the JAX package's ``"xla"``),
   the einsum-and-softmax ``attention_scores``, which only comparisons ask
@@ -27,8 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.scan_ops import IMPLS, acc_dtype
 
-IMPLS = ("plain", "flash")     # the JAX package's "xla" and "pallas"
 UNWRITTEN_POS = 10 ** 9         # position of a ring slot never written
 
 
@@ -58,10 +58,22 @@ def embed_init(gen: torch.Generator, shape, *, device) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    dt = x.dtype
-    x = x.float()
+    dt, acc = x.dtype, acc_dtype(x)
+    x = x.to(acc)
     var = x.square().mean(dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps) * scale.float()).to(dt)
+    return (x * torch.rsqrt(var + eps) * scale.to(acc)).to(dt)
+
+
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 64e-5) -> torch.Tensor:
+    """Per-head group norm used by RWKV time-mix output. x: (..., H, hd);
+    computed in f32, returned in x's dtype."""
+    dt, acc = x.dtype, acc_dtype(x)
+    x = x.to(acc)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(acc) + bias.to(acc)).to(dt)
 
 
 # --------------------------------------------------------------------------
@@ -161,7 +173,7 @@ def _proj(x, w, dt):
 
 
 def attention(p, cfg: ModelConfig, x, positions, kv_cache=None, *,
-              window: int = 0, impl: str = "flash", q_chunks: int = 1):
+              window: int = 0, impl: str = "kernel", q_chunks: int = 1):
     """Full GQA attention block.
 
     ``kv_cache``: None for train/prefill over the whole sequence; else a
@@ -207,7 +219,7 @@ def attention(p, cfg: ModelConfig, x, positions, kv_cache=None, *,
         q_pos = torch.full((B, 1), idx, dtype=torch.long, device=x.device)
         kk, vv = kc.to(dt), vc.to(dt)
 
-    if impl == "flash" and kv_cache is None:
+    if impl == "kernel" and kv_cache is None:
         out = flash_attention(q, kk, vv, causal=cfg.causal, window=window)
     elif (q_chunks > 1 and kv_cache is None and cfg.causal
           and S % q_chunks == 0):

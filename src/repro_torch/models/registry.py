@@ -1,5 +1,5 @@
 """Unified model API over the ported architecture families (dense, vlm,
-audio), one for one with the JAX package's ``models/registry.py``.
+audio, ssm), one for one with the JAX package's ``models/registry.py``.
 
     init_params(seed, cfg, device)               -> params tree
     apply(params, cfg, batch, ...)               -> (logits, aux)  # prefill
@@ -8,8 +8,11 @@ audio), one for one with the JAX package's ``models/registry.py``.
     train_loss(params, cfg, batch, ...)          -> (loss, metrics)  # forward
     analytic_param_count(cfg)                    -> int
 
-The SSM (RWKV6) and hybrid (Mamba2) families raise
-``NotImplementedError`` until their slice is ported; so do MoE and MLA
+The kernel route is ``impl="kernel"`` (the JAX package's ``"pallas"``):
+flash_attention for the transformer families, chunk_scan for RWKV6;
+``impl="plain"`` (its ``"xla"``) is the plain PyTorch route, which only
+comparisons ask for.  The hybrid family (Mamba2) raises
+``NotImplementedError`` until its slice is ported; so do MoE and MLA
 (``models/transformer.py``).
 """
 from __future__ import annotations
@@ -20,18 +23,21 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import rwkv as RW
 from repro_torch.models import transformer as TF
 
 
-_UNPORTED = {"ssm": "RWKV6 with chunk_scan, ROADMAP queue A item 14b",
-             "hybrid": "Mamba2 with chunk_scan, ROADMAP queue A item 14c"}
+_UNPORTED = {"hybrid": "its Mamba2 layers (models/mamba.py) and its shared "
+             "attention through flash_attention at head_dim 80, which the "
+             "kernel does not instantiate yet, ROADMAP queue A item 14c"}
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family in _UNPORTED:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"({_UNPORTED[cfg.family]})")
+            f"{cfg.name}: the {cfg.family} family is not ported yet: it "
+            f"waits for {_UNPORTED[cfg.family]}")
 
 
 # --------------------------------------------------------------------------
@@ -49,6 +55,11 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda"):
         dev = resolve_device(dev)
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(int(seed))
+    if cfg.family == "ssm":
+        return {"embed": L.init_embedding(gen, cfg, device=dev),
+                "final_norm": torch.ones((cfg.d_model,), device=dev),
+                "layers": RW.init_layer(gen, cfg, device=dev,
+                                        lead=(cfg.num_layers,))}
     return TF.init_params(gen, cfg, device=dev)
 
 
@@ -57,23 +68,50 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda"):
 # --------------------------------------------------------------------------
 
 def apply(params, cfg: ModelConfig, batch, *, window: int = 0,
-          impl: str = "flash", q_chunks: int = 1):
-    """``impl``: "flash" (the JAX package's "pallas"), the flash_attention
+          impl: str = "kernel", q_chunks: int = 1):
+    """``impl``: "kernel" (the JAX package's "pallas"), the family's CUDA
     kernel, or "plain" (its "xla"), which only comparisons ask for."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        dtype = getattr(torch, cfg.dtype)
+        x, _ = TF._embed_inputs(params, cfg, batch, dtype)
+        state = RW.init_state(cfg, x.shape[0], dtype, device=x.device)
+        layers = params["layers"]
+        for l in range(cfg.num_layers):
+            x, _ = RW.block(TF.layer_view(layers, l), cfg, x,
+                            TF.layer_view(state, l), impl=impl)
+        x = L.rms_norm(x, params["final_norm"])
+        return (L.unembed(params["embed"], cfg, x),
+                torch.zeros((), dtype=torch.float32, device=x.device))
     return TF.forward(params, cfg, batch, window=window, impl=impl,
                       q_chunks=q_chunks)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
                device="cuda"):
+    """The decode cache: the ring-buffer KV cache of the transformer
+    families, or the RWKV state (``cache_len`` unused)."""
     _check_family(cfg)
-    return TF.init_cache(cfg, batch, cache_len, dtype,
-                         device=resolve_device(device))
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return RW.init_state(cfg, batch, dtype, device=dev)
+    return TF.init_cache(cfg, batch, cache_len, dtype, device=dev)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, *, window: int = 0):
+    """One decode step.  The RWKV state is updated in place (the returned
+    cache holds the same tensors); the JAX package returns new arrays."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        x = L.embed(params["embed"], cfg, tokens, getattr(torch, cfg.dtype))
+        layers = params["layers"]
+        for l in range(cfg.num_layers):
+            x, st = RW.block(TF.layer_view(layers, l), cfg, x,
+                             TF.layer_view(cache, l))
+            for k, v in st.items():
+                cache[k][l].copy_(v)
+        x = L.rms_norm(x, params["final_norm"])
+        return L.unembed(params["embed"], cfg, x), cache
     return TF.decode_step(params, cfg, cache, tokens, window=window)
 
 
@@ -93,7 +131,7 @@ def _ce(logits, labels, mask=None):
 
 
 def train_loss(params, cfg: ModelConfig, batch, *, window: int = 0,
-               impl: str = "flash", q_chunks: int = 1):
+               impl: str = "kernel", q_chunks: int = 1):
     logits, aux = apply(params, cfg, batch, window=window, impl=impl,
                         q_chunks=q_chunks)
     if cfg.family == "audio":

@@ -82,7 +82,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch, dtype):
 
 
 def forward(params, cfg: ModelConfig, batch, *, window: int = 0,
-            impl: str = "flash", q_chunks: int = 1):
+            impl: str = "kernel", q_chunks: int = 1):
     """Full-sequence forward (train / prefill without cache).
     Returns (logits (B,S,V), aux_loss)."""
     _check_ported(cfg)

@@ -1,20 +1,25 @@
 """Serving entry point: batched greedy decoding over the ring-buffer KV
-cache, after an optional prefill through the flash_attention kernel (the
-port of ``examples/serve_decode.py``).
+cache (transformer families) or the O(1) recurrent state (RWKV6), after
+an optional prefill through the family's kernel — flash_attention or
+chunk_scan (the port of ``examples/serve_decode.py``).
 
     PYTHONPATH=src python -m repro_torch.serve_decode --arch qwen3-4b \\
         --tokens 32 --device cuda
     PYTHONPATH=src python -m repro_torch.serve_decode --full-width \\
         --batch 4 --prefill-len 2048 --tokens 32 --cache-len 2048
+    PYTHONPATH=src python -m repro_torch.serve_decode --full-width \\
+        --arch rwkv6-7b --batch 4 --prefill-len 2048 --tokens 32
 
 The model is the example's: the arch's ``reduced()`` config in float32,
 with random weights from seed 0; ``--full-width`` takes the published
 config as it is (bf16 compute over f32 master weights).  ``--prefill-len
-P`` first runs ``make_prefill_step(impl="flash")`` on a (batch, P) prompt
-of ``data.synthetic.token_stream``.  Decode then starts from an empty
-cache, as in the example: the JAX package has no prefill that fills the
-cache.  ``--device`` defaults to ``cuda``; asking for it without a card
-raises.
+P`` first runs ``make_prefill_step(impl="kernel")`` on a (batch, P) prompt
+of ``data.synthetic.token_stream``; for RWKV6 a P above the arch's
+``chunk_size`` must be a multiple of it (``ValueError`` otherwise, before
+any weight is drawn).  Decode then starts from an empty cache, as in the
+example: the JAX package has no prefill that fills the cache.
+``--cache-len`` does nothing for RWKV6, whose state has no length.
+``--device`` defaults to ``cuda``; asking for it without a card raises.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import applicable, get_config, get_shape
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.synthetic import token_stream
-from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.launch.steps import (check_prefill_len, make_decode_step,
+                                     make_prefill_step)
 from repro_torch.models import registry as R
 
 SEED = 0
@@ -54,7 +60,7 @@ def serve(params, cfg: ModelConfig, *, batch: int, tokens: int,
         prompt = token_stream(SEED, batch * prefill_len, cfg.vocab_size)
         prompt = torch.tensor(prompt.reshape(batch, prefill_len),
                               dtype=torch.long, device=dev)
-        prefill = make_prefill_step(cfg, window=window, impl="flash")
+        prefill = make_prefill_step(cfg, window=window, impl="kernel")
         _sync(dev)
         t0 = time.perf_counter()
         logits = prefill(params, {"tokens": prompt})
@@ -94,8 +100,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[dict]:
     ap.add_argument("--cache-len", type=int, default=64)
     ap.add_argument("--window", type=int, default=0)
     ap.add_argument("--prefill-len", type=int, default=0,
-                    help="prompt length of the prefill through the flash "
-                    "kernel before decoding (0: none)")
+                    help="prompt length of the prefill through the "
+                    "family's kernel before decoding (0: none)")
     ap.add_argument("--full-width", action="store_true",
                     help="the published config (bf16 compute, f32 "
                     "weights) instead of the reduced float32 one")
@@ -109,6 +115,7 @@ def main(argv: Optional[List[str]] = None) -> Optional[dict]:
         return None
     cfg = full_cfg if args.full_width else full_cfg.reduced().replace(
         remat=False, dtype="float32")
+    check_prefill_len(cfg, args.prefill_len)
     params = R.init_params(SEED, cfg, device=dev)
     res = serve(params, cfg, batch=args.batch, tokens=args.tokens,
                 cache_len=args.cache_len, window=args.window,

@@ -1,0 +1,201 @@
+"""Port vs JAX package: the chunked linear recurrence (``scan_ops``) and the
+chunk_scan wrapper with its plain version.
+
+On the CPU the port's wrapper takes its plain version (the sequential
+recurrence); it is held against the JAX package's oracle
+``chunk_scan_ref`` and its Pallas ``chunk_scan`` in interpret mode, on that
+package's sweep (``tests/test_kernels.py``: three shapes, both modes, f32
+and bf16) at the sweep's tolerances (atol 5e-5 in f32, 3e-2 in bf16, rtol
+0.1).  The port's plain chunked form is held against the JAX package's
+chunked form at 5e-5 in f32 (the same sums in another order).
+
+C-ref 3: with every step's log-decay at the clamp (-1) and chunks of 128,
+the JAX package's chunked forms overflow (exp(128) is not a finite f32)
+and return NaN; the port's chunked form, which re-references its
+exponents every 16 rows, stays finite and within 5e-5 of the JAX
+package's sequential recurrence.  The CUDA kernel itself is held against
+the same plain version on the card by ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.chunk_scan.ops import chunk_scan as jchunk_scan
+from repro.kernels.chunk_scan.ref import chunk_scan_ref as jchunk_scan_ref
+from repro.models import scan_ops as JS
+from repro_torch.kernels import chunk_scan as cs_pkg
+from repro_torch.kernels.chunk_scan import chunk_scan
+from repro_torch.kernels.chunk_scan.ref import chunk_scan_ref
+from repro_torch.models import scan_ops as S
+
+SWEEP = [(1, 64, 2, 8, 16, 16), (2, 128, 3, 16, 32, 32),
+         (1, 96, 1, 4, 64, 32)]
+TOL = {"float32": 5e-5, "bfloat16": 3e-2}
+
+
+def _inputs(B, T, H, K, V, mode, seed=0, ld_const=None):
+    """numpy inputs as the JAX sweep draws them: r, k, v ~ 0.3 N(0, 1),
+    s0 ~ 0.1 N(0, 1), log-decay ~ -0.8 U(0, 1) (per channel for RWKV6,
+    per head for Mamba2), bonus ~ 0.2 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((B, T, H, K)).astype(np.float32) * 0.3
+    k = rng.standard_normal((B, T, H, K)).astype(np.float32) * 0.3
+    v = rng.standard_normal((B, T, H, V)).astype(np.float32) * 0.3
+    s0 = rng.standard_normal((B, H, K, V)).astype(np.float32) * 0.1
+    shape = (B, T, H, K) if mode == "rwkv" else (B, T, H)
+    ld = (-rng.uniform(size=shape).astype(np.float32) * 0.8
+          if ld_const is None else np.full(shape, ld_const, np.float32))
+    u = (rng.standard_normal((H, K)).astype(np.float32) * 0.2
+         if mode == "rwkv" else None)
+    return r, k, v, ld, s0, u
+
+
+def _jax(arrs, dtype):
+    r, k, v, ld, s0, u = arrs
+    cast = [jnp.asarray(a).astype(dtype) for a in (r, k, v)]
+    return (*cast, jnp.asarray(ld), jnp.asarray(s0),
+            None if u is None else jnp.asarray(u))
+
+
+def _torch(arrs, dtype):
+    r, k, v, ld, s0, u = arrs
+    cast = [torch.tensor(a).to(getattr(torch, dtype)) for a in (r, k, v)]
+    return (*cast, torch.tensor(ld), torch.tensor(s0),
+            None if u is None else torch.tensor(u))
+
+
+def _close(got, want, atol, rtol=0.0):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("B,T,H,K,V,chunk", SWEEP)
+@pytest.mark.parametrize("mode", ["rwkv", "mamba"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_scan_matches_jax_kernel_and_oracle(B, T, H, K, V, chunk, mode,
+                                                  dtype):
+    arrs = _inputs(B, T, H, K, V, mode)
+    jr, jk, jv, jld, js0, ju = _jax(arrs, getattr(jnp, dtype))
+    r, k, v, ld, s0, u = _torch(arrs, dtype)
+    kw = dict(include_current=mode == "mamba")
+    y, s_fin = chunk_scan(r, k, v, ld, s0, bonus=u, chunk=chunk, **kw)
+    assert y.dtype == v.dtype and y.shape == (B, T, H, V)
+    assert s_fin.dtype == torch.float32 and s_fin.shape == (B, H, K, V)
+    y_ref, s_ref = jchunk_scan_ref(jr, jk, jv, jld, js0, bonus=ju, **kw)
+    y_pal, s_pal = jchunk_scan(jr, jk, jv, jld, js0, bonus=ju, chunk=chunk,
+                               interpret=True, **kw)
+    for want_y, want_s in ((y_ref, s_ref), (y_pal, s_pal)):
+        _close(y, want_y, TOL[dtype], 0.1)
+        _close(s_fin, want_s, TOL[dtype], 0.1)
+    # the wrapper's CPU route is its plain version, as it stands
+    y2, s2 = chunk_scan_ref(r, k, v, ld, s0, bonus=u, **kw)
+    assert torch.equal(y, y2) and torch.equal(s_fin, s2)
+
+
+@pytest.mark.parametrize("B,T,H,K,V,chunk", SWEEP)
+@pytest.mark.parametrize("mode", ["rwkv", "mamba"])
+def test_chunked_scan_matches_jax(B, T, H, K, V, chunk, mode):
+    arrs = _inputs(B, T, H, K, V, mode, seed=1)
+    jr, jk, jv, jld, js0, ju = _jax(arrs, jnp.float32)
+    r, k, v, ld, s0, u = _torch(arrs, "float32")
+    kw = dict(include_current=mode == "mamba")
+    want_y, want_s = JS.chunked_scan(jr, jk, jv, jld, js0, bonus=ju,
+                                     chunk=chunk, **kw)
+    y, s_fin = S.chunked_scan(r, k, v, ld, s0, bonus=u, chunk=chunk, **kw)
+    _close(y, want_y, 5e-5)
+    _close(s_fin, want_s, 5e-5)
+    want_y, want_s = JS.recurrent_scan(jr, jk, jv, jld, js0, bonus=ju, **kw)
+    y, s_fin = S.recurrent_scan(r, k, v, ld, s0, bonus=u, **kw)
+    _close(y, want_y, 5e-5)
+    _close(s_fin, want_s, 5e-5)
+
+
+@pytest.mark.parametrize("mode", ["rwkv", "mamba"])
+def test_c_ref_3_port_stays_finite_at_the_clamp(mode):
+    """Every step at the clamp, chunk 128: the JAX package's chunked forms
+    (jnp and its Pallas kernel) give NaN; the port's plain chunked form and
+    its kernel route agree with the JAX package's recurrence."""
+    arrs = _inputs(1, 256, 2, 64, 64, mode, seed=2, ld_const=-1.0)
+    jr, jk, jv, jld, js0, ju = _jax(arrs, jnp.float32)
+    r, k, v, ld, s0, u = _torch(arrs, "float32")
+    kw = dict(include_current=mode == "mamba")
+    jy, _ = JS.chunked_scan(jr, jk, jv, jld, js0, bonus=ju, chunk=128, **kw)
+    py, _ = jchunk_scan(jr, jk, jv, jld, js0, bonus=ju, chunk=128,
+                        interpret=True, **kw)
+    assert not np.isfinite(np.asarray(jy)).all()
+    assert not np.isfinite(np.asarray(py)).all()
+    want_y, want_s = JS.recurrent_scan(jr, jk, jv, jld, js0, bonus=ju, **kw)
+    for impl in S.IMPLS:
+        y, s_fin = S.chunked_scan(r, k, v, ld, s0, bonus=u, chunk=128,
+                                  impl=impl, **kw)
+        assert torch.isfinite(y).all() and torch.isfinite(s_fin).all()
+        _close(y, want_y, 5e-5)
+        _close(s_fin, want_s, 5e-5)
+
+
+@pytest.mark.parametrize("mode", ["rwkv", "mamba"])
+def test_recurrent_step_matches_jax(mode):
+    r, k, v, ld, s0, u = _inputs(2, 1, 3, 16, 32, mode, seed=3)
+    kw = dict(include_current=mode == "mamba")
+    jy, js = JS.recurrent_step(jnp.asarray(r[:, 0]), jnp.asarray(k[:, 0]),
+                               jnp.asarray(v[:, 0]), jnp.asarray(ld[:, 0]),
+                               jnp.asarray(s0), bonus=None if u is None
+                               else jnp.asarray(u), **kw)
+    y, s_new = S.recurrent_step(
+        torch.tensor(r[:, 0]), torch.tensor(k[:, 0]), torch.tensor(v[:, 0]),
+        torch.tensor(ld[:, 0]), torch.tensor(s0),
+        bonus=None if u is None else torch.tensor(u), **kw)
+    _close(y, jy, 1e-6)
+    _close(s_new, js, 1e-6)
+
+
+def test_kernel_route_calls_the_wrapper(monkeypatch):
+    """``chunked_scan(impl="kernel")`` reaches ``kernels.chunk_scan`` with
+    the chunk it was given; unknown routes are refused."""
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(kw["chunk"])
+        return chunk_scan(*args, **kw)
+
+    monkeypatch.setattr(cs_pkg, "chunk_scan", spy)
+    r, k, v, ld, s0, u = _torch(_inputs(1, 64, 2, 8, 16, "rwkv"), "float32")
+    y, _ = S.chunked_scan(r, k, v, ld, s0, include_current=False, bonus=u,
+                          chunk=32, impl="kernel")
+    assert calls == [32]
+    want, _ = S.recurrent_scan(r, k, v, ld, s0, include_current=False,
+                               bonus=u)
+    assert torch.equal(y, want)
+    with pytest.raises(ValueError, match="impl"):
+        S.chunked_scan(r, k, v, ld, s0, include_current=False, bonus=u,
+                       chunk=32, impl="pallas")
+
+
+@pytest.mark.parametrize("case", ["ragged_chunk", "wide_k", "odd_v",
+                                  "mixed_dtype", "no_bonus", "long_chunk"])
+def test_chunk_scan_refuses_what_the_kernel_does_not_take(case):
+    r, k, v, ld, s0, u = _torch(_inputs(1, 96, 2, 8, 16, "rwkv"), "float32")
+    kw = dict(include_current=False, bonus=u, chunk=32)
+    if case == "ragged_chunk":
+        kw["chunk"] = 40                      # 96 % 40 != 0
+        with pytest.raises(ValueError, match="multiple of the chunk"):
+            S.chunked_scan(r, k, v, ld, s0, **kw)
+    elif case == "wide_k":
+        r = k = torch.zeros((1, 96, 2, 128))
+        ld = torch.zeros((1, 96, 2, 128))
+        s0 = torch.zeros((1, 2, 128, 16))
+        kw["bonus"] = torch.zeros((2, 128))
+    elif case == "odd_v":
+        v = v[..., :15]
+        s0 = s0[..., :15]
+    elif case == "mixed_dtype":
+        v = v.bfloat16()
+    elif case == "no_bonus":
+        kw["bonus"] = None
+    elif case == "long_chunk":
+        r, k, v, ld = (torch.cat([x] * 3, dim=1) for x in (r, k, v, ld))
+        kw["chunk"] = 288                     # T = 288 > 128 steps a chunk
+    with pytest.raises(ValueError, match="chunk_scan|chunk"):
+        chunk_scan(r, k, v, ld, s0, **kw)
