@@ -6,8 +6,11 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
   0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  1. the CUDA kernels built from ``src/repro_torch/csrc`` (one nvcc per
-     source, all at once), timed;
+  1. the CUDA kernels built anew from ``src/repro_torch/csrc`` (one nvcc
+     per source, all at once), timed; ``-Xptxas -v``'s registers and
+     spills per kernel.  The flash library's wgmma kernels must not spill
+     nor have their wgmma serialised, and its SASS (``cuobjdump -sass``)
+     must hold HGMMA (wgmma) and UTMALDG (TMA loads);
   2. ``fed_agg`` against its plain version on the card, max abs error;
   3. ``pairwise_dist_sq`` against its plain version, error over max(D, 1);
   4. the main path: ``repro_torch.fl_constellation_sim.main`` runs
@@ -25,12 +28,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      wall time and a ``torch.profiler`` table of the top device ops;
   7. ``flash_attention`` against its plain version on the card: the JAX
      package's kernel sweep (S = 200 and KV = 1 included; causal, window
-     48 and non-causal; f32 and bf16), a strided-view case, and the
-     serving path's prefill shape (B 4, S 2048, H 32, KV 8, hd 128, bf16,
-     causal and window 512).  At the sweep's input spread the max abs
-     error is within 1e-5 (f32) and 2e-2 (bf16); every bf16 case, also
-     at a spread of 2 that makes the softmax peaked, holds each element
-     within 2^-7 |want| + 2^-8 rms(want's row);
+     48 and non-causal; f32 and bf16), a strided-view case, the serving
+     path's prefill shape (B 4, S 2048, H 32, KV 8, hd 128, bf16, causal
+     and window 512), hubert-xlarge's (B 4, S 2048, H = KV = 16, hd 80,
+     bf16, non-causal), hd 80 under window 48, and S = 1000 at hd 64, 80
+     and 128 (a ragged last K/V tile after the TMA rings wrap).  At the
+     sweep's input spread the max abs error is within 1e-5 (f32) and 2e-2
+     (bf16); every bf16 case, also at a spread of 2 that makes the softmax
+     peaked, holds each element within 2^-7 |want| + 2^-8 rms(want's
+     row);
   8. model-level route parity: qwen3-4b at full width with 2 layers in
      f32, prefill logits through the kernel route against the plain route
      (2e-4), and 16 decode steps against the full forward (1e-4);
@@ -41,10 +47,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      other kernels never; the logits must be finite.  Prefill wall, decode
      ms/token (warm), the device busy share and the top device ops of one
      prefill plus decode; the qwen3-4b weights are freed after it;
- 10. ``flash_attention`` timed at the prefill shape beside its plain
-     version, ``scaled_dot_product_attention`` (the library yardstick,
-     never called by the port; with a boolean band mask for window 512)
-     and its bound;
+ 10. ``flash_attention`` timed at the prefill shape (causal, window
+     512) and at hubert-xlarge's, beside its plain version,
+     ``scaled_dot_product_attention`` (the library yardstick, never called
+     by the port; with a boolean band mask for window 512) and its bound;
  11. ``chunk_scan`` against its plain version (the sequential recurrence)
      on the card: the JAX package's kernel sweep (three shapes, RWKV6 and
      Mamba2 modes, f32 and bf16), a zamba2-shaped Mamba2 case (H 40, K 64,
@@ -74,11 +80,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      to overflowing on this input);
  14. ``chunk_scan`` timed at the serving shape beside its plain version
      and its bound (no single PyTorch call computes the recurrence);
- 15. one JSON line of per-kernel numbers.
+ 15. hubert-xlarge at its published width (head dim 80) through
+     ``registry.apply``: the kernel route against the plain route at 2
+     layers in f32, B 2 x 300 frames (2e-4); then the 48-layer forward in
+     bf16 over B 4 x 2048 frames, which must launch ``flash_attention``
+     exactly 48 times and the other kernels never, and give finite
+     logits;
+ 16. one JSON line of per-kernel numbers.
 
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
-repository beside it, it exits non-zero and prints no result.
+repository beside it, it exits non-zero and prints no result.  A run
+takes 7 to 9 minutes on an H100.
 ``--report PATH`` also writes every number of the run there as JSON.
 """
 import argparse
@@ -116,6 +129,8 @@ FLASH_SPREADS = (0.5, 2.0)
 ROUTE_TOL = 2e-4                    # kernel vs plain route, model logits
 DECODE_TOL = 1e-4                   # decode vs full forward, model logits
 PREFILL = dict(B=4, S=2048, H=32, KV=8, hd=128)   # the serving prefill
+# hubert-xlarge's attention at its published width, over B 4 x 2048 frames
+HUBERT_ATTN = dict(B=4, S=2048, H=16, KV=16, hd=80)
 # chunk_scan, max abs error of y and the final state in f32 (the JAX
 # package's sweep atol, without its rtol = 0.1 slack), and of the f32 final
 # state in every case (both sides widen the same bf16 inputs to f32)
@@ -253,16 +268,15 @@ def main() -> None:
     report["card"] = card
 
     # ---- 1. build ---------------------------------------------------------
+    for name in kernels.SOURCES:      # anew, for the compiler's report
+        kernels.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
     logs = kernels.build_all(verbose=True)
     build_s = time.perf_counter() - t0
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {name}: {line.strip()}")
     phase(f"phase 1: kernels {list(kernels.SOURCES)} built in "
           f"{build_s:.1f} s into {kernels.BUILD_DIR}")
     report["build_s"] = build_s
+    report["ptxas"] = check_build(kernels, logs)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -529,7 +543,11 @@ def main() -> None:
         after=lowest_in_chunk_decay)
     cs = scan_timings(torch, dev, gen, report)
 
-    # ---- 15. the kernel line ----------------------------------------------
+    # ---- 15. hubert-xlarge, head dim 80 ----------------------------------
+    hubert_path(torch, dev, report,
+                others=(fed_agg, pairwise_dist_sq, chunk_scan))
+
+    # ---- 16. the kernel line ----------------------------------------------
     fb, pg = timings["fed_agg_bank"], timings["pairwise_dist_grouping"]
     kernel_line = {"kernels": [
         dict(name="fed_agg", route="cuda",
@@ -566,6 +584,89 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def kernel_name(mangled: str) -> str:
+    """The last length-prefixed name ending in "kernel" in a mangled
+    symbol, with its integer template arguments:
+    flash_wgmma_kernel<128,128>."""
+    import re
+    found = mangled
+    for m in re.finditer(r"\d+", mangled):
+        for d in range(m.start(), m.end()):
+            n = int(mangled[d:m.end()])
+            name = mangled[m.end():m.end() + n]
+            if len(name) == n and name.endswith("kernel"):
+                args = re.match(r"I((?:Li\d+E)+)", mangled[m.end() + n:])
+                found = name
+                if args:
+                    ints = re.findall(r"Li(\d+)E", args.group(1))
+                    found += f"<{','.join(ints)}>"
+                break
+    return found
+
+
+def ptxas_kernels(log: str):
+    """Per kernel of one source's ``-Xptxas -v`` output: (name with its
+    template arguments, registers, spill stores, spill loads), and the
+    lines where ptxas says it serialised wgmma or ignored setmaxnreg."""
+    import re
+    out, name, warn = [], None, []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+?)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            spills = (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spills))
+            name = None
+        if "serialized" in line or "setmaxnreg ignored" in line:
+            warn.append(line.strip())
+    return out, warn
+
+
+def check_build(kernels, logs) -> dict:
+    """Phase 1's checks: registers and spills per kernel; the wgmma
+    kernel of flash_attention without spills and without serialised
+    wgmma; HGMMA (wgmma) and UTMALDG (TMA loads) in its library's SASS."""
+    report = {}
+    for name, log in logs.items():
+        rows, warn = ptxas_kernels(log)
+        for k, regs, st, ld in rows:
+            print(f"  {name}: {k}: {regs} registers, spill stores {st} B, "
+                  f"spill loads {ld} B")
+        for w in warn:
+            print(f"  {name}: ptxas: {w[:160]}")
+        report[name] = dict(kernels=rows, warnings=warn)
+    flash = report["flash_attention"]
+    wgmma = [r for r in flash["kernels"] if r[0].startswith("flash_wgmma")]
+    if len(wgmma) != 3:
+        fail(f"ptxas reported {len(wgmma)} wgmma kernels, not 3 (hd 64, 80, "
+             f"128)")
+    if any(st or ld for _, _, st, ld in wgmma):
+        fail(f"the wgmma flash kernels spill: {wgmma}")
+    if flash["warnings"]:
+        fail(f"ptxas serialised wgmma or ignored setmaxnreg: "
+             f"{flash['warnings']}")
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(kernels.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr.strip()[:300]}")
+    counts = {op: sass.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    print(f"  flash_attention SASS: {counts['HGMMA']} HGMMA (wgmma), "
+          f"{counts['UTMALDG']} UTMALDG (TMA loads)")
+    if not all(counts.values()):
+        fail(f"the flash_attention library's SASS lacks wgmma or TMA: "
+             f"{counts}")
+    report["flash_sass"] = counts
+    return report
 
 
 def results_w0(sim):
@@ -629,11 +730,29 @@ def flash_vs_plain(torch, dev, gen, report) -> float:
             for spread in FLASH_SPREADS:
                 cases.append((B, S, H, KV, hd, causal, window, "bfloat16",
                               spread))
-    P = PREFILL
+    P, Hu = PREFILL, HUBERT_ATTN
     for window in (0, 512):
         for spread in FLASH_SPREADS:
             cases.append((P["B"], P["S"], P["H"], P["KV"], P["hd"], True,
                           window, "bfloat16", spread))
+    # hd 80: hubert-xlarge's shape (non-causal), and a window
+    for spread in FLASH_SPREADS:
+        cases.append((Hu["B"], Hu["S"], Hu["H"], Hu["KV"], Hu["hd"], False,
+                      0, "bfloat16", spread))
+    # S = 1000: eight K/V tiles of 128 keys, the last one ragged (104
+    # keys), after the two-stage rings have wrapped three times
+    for B, S, H, KV, hd, causal, window in ((1, 200, 4, 2, 80, True, 48),
+                                            (2, 1000, 4, 2, 64, True, 0),
+                                            (2, 1000, 4, 2, 64, False, 0),
+                                            (2, 1000, 4, 2, 80, True, 0),
+                                            (2, 1000, 4, 2, 80, False, 0),
+                                            (2, 1000, 4, 2, 128, True, 0),
+                                            (2, 1000, 4, 2, 128, False, 0)):
+        cases.append((B, S, H, KV, hd, causal, window, "float32",
+                      FLASH_SPREADS[0]))
+        for spread in FLASH_SPREADS:
+            cases.append((B, S, H, KV, hd, causal, window, "bfloat16",
+                          spread))
     results = []
     for B, S, H, KV, hd, causal, window, dt, spread in cases:
         dtype = getattr(torch, dt)
@@ -791,18 +910,26 @@ def serving_path(torch, dev, report, *, arch, phase_no, kernel, others,
 
 
 def flash_timings(torch, dev, gen, report) -> dict:
-    """Phase 10: the kernel at the prefill shape, beside its plain version,
-    the library yardstick and its bound."""
+    """Phase 10: the kernel at the prefill shape (causal, and window 512)
+    and at hubert-xlarge's (non-causal, hd 80), beside its plain version,
+    the library yardstick and its bound.  Returns the prefill's."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
     F = torch.nn.functional
-    phase("phase 10: flash_attention timings at the prefill shape (device "
-          "time from the profiler trace; inputs cycled through > 2x L2)")
-    B, S, H, KV, hd = (PREFILL[k] for k in ("B", "S", "H", "KV", "hd"))
-    elt = 2
-    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * elt
+    phase("phase 10: flash_attention timings at the prefill shape and at "
+          "hubert-xlarge's (device time from the profiler trace; inputs "
+          "cycled through > 2x L2)")
+    P, Hu = PREFILL, HUBERT_ATTN
     out = {}
-    for window in (0, 512):
+    for key, (B, S, H, KV, hd), causal, window in (
+            ("prefill", (P["B"], P["S"], P["H"], P["KV"], P["hd"]), True, 0),
+            ("prefill_w512", (P["B"], P["S"], P["H"], P["KV"], P["hd"]),
+             True, 512),
+            ("hubert", (Hu["B"], Hu["S"], Hu["H"], Hu["KV"], Hu["hd"]),
+             False, 0)):
+        elt = 2
+        nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * elt
+
         def make():
             return tuple((torch.randn(*shape, generator=gen, device=dev)
                           * 0.5).to(torch.bfloat16)
@@ -810,44 +937,112 @@ def flash_timings(torch, dev, gen, report) -> dict:
                                        (B, S, KV, hd)))
         sets = cycled_inputs(make, nbytes)
         k_ms, q_ms, host_ms = time_device(
-            torch, lambda q, k, v: flash_attention(q, k, v, causal=True,
-                                                   window=window), sets)
+            torch, lambda q, k, v: flash_attention(
+                q, k, v, causal=causal, window=window), sets)
         p_ms, _, _ = time_device(
             torch, lambda q, k, v: attention_ref_bshd(
-                q, k, v, causal=True, window=window), sets, reps=10)
-        # the library call: causal SDPA, or SDPA with the window's boolean
-        # band mask (qpos - window < kpos <= qpos)
+                q, k, v, causal=causal, window=window), sets, reps=10)
+        # the library call: SDPA, causal or with the window's boolean band
+        # mask (qpos - window < kpos <= qpos)
         pos = torch.arange(S, device=dev)
         band = ((pos[None, :] <= pos[:, None])
                 & (pos[:, None] - pos[None, :] < window)) if window else None
+
         def library(q, k, v):
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=band, is_causal=band is None,
+                attn_mask=band, is_causal=causal and band is None,
                 enable_gqa=True).transpose(1, 2)
         lib_err = float((library(*sets[0]).float() - flash_attention(
-            *sets[0], causal=True, window=window).float()).abs().max())
+            *sets[0], causal=causal, window=window).float()).abs().max())
         if not lib_err <= FLASH_TOL["bfloat16"]:
-            fail(f"the library yardstick at window {window} computes another "
+            fail(f"the library yardstick at {key} computes another "
                  f"function: {lib_err} from the kernel")
         l_ms, _, _ = time_device(torch, library, sets)
-        flops = 4.0 * hd * B * H * attention_pairs(S, S, True, window)
+        flops = 4.0 * hd * B * H * attention_pairs(S, S, causal, window)
         b_ms, by = bound_ms(nbytes, flops, H100_BF16_FLOP_PER_S)
-        t = dict(shape=[B, S, H, KV, hd], window=window, ms=k_ms,
-                 queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms,
+        t = dict(shape=[B, S, H, KV, hd], causal=causal, window=window,
+                 ms=k_ms, queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms,
                  library_ms=l_ms, library_err=lib_err, bound_ms=b_ms,
                  bound_by=by, flops=flops, tflops=flops / k_ms / 1e9)
-        out[window] = t
-        print(f"flash_attention [{B}, {S}, {H}, {KV}, {hd}] bf16 causal "
-              f"window={window}: kernel {k_ms:.4f} ms ({t['tflops']:.1f} "
-              f"TFLOP/s; queued {q_ms:.4f} ms/call, host enqueue "
-              f"{host_ms * 1e3:.1f} us/call), bound {b_ms:.4f} ms ({by}), "
-              f"plain {p_ms:.3f} ms, library {l_ms:.4f} ms "
-              f"(scaled_dot_product_attention"
-              + (", boolean band mask" if window else ", causal")
+        out[key] = t
+        print(f"flash_attention [{B}, {S}, {H}, {KV}, {hd}] bf16 "
+              f"{'causal' if causal else 'non-causal'} window={window}: "
+              f"kernel {k_ms:.4f} ms ({t['tflops']:.1f} TFLOP/s; queued "
+              f"{q_ms:.4f} ms/call, host enqueue {host_ms * 1e3:.1f} "
+              f"us/call), bound {b_ms:.4f} ms ({by}), plain {p_ms:.3f} ms, "
+              f"library {l_ms:.4f} ms (scaled_dot_product_attention"
+              + (", boolean band mask" if window else "")
               + f"; {lib_err:.2e} from the kernel)")
     report["flash_timings"] = out
-    return out[0]
+    return out["prefill"]
+
+
+def hubert_path(torch, dev, report, *, others) -> None:
+    """Phase 15: hubert-xlarge at its published width (head dim 80)
+    through ``registry.apply``: the kernel route against the plain route
+    at 2 layers in f32 over B 2 x 300 frames, then the full 48-layer
+    forward in bf16 over B 4 x 2048 frames, which must launch
+    ``flash_attention`` once a layer, ``others`` never, and give finite
+    logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import registry as R
+    cfg = get_config("hubert-xlarge")
+    Hu = HUBERT_ATTN
+    phase(f"phase 15: hubert-xlarge (d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads of {cfg.resolved_head_dim}) — registry.apply, route "
+          f"parity at 2 layers in f32, then {cfg.num_layers} layers in "
+          f"{cfg.dtype} over B {Hu['B']} x {Hu['S']} frames")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    small = cfg.replace(num_layers=2, dtype="float32", remat=False)
+    params = R.init_params(1, small, device=dev)
+    batch = {"frame_embeds": torch.randn(2, 300, cfg.d_model, generator=gen,
+                                         device=dev)}
+    plain, _ = R.apply(params, small, batch, impl="plain")
+    kern, _ = R.apply(params, small, batch, impl="kernel")
+    route_err = float((kern - plain).abs().max())
+    scale = float(plain.abs().max())
+    print(f"kernel vs plain route (f32, 2 layers): logits {tuple(kern.shape)} "
+          f"max abs difference {route_err:.3e} (tolerance {ROUTE_TOL}; max "
+          f"|logit| {scale:.2f})")
+    if not (math.isfinite(scale) and route_err <= ROUTE_TOL):
+        fail(f"hubert-xlarge kernel and plain routes differ by {route_err}")
+    del params, plain, kern
+
+    params = R.init_params(1, cfg, device=dev)
+    batch = {"frame_embeds": torch.randn(Hu["B"], Hu["S"], cfg.d_model,
+                                         generator=gen, device=dev)}
+    for w in (flash_attention, *others):
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = R.apply(params, cfg, batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = flash_attention.launches
+    other = {w.__name__: w.launches for w in others}
+    t0 = time.perf_counter()
+    R.apply(params, cfg, batch)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    print(f"forward of {cfg.num_layers} layers: {first_ms:.1f} ms first, "
+          f"{warm_ms:.1f} ms warm; flash_attention launches {launches}; "
+          f"other kernels {other}; logits {tuple(logits.shape)}")
+    if launches != cfg.num_layers:
+        fail(f"flash_attention launched {launches} times in a forward of "
+             f"{cfg.num_layers} layers")
+    if any(other.values()):
+        fail(f"the hubert-xlarge forward launched other kernels: {other}")
+    if tuple(logits.shape) != (Hu["B"], Hu["S"], cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        fail("the hubert-xlarge forward gave no finite logits of the "
+             "expected shape")
+    report["hubert"] = dict(route_err=route_err, max_logit=scale,
+                            launches=launches, forward_ms_first=first_ms,
+                            forward_ms_warm=warm_ms)
+    del params, logits
+    torch.cuda.empty_cache()
 
 
 def scan_vs_plain(torch, dev, gen, report) -> float:

@@ -22,44 +22,62 @@
 // 4 * hd flops for each of the B * H * S (S + 1) / 2 unmasked (query, key)
 // pairs, 1.37e11 flops: 0.14 ms at the bf16 tensor-core peak of 989
 // TFLOP/s, against 0.05 ms to move q, k, v and out once (168 MB at
-// 3.35 TB/s).  So the design puts both products on the tensor cores,
-// keeps S, P and O out of device memory (q, k and v are read once a
-// CTA, out written once), and visits only the key blocks the mask can
-// reach, which halves a causal prefill's work.  What still keeps it from
-// the bound: mma.sync issues at a fraction of wgmma's rate, P V costs
-// twice its flops (P in two bf16 halves, below), and every warp re-reads
-// the whole K and V tile from shared memory.
+// 3.35 TB/s).  So both products run on the tensor cores, S, P and O stay
+// out of device memory (q, k and v are read once a CTA, out written
+// once), and only the key blocks the mask can reach are visited, which
+// halves a causal prefill's work.  The TPU kernel keeps P in f32 for P V;
+// here each probability is split into two bf16 halves, p = hi + lo to 16
+// significant bits, and O += hi V + lo V, so P carries no bf16 rounding
+// into the output (the row sums l come from the same f32 probabilities).
+// That costs P V twice its flops: the work is 1.5 times the algorithm's.
 //
-// Design, bf16 (the serving path): a CTA of 4 warps owns 64 query rows of
-// one (batch, head), 16 rows a warp, and walks its key range 64 keys at a
-// time.  Both products run on the tensor cores through
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate): S = Q K^T with Q held in
-// registers as A fragments for the whole walk, then O += P V with P taken
-// straight from S's accumulator registers.  The TPU kernel keeps P in f32
-// for P V; here each probability is split into two bf16 halves, p = hi +
-// lo to 16 significant bits, and O += hi V + lo V (two mma's on one V
-// fragment), so P carries no bf16 rounding into the output (the row sums
-// l are kept from the same f32 probabilities).  The running max, sum and the
-// 64 x hd accumulator stay in registers.  K and V tiles are staged in
-// shared memory by cp.async, rows padded by 16 bytes so that each 8-row
-// ldmatrix phase hits 32 distinct banks; the B fragments come from
-// ldmatrix.x4 (K) and ldmatrix.x4.trans (V, stored key-major as it is in
-// memory), one instruction for two mma's operands.  The copies overlap
-// the math: V of this block lands while S = Q K^T runs, K of the next
-// block while O += P V runs.  Scores are scaled into log2 units by one
-// multiply and exponentiated with ex2.approx; a block that no mask
-// touches (all but the diagonal blocks of a causal prefill) skips the
-// per-element mask test.  Registers are capped for three CTAs an SM.  Query blocks run heaviest
-// first (causal rows with the most keys are scheduled first).  Not done
-// yet: wgmma and TMA, more rows per warp to reuse each K/V fragment, a
-// deeper pipeline.
+// Three kernels, picked by the launcher by dtype and head dim:
 //
-// Design, f32 (tests and model-level parity): full f32 on the FMA units,
-// never TF32.  A CTA of 128 threads owns 32 query rows; four threads
-// share a row, each computing 4 of every 16 keys' scores and a quarter
-// of the row's output dims.  It is there to be exact, not fast.
+// bf16, hd 64, 80 and 128 (the serving paths): flash_wgmma_kernel, built
+// from Hopper's warpgroup instructions.  A CTA of three warpgroups owns 128
+// query rows of one (batch, head).  Warpgroup 0 is the producer: one of
+// its threads issues every copy.  Warpgroups 1 and 2 are consumers of 64
+// rows each.  setmaxnreg moves registers from the producer (24 a thread)
+// to the consumers (240).
+// - Loads: TMA copies through 4-D tensor maps over (hd, S, heads, B),
+//   built by the launcher from the views' strides, in boxes of one
+//   swizzle row's columns (64, 128-byte swizzle; at hd 80, 16 with 32-byte
+//   swizzle, five boxes a row): Q once, then K and V tiles of 128 keys,
+//   each through its own ring of two stages with mbarriers for full (the
+//   copy's bytes have landed) and empty (both consumers are done with the
+//   tile).  TMA zero-fills rows past Sq and Sk, so masked keys carry no
+//   NaN.
+// - S = Q K^T: wgmma m64n128k16, both operands in shared memory
+//   (K-major, as swizzled).  Its accumulator has mma.sync's (g, t) fragment
+//   layout, so the masks, the online max and sum in log2 units
+//   (ex2.approx) and the mask-free path of blocks no mask touches work on
+//   it as they did there.
+// - O += P V: wgmma m64n{hd}k16 with P's hi and lo halves from registers
+//   as A and V read MN-major (transposed) from its key-major tile.
+// - Schedule: turn i of a consumer issues S of key block i and P V of
+//   block i - 1 together, then runs block i's softmax while P V and the
+//   other consumer's products keep the tensor cores busy.  Named barriers
+//   make the two consumers take turns at issuing (ping-pong), so that one
+//   softmax overlaps the other's products.  A consumer waits for, and
+//   releases, every tile, but skips the products of a block none of its
+//   64 rows can reach.
+// - ptxas serialises every wgmma of the kernel when a register that an
+//   issued wgmma reads is written before the wait that retires it; the
+//   turn is ordered so that it does not (-Xptxas -v reports C7513 if it
+//   does).  P is split into its A fragments only after the wait for the
+//   P V that read the last ones.
 //
-// Instantiated for hd in {32, 64, 128}; anything else is refused.
+// bf16, hd 32: flash_bf16_kernel, mma.sync.m16n8k16 with 4 warps of 16
+// rows each, K and V staged by cp.async (see its note).
+//
+// f32 (tests and model-level parity), every hd: flash_f32_kernel, full
+// f32 on the FMA units, never TF32: a CTA of 128 threads owns 32 query
+// rows, four threads to a row, each computing 4 of every 16 keys' scores
+// and a quarter of the row's output dims.  It is there to be exact, not
+// fast.
+//
+// Instantiated for hd in {32, 64, 80, 128}; anything else is refused.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -130,7 +148,15 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync.m16n8k16
+// bf16, hd 32: tensor cores through mma.sync.m16n8k16
+//
+// A CTA of 4 warps owns 64 query rows of one (batch, head), 16 rows a
+// warp, and walks its key range 64 keys at a time: S = Q K^T with Q held
+// in registers as A fragments for the whole walk, then O += P V with P
+// taken straight from S's accumulator registers.  K and V tiles are staged
+// in shared memory by cp.async, rows padded by 16 bytes so that each 8-row
+// ldmatrix phase hits 32 distinct banks; V of this block lands while
+// S = Q K^T runs, K of the next block while O += P V runs.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -226,8 +252,7 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Three CTAs an SM: the register cap this sets (168 at hd = 128) costs 32
-// bytes of spill and was faster than two CTAs without spills.
+// Three CTAs an SM: a cap of 168 registers a thread.
 constexpr int kMinBlocksBf16 = 3;
 
 template <int HD>
@@ -396,6 +421,541 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksBf16)
 }
 
 // ---------------------------------------------------------------------------
+// bf16, hd 64, 80, 128: warp-specialised wgmma, K and V through TMA rings
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;     // producer + two consumer warpgroups
+constexpr int kWgRows = 64;         // query rows of one consumer
+
+// The columns of one TMA box and of one swizzle atom's row: 64 bf16 (128
+// bytes, 128-byte swizzle) where the head dim is a multiple of 64, else
+// 16 (32 bytes, 32-byte swizzle: hd 80 is five such boxes).
+constexpr int box_cols(int hd) { return hd % 64 == 0 ? 64 : 16; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// Arrives on `bar` and adds `bytes` to the bytes its phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Returns once the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// One box of a 4-D tensor map, at coordinates (c0, c1, c2, c3) innermost
+// first, into shared memory at `dst`; completes bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for a tile whose rows are BW
+// bf16 columns swizzled as TMA wrote them (128-byte swizzle for 64
+// columns, layout 1; 32-byte for 16, layout 3): start address, leading
+// and stride byte offsets (16-byte units).  Tiles start on 1024-byte
+// boundaries (base offset 0).
+template <int BW>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  static_assert(BW == 64 || BW == 16, "128- or 32-byte swizzle");
+  constexpr uint64_t layout = BW == 64 ? 1 : 3;
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Returns once at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Named barriers 1 and 2 over the two consumer warpgroups (256 threads):
+// sync waits for the other's arrive, arrive does not wait.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the point where this stands.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+#define WG_F8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_O8(i)                                                          \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),             \
+      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
+
+// d (64 x N, f32) = a (64 x 16) b (16 x N), a and b bf16 in shared memory,
+// both K-major.  d's fragments: warp w of the warpgroup, lane (g, t):
+// d[4j + c] is row 16w + g + 8 (c / 2), column 8j + 2t + c % 2.  d is
+// output only, so that no register that an earlier product left behind is
+// an input of this one.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b);
+// d += a b, as wgmma_ss_init.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b);
+// d += a b with a from registers (mma.sync's m16n8k16 A fragment for the
+// warp's 16 rows) and b MN-major (transposed) in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_init<128>(float (&d)[64],
+                                                   uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_O8(0), WG_O8(8), WG_O8(16), WG_O8(24),
+        WG_O8(32), WG_O8(40), WG_O8(48), WG_O8(56)
+      : "l"(a), "l"(b), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
+        WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
+        WG_F8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24),
+        WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef WG_F8
+#undef WG_O8
+
+constexpr int kWgBK = 128;          // keys a stage
+
+// Dynamic shared memory of flash_wgmma_kernel, in bytes from a
+// 1024-byte-aligned base: Q (the two consumers' rows, each as HD / kBW
+// boxes of 64 rows x kBW columns), a ring of kStages K tiles and one of
+// kStages V tiles (HD / kBW boxes of BK rows each), then the mbarriers.
+template <int HD, int BK>
+struct WgLayout {
+  static constexpr int kBW = box_cols(HD);
+  static constexpr int kBoxes = HD / kBW;
+  static constexpr int kStages = 2;
+  static constexpr uint32_t kQBoxBytes = kWgRows * kBW * 2;
+  static constexpr uint32_t kBoxBytes = BK * kBW * 2;     // of K or V
+  static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;
+  static constexpr uint32_t kK = 2 * kBoxes * kQBoxBytes;
+  static constexpr uint32_t kV = kK + kStages * kTileBytes;
+  static constexpr uint32_t kBars = kV + kStages * kTileBytes;
+  // Q full; K full, V full, K empty and V empty for each stage; 1024
+  // bytes of slack to align the base
+  static constexpr uint32_t kBytes = kBars + 8 * (1 + 4 * kStages) + 1024;
+};
+
+template <int HD, int BK>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, Params p) {
+  using L = WgLayout<HD, BK>;
+  constexpr int BQ = 2 * kWgRows;
+  constexpr int S = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBars;
+  const auto full_k = [=](int s) { return bar_q + 8u * (1 + s); };
+  const auto full_v = [=](int s) { return bar_q + 8u * (1 + S + s); };
+  const auto empty_k = [=](int s) { return bar_q + 8u * (1 + 2 * S + s); };
+  const auto empty_v = [=](int s) { return bar_q + 8u * (1 + 3 * S + s); };
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest first
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H, kvh = h / p.rep;
+  int lo, hi;
+  key_range(p, q0, BQ, BK, &lo, &hi);
+  const int nblk = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+  const int nq = q0 + kWgRows < p.Sq ? 2 : 1;   // consumers with rows
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 2);     // one arrival from each consumer
+      mbar_init(empty_v(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warp-uniform to the compiler (through the shuffle), so that the
+  // descriptors it derives stay in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, nq * L::kBoxes * L::kQBoxBytes);
+      for (int c = 0; c < nq; ++c)
+        for (int j = 0; j < L::kBoxes; ++j)
+          tma_load(base + (c * L::kBoxes + j) * L::kQBoxBytes, &tq, bar_q,
+                   j * L::kBW, q0 + c * kWgRows, h, b);
+      for (int n = 0; n < nblk; ++n) {
+        const int s = n % S, k0 = lo + n * BK;
+        const uint32_t par = ((n / S) & 1) ^ 1;   // round 0 passes
+        const uint32_t kd = base + L::kK + s * L::kTileBytes;
+        const uint32_t vd = base + L::kV + s * L::kTileBytes;
+        mbar_wait(empty_k(s), par);
+        mbar_expect_tx(full_k(s), L::kTileBytes);
+        for (int j = 0; j < L::kBoxes; ++j)
+          tma_load(kd + j * L::kBoxBytes, &tk, full_k(s), j * L::kBW, k0,
+                   kvh, b);
+        mbar_wait(empty_v(s), par);
+        mbar_expect_tx(full_v(s), L::kTileBytes);
+        for (int j = 0; j < L::kBoxes; ++j)
+          tma_load(vd + j * L::kBoxBytes, &tv, full_v(s), j * L::kBW, k0,
+                   kvh, b);
+      }
+    }
+  } else {
+    // consumer c: query rows [qc, qc + 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = wg - 1, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+    const int qc = q0 + c * kWgRows;
+    const int qpos[2] = {qc + warp * 16 + g, qc + warp * 16 + g + 8};
+    // the keys these rows reach (none for rows wholly past Sq)
+    const int c_hi = c >= nq ? 0 : p.causal ? min(p.Sk, qc + kWgRows) : p.Sk;
+    const int c_lo = p.window ? max(0, qc - p.window + 1) : 0;
+    const float scl = p.scale * 1.4426950408889634f;   // log2 units
+    const uint32_t qs = base + c * L::kBoxes * L::kQBoxBytes;
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    // P of the previous block as hi and lo bf16 halves: A fragments of
+    // keys 16kt.. (ph[kt][a] holds sc[8kt + 2a], sc[8kt + 2a + 1])
+    uint32_t ph[BK / 16][4], pl[BK / 16][4];
+    if (c < nq) mbar_wait(bar_q, 0);
+    if (c == 1) named_arrive(1);    // consumer 0 takes the first turn
+
+    // Turn i (0 <= i <= nblk) issues S = Q K^T of block i and O += P V of
+    // block i - 1 together, passes the turn to the other consumer, and runs
+    // block i's softmax while the tensor cores work through the other's
+    // products.  Blocks [n0, n1) have products for these rows; both
+    // consumers take every turn and wait for and release every stage.  The
+    // turns with and without products are separate loops, so that no
+    // wgmma stays in flight across a branch.
+    const int n0 = (c_lo - lo) / BK;
+    const int n1 = max(n0, c_hi > lo ? min(nblk, (c_hi - lo + BK - 1) / BK)
+                                     : 0);
+    const auto wait_stage = [&](int i) {
+      if (i < nblk) mbar_wait(full_k(i % S), (i / S) & 1);
+      if (i > 0) mbar_wait(full_v((i - 1) % S), ((i - 1) / S) & 1);
+    };
+    // turn i is done with block i's K and block i - 1's V
+    const auto release_k = [&](int i) {
+      if (i < nblk && tid == 0) mbar_arrive(empty_k(i % S));
+    };
+    const auto release_v = [&](int i) {
+      if (i > 0 && tid == 0) mbar_arrive(empty_v((i - 1) % S));
+    };
+    // Operand layouts as TMA left them: a row of a box is BW columns (one
+    // swizzle row), 8 rows a swizzle atom.  K-major (Q, K): k-step kk is
+    // columns 16kk.., in box 16kk / BW at byte 2 (16kk % BW) of its row;
+    // 8-row groups kRow8 bytes apart.  MN-major (V): 16 keys a k-step,
+    // 8-key groups kRow8 bytes apart, boxes (the next BW columns)
+    // kBoxBytes apart.
+    constexpr int BW = L::kBW;
+    constexpr uint32_t kRow8 = 8 * BW * 2;
+    const auto issue_s = [&](float (&sc)[BK / 2], int i) {
+      const uint32_t ks = base + L::kK + (i % S) * L::kTileBytes;
+      const auto dq = [&](int kk) {
+        return smem_desc<BW>(qs + (16 * kk / BW) * L::kQBoxBytes +
+                                 (16 * kk % BW) * 2, 16, kRow8);
+      };
+      const auto dk = [&](int kk) {
+        return smem_desc<BW>(ks + (16 * kk / BW) * L::kBoxBytes +
+                                 (16 * kk % BW) * 2, 16, kRow8);
+      };
+      wgmma_ss_init<BK>(sc, dq(0), dk(0));
+#pragma unroll
+      for (int kk = 1; kk < HD / 16; ++kk) wgmma_ss<BK>(sc, dq(kk), dk(kk));
+      wgmma_commit();
+    };
+    const auto issue_pv = [&](int i) {   // block i - 1
+      const uint32_t vs = base + L::kV + ((i - 1) % S) * L::kTileBytes;
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt) {
+        const uint64_t dv =
+            smem_desc<BW>(vs + kt * 16 * BW * 2, L::kBoxBytes, kRow8);
+        wgmma_rs<HD>(o, ph[kt], dv);
+        wgmma_rs<HD>(o, pl[kt], dv);
+      }
+      wgmma_commit();
+    };
+    // block i's scores to probabilities, in place: the running max and
+    // sum, and O's factor for the new max
+    const auto softmax = [&](float (&sc)[BK / 2], int i, float (&corr)[2]) {
+      const int k0 = lo + i * BK;
+      // sc[j] is row (j >> 1) & 1, key k0 + 8 (j >> 2) + 2t + (j & 1)
+      float mx[2] = {m[0], m[1]};
+      const bool whole = k0 + BK <= p.Sk &&
+                         (!p.causal || k0 + BK <= qc + 1) &&
+                         (!p.window || qc + kWgRows - 1 - k0 < p.window);
+      if (whole) {
+#pragma unroll
+        for (int j = 0; j < BK / 2; ++j) {
+          sc[j] *= scl;
+          mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BK / 2; ++j) {
+          const int r = (j >> 1) & 1;
+          const int kpos = k0 + (j >> 2) * 8 + 2 * t + (j & 1);
+          sc[j] = allowed(p, qpos[r], kpos) ? sc[j] * scl : kNegInf;
+          mx[r] = fmaxf(mx[r], sc[j]);
+        }
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        corr[r] = exp2_approx(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        sc[j] = exp2_approx(sc[j] - m[(j >> 1) & 1]);
+        rs[(j >> 1) & 1] += sc[j];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+    };
+    // P into the registers the next P V reads, once the last P V is done
+    const auto split = [&](const float (&sc)[BK / 2]) {
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt)
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          split_bf16(sc[8 * kt + 2 * a], sc[8 * kt + 2 * a + 1], &ph[kt][a],
+                     &pl[kt][a]);
+    };
+    // O to the running max of the last softmax, before the P V after it
+    const auto rescale = [&](const float (&corr)[2]) {
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) o[j] *= corr[(j >> 1) & 1];
+      reg_fence(o);
+    };
+
+    float corr[2];                  // O's factor from the last softmax
+    int i = 0;
+    for (; i < n0; ++i) {           // turns without products
+      wait_stage(i);
+      named_sync(1 + c);
+      named_arrive(2 - c);
+      release_k(i);
+      release_v(i);
+    }
+    if (n0 < n1) {
+      {                             // turn n0: S only
+        float sc[BK / 2];
+        wait_stage(i);
+        named_sync(1 + c);
+        wgmma_fence();
+        issue_s(sc, i);
+        named_arrive(2 - c);
+        wgmma_wait<0>();
+        reg_fence(sc);
+        release_k(i);
+        release_v(i);
+        softmax(sc, i, corr);
+        split(sc);
+        ++i;
+      }
+      for (; i < n1; ++i) {         // S of block i, P V of block i - 1
+        float sc[BK / 2];
+        wait_stage(i);
+        named_sync(1 + c);
+        rescale(corr);
+        wgmma_fence();
+        issue_s(sc, i);
+        issue_pv(i);
+        named_arrive(2 - c);
+        wgmma_wait<1>();            // S has landed; P V may still run
+        reg_fence(sc);
+        release_k(i);
+        softmax(sc, i, corr);
+        wgmma_wait<0>();
+        reg_fence(o);
+        reg_fence(ph);
+        reg_fence(pl);
+        release_v(i);
+        split(sc);
+      }
+      {                             // turn n1: P V only
+        wait_stage(i);
+        named_sync(1 + c);
+        rescale(corr);
+        wgmma_fence();
+        issue_pv(i);
+        named_arrive(2 - c);
+        wgmma_wait<0>();
+        reg_fence(o);
+        release_k(i);
+        release_v(i);
+        ++i;
+      }
+    }
+    for (; i <= nblk; ++i) {        // turns without products
+      wait_stage(i);
+      named_sync(1 + c);
+      named_arrive(2 - c);
+      release_k(i);
+      release_v(i);
+    }
+
+    __nv_bfloat16* og =
+        static_cast<__nv_bfloat16*>(p.o) + b * p.ob + h * p.oh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
+      if (qpos[r] >= p.Sq) continue;
+      __nv_bfloat16* orow = og + qpos[r] * p.os + 2 * t;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] / denom,
+                                  o[4 * j + 2 * r + 1] / denom);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: FMA units, full precision
 // ---------------------------------------------------------------------------
 
@@ -476,6 +1036,84 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
   for (int i = 0; i < ND; ++i) orow[u + 4 * i] = acc[i] / denom;
 }
 
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so
+// that the library needs no link against libcuda.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(f);
+  }
+  return fn;
+}
+
+// Error codes of the launcher beside cudaError_t's
+constexpr int kErrNoEncoder = 1 << 20;      // no cuTensorMapEncodeTiled
+constexpr int kErrTensorMap = 1 << 21;      // + the driver's CUresult
+
+// A bf16 4-D tensor map with zero fill past the bounds, its swizzle the
+// box row's width (128 bytes for 64 columns, 32 for 16).  spec: dims (hd,
+// S, heads, B), byte strides of S, heads and B, box (box_cols(hd), rows, 1,
+// 1) — computed by the wrapper (ops.py).
+int encode_map(CUtensorMap* map, const void* ptr, const long long* spec,
+               int hd, int rows) {
+  if (spec[0] != hd || spec[7] != box_cols(hd) || spec[8] != rows ||
+      spec[9] != 1 || spec[10] != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncoder;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) dims[i] = static_cast<cuuint64_t>(spec[i]);
+  for (int i = 0; i < 3; ++i)
+    strides[i] = static_cast<cuuint64_t>(spec[4 + i]);
+  for (int i = 0; i < 4; ++i) box[i] = static_cast<cuuint32_t>(spec[7 + i]);
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        box_cols(hd) == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
+}
+
+template <int HD>
+int launch_wgmma(const Params& p, const long long* tma, int B,
+                 cudaStream_t st) {
+  using L = WgLayout<HD, kWgBK>;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {p.q, p.k, p.v};
+  for (int i = 0; i < 3; ++i) {
+    const int rc = encode_map(&maps[i], ptrs[i], tma + 11 * i, HD,
+                              i == 0 ? kWgRows : kWgBK);
+    if (rc != 0) return rc;
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD, kWgBK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((p.Sq + 2 * kWgRows - 1) / (2 * kWgRows), B * p.H);
+  flash_wgmma_kernel<HD, kWgBK><<<grid, kWgThreads, L::kBytes, st>>>(
+      maps[0], maps[1], maps[2], p);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -483,13 +1121,18 @@ extern "C" {
 // q (B, Sq, H, hd), k and v (B, Sk, KV, hd), out (B, Sq, H, hd), all of one
 // dtype (0: f32, 1: bf16) on the current device, head dim contiguous and
 // rows 16-byte aligned.  `strides` holds 12 element strides: batch,
-// sequence and head of q, k, v and out.  Launches on `stream` and returns
-// the launch's cudaError_t (0 on success); it does not synchronise.
+// sequence and head of q, k, v and out.  `tma` (bf16 at hd 64, 80, 128,
+// else unread) holds the tensor maps of q, k and v, 11 numbers each: dims
+// (hd, S, heads, B), byte strides of S, heads and B, box (box_cols(hd),
+// rows, 1, 1) with 64 rows for q and 128 keys for k and v.  Launches on
+// `stream` and returns the launch's cudaError_t (0 on success), or a
+// tensor-map error (see flash_attention_error_string); it does not
+// synchronise.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int dtype, int B, int Sq, int Sk,
                            int H, int KV, int hd, const long long* strides,
-                           int causal, int window, float scale,
-                           void* stream) {
+                           const long long* tma, int causal, int window,
+                           float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       window < 0 || static_cast<long long>(B) * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -510,19 +1153,25 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.window = window;
   p.scale = scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the only dispatch: by dtype and head dim
   if (dtype == 1) {
     const dim3 grid((Sq + 63) / 64, B * H);
+    const int bad = static_cast<int>(cudaErrorInvalidValue);
+    int rc = 0;
     switch (hd) {
       case 32: flash_bf16_kernel<32><<<grid, kThreads, 0, st>>>(p); break;
-      case 64: flash_bf16_kernel<64><<<grid, kThreads, 0, st>>>(p); break;
-      case 128: flash_bf16_kernel<128><<<grid, kThreads, 0, st>>>(p); break;
+      case 64: rc = tma ? launch_wgmma<64>(p, tma, B, st) : bad; break;
+      case 80: rc = tma ? launch_wgmma<80>(p, tma, B, st) : bad; break;
+      case 128: rc = tma ? launch_wgmma<128>(p, tma, B, st) : bad; break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
+    if (rc != 0) return rc;
   } else if (dtype == 0) {
     const dim3 grid((Sq + 31) / 32, B * H);
     switch (hd) {
       case 32: flash_f32_kernel<32><<<grid, kThreads, 0, st>>>(p); break;
       case 64: flash_f32_kernel<64><<<grid, kThreads, 0, st>>>(p); break;
+      case 80: flash_f32_kernel<80><<<grid, kThreads, 0, st>>>(p); break;
       case 128: flash_f32_kernel<128><<<grid, kThreads, 0, st>>>(p); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -533,6 +1182,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 }
 
 const char* flash_attention_error_string(int code) {
+  if (code == kErrNoEncoder)
+    return "the driver has no cuTensorMapEncodeTiled";
+  if (code >= kErrTensorMap)
+    return "cuTensorMapEncodeTiled refused a tensor map (the code less "
+           "2^21 is its CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

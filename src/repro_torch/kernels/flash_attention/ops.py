@@ -7,6 +7,10 @@ tensor launches the CUDA kernel (``csrc/flash_attention.cu``), which maps
 query head h to KV head h // (H // KV) and reads every operand through
 its strides, or raises.  ``flash_attention.launches`` counts kernel
 launches.
+
+bf16 at hd 64, 80 and 128 runs the warp-specialised wgmma kernel, which loads
+q, k and v by TMA through 4-D tensor maps; ``tensor_map_spec`` computes
+their dims, byte strides and boxes here, and the launcher encodes them.
 """
 from __future__ import annotations
 
@@ -18,7 +22,10 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 
-HEAD_DIMS = (32, 64, 128)      # the kernel's instantiations
+HEAD_DIMS = (32, 64, 80, 128)  # the kernel's instantiations
+TMA_HEAD_DIMS = (64, 80, 128)  # bf16 through the wgmma kernel's tensor maps
+TMA_Q_ROWS = 64                # query rows of one consumer warpgroup
+TMA_KV_ROWS = 128              # keys of one K or V stage
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BH = 65535                # the grid's y extent
 
@@ -26,9 +33,31 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
     "flash_attention_launch": ([_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
-                                _INT, _INT, _INT, _INT, _PTR, _INT, _INT,
-                                ctypes.c_float, _PTR], _INT),
+                                _INT, _INT, _INT, _INT, _PTR, _PTR, _INT,
+                                _INT, ctypes.c_float, _PTR], _INT),
 }
+
+
+def tma_box_cols(hd: int) -> int:
+    """The columns of one TMA box: a 128-byte swizzle row (64 bf16) where
+    hd is a multiple of 64, else a 32-byte one (16: hd 80 is 5 boxes)."""
+    return 64 if hd % 64 == 0 else 16
+
+
+def tensor_map_spec(t: torch.Tensor, rows: int):
+    """The TMA map of a (B, S, heads, hd) view as the launcher encodes it:
+    dims innermost first (hd, S, heads, B), the byte strides of S, heads
+    and B, and the box (``tma_box_cols(hd)``, ``rows``, 1, 1).  TMA takes
+    strides that are multiples of 16 bytes only."""
+    B, S, heads, hd = t.shape
+    es = t.element_size()
+    strides = (t.stride(1) * es, t.stride(2) * es, t.stride(0) * es)
+    if t.stride(3) != 1 or any(s % 16 for s in strides):
+        raise ValueError(f"flash_attention: a tensor map needs a contiguous "
+                         f"head dim and byte strides that are multiples of "
+                         f"16, got strides {t.stride()} of {es}-byte "
+                         f"elements")
+    return (hd, S, heads, B), strides, (tma_box_cols(hd), rows, 1, 1)
 
 
 def _check(q, k, v, window):
@@ -86,13 +115,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3])
+    tma = None
+    if q.dtype == torch.bfloat16 and hd in TMA_HEAD_DIMS:
+        specs = [tensor_map_spec(t, rows) for t, rows in (
+            (q, TMA_Q_ROWS), (k, TMA_KV_ROWS), (v, TMA_KV_ROWS))]
+        tma = (ctypes.c_longlong * 33)(
+            *(x for spec in specs for part in spec for x in part))
     lib = kernels.library("flash_attention", _SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], B, Sq, Sk, H, KV, hd,
-            ctypes.cast(strides, _PTR), int(bool(causal)), int(window),
-            1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
+            ctypes.cast(strides, _PTR),
+            None if tma is None else ctypes.cast(tma, _PTR),
+            int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise kernels.launch_error(lib, "flash_attention", rc)
     flash_attention.launches += 1

@@ -28,9 +28,8 @@ from repro_torch.models import rwkv as RW
 from repro_torch.models import transformer as TF
 
 
-_UNPORTED = {"hybrid": "its Mamba2 layers (models/mamba.py) and its shared "
-             "attention through flash_attention at head_dim 80, which the "
-             "kernel does not instantiate yet, ROADMAP queue A item 14c"}
+_UNPORTED = {"hybrid": "its Mamba2 layers (models/mamba.py), ROADMAP queue A "
+             "item 14c"}
 
 
 def _check_family(cfg: ModelConfig) -> None:

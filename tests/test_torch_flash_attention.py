@@ -5,7 +5,7 @@ heads, flatten, ``attention_ref``); it is held against the JAX package's
 ``flash_attention`` run through its Pallas kernel in interpret mode, on a
 subset of that package's sweep (``tests/test_kernels.py``) that keeps the
 ragged S = 200 with one KV head, the hd = 128 case, all three mask modes
-and both dtypes.  Tolerances are the sweep's: f32 differs only in the
+and both dtypes, plus hubert-xlarge's head dim 80 at a small S.  Tolerances are the sweep's: f32 differs only in the
 order of the sums (1e-5); bf16 outputs round to bf16, whose spacing near
 the outputs' magnitude (about 0.5) is 2e-3, and both sides accumulate in
 f32 (2e-2).  The CUDA kernel itself is held against the same plain
@@ -19,6 +19,7 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as jflash
 from repro.kernels.flash_attention.ref import attention_ref as jref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ops import tensor_map_spec
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -40,6 +41,7 @@ def _both(arrs, dtype):
 @pytest.mark.parametrize("B,S,H,KV,hd", [
     (1, 200, 4, 1, 32),      # non-multiple-of-block seq, strong GQA
     (2, 64, 8, 8, 128),
+    (1, 72, 2, 1, 80),       # hubert-xlarge's head dim (1280 / 16)
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
                                            (False, 0)])
@@ -88,7 +90,7 @@ def test_wrapper_reads_strided_views():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(hd=80), "head dim"),
+    (dict(hd=96), "head dim"),
     (dict(dtype=torch.float16), "float32 or all bfloat16"),
     (dict(kv_dtype=torch.bfloat16), "float32 or all bfloat16"),
     (dict(KV=3), "H % KV"),
@@ -104,6 +106,49 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(change, match):
         q = torch.zeros((1, 8, hd, 4), dtype=dtype).transpose(2, 3)
     with pytest.raises(ValueError, match=match):
         flash_attention(q, k, k.clone(), window=change.get("window", 0))
+
+
+@pytest.mark.parametrize("B,S,heads,hd,rows,cols", [
+    (4, 2048, 32, 128, 64, 64), (2, 300, 8, 64, 128, 64),
+    (1, 5, 1, 64, 128, 64), (4, 2048, 16, 80, 128, 16)])
+def test_tensor_map_spec_of_a_contiguous_tensor(B, S, heads, hd, rows,
+                                                cols):
+    """dims innermost first (hd, S, heads, B), the byte strides of S,
+    heads and B, and a box of one swizzle row's columns (64 bf16, 128
+    bytes; at hd 80 16 bf16, 32 bytes) by ``rows``."""
+    t = torch.zeros((B, S, heads, hd), dtype=torch.bfloat16)
+    dims, strides, box = tensor_map_spec(t, rows)
+    assert dims == (hd, S, heads, B)
+    assert strides == (heads * hd * 2, hd * 2, S * heads * hd * 2)
+    assert box == (cols, rows, 1, 1) and hd % cols == 0
+
+
+def test_tensor_map_spec_of_fused_projection_views():
+    """q, k and v as views into one (B, S, (H + 2 KV) hd) projection: the
+    maps step over the whole fused row, and each starts at its own
+    columns (the launcher takes the view's data pointer)."""
+    B, S, H, KV, hd = 2, 300, 8, 2, 64
+    fused = torch.zeros((B, S, (H + 2 * KV) * hd), dtype=torch.bfloat16)
+    row = (H + 2 * KV) * hd * 2
+    k = fused[..., H * hd:(H + KV) * hd].view(B, S, KV, hd)
+    dims, strides, _ = tensor_map_spec(k, 128)
+    assert dims == (hd, S, KV, B)
+    assert strides == (row, hd * 2, S * row)
+    assert k.data_ptr() - fused.data_ptr() == H * hd * 2
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.zeros((1, 8, 2, 64 + 4), dtype=torch.bfloat16)[..., :64],
+    lambda: torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16).transpose(
+        2, 3),
+    lambda: torch.zeros((3, 8, 2 * 64 + 4), dtype=torch.bfloat16)[
+        :, :, :128].view(3, 8, 2, 64)[:, :, :1],
+])
+def test_tensor_map_spec_refuses_strides_tma_cannot_take(make):
+    """a head stride of 136 bytes, a head dim that is not contiguous, a
+    sequence stride of 264 bytes: none is a multiple of 16 bytes."""
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tensor_map_spec(make(), 128)
 
 
 def test_cpu_route_never_counts_a_launch():

@@ -194,6 +194,24 @@ def test_model_routes_match_jax(arch):
     assert abs(float(tm["ce"]) - float(jm["ce"])) <= 2e-4
 
 
+def test_hubert_at_its_published_head_dim_matches_jax():
+    """hubert-xlarge at head dim 80 (d_model 160 over 2 heads, the
+    published 1280 / 16), 2 layers: the kernel route against the JAX
+    package's Pallas route in interpret mode."""
+    kw = dict(num_layers=2, d_model=160, num_heads=2, num_kv_heads=2,
+              d_ff=640, remat=False, dtype="float32")
+    cfg, jcfg = ARCHS["hubert-xlarge"].replace(**kw), \
+        JARCHS["hubert-xlarge"].replace(**kw)
+    assert cfg.resolved_head_dim == 80
+    jp = JR.init_params(KEY, jcfg)
+    batch = _batch(cfg, 2, 24)
+    want, _ = JR.apply(jp, jcfg, {k: jnp.asarray(v) for k, v in
+                                  batch.items()}, impl="pallas")
+    got, _ = R.apply(_carry(jp), cfg, _to_torch(batch), impl="kernel")
+    assert got.shape == (2, 24, cfg.vocab_size)
+    _close(got, want, 2e-4)
+
+
 @pytest.mark.parametrize("arch,S,window,cache_len", [
     ("qwen3-4b", 12, 0, 12), ("llama3-8b", 12, 0, 16),
     ("granite-8b", 12, 0, 12), ("starcoder2-3b", 12, 0, 12),
