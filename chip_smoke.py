@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      per source, all at once), timed; ``-Xptxas -v``'s registers and
      spills per kernel.  The flash library's wgmma kernels must not spill
      nor have their wgmma serialised, and its SASS (``cuobjdump -sass``)
-     must hold HGMMA (wgmma) and UTMALDG (TMA loads);
+     must hold HGMMA (wgmma) and UTMALDG (TMA loads); no
+     ``chunk_scan_*_kernel`` may spill, and the chunk_scan library's SASS
+     must hold TF32 HMMA (its products on the tensor cores);
   2. ``fed_agg`` against its plain version on the card, max abs error;
   3. ``pairwise_dist_sq`` against its plain version, error over max(D, 1);
   4. the main path: ``repro_torch.fl_constellation_sim.main`` runs
@@ -55,11 +57,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      on the card: the JAX package's kernel sweep (three shapes, RWKV6 and
      Mamba2 modes, f32 and bf16), a zamba2-shaped Mamba2 case (H 40, K 64,
      V 128), a strided-view case, short and ragged chunks, the serving
-     shape (B 4, T 2048, H 64, K = V = 64, chunk 128, bf16, RWKV6) and
-     every log-decay at the clamp (-1) at chunk 128 in both modes, where
-     the TPU kernel's factorisation overflows.  f32: max abs error <= 5e-5
-     on y and the final state; bf16: every y element within 2^-7 |want| +
-     2^-8 rms(want's row), the state within 5e-5; all of it finite;
+     shape (B 4, T 2048, H 64, K = V = 64, chunk 128, bf16, RWKV6), every
+     log-decay at the clamp (-1) at chunk 128 in both modes, where the TPU
+     kernel's factorisation overflows, many chunks (T 2048, chunk 16: 128
+     steps of the state pass), one chunk (T = chunk = 128) and V 192
+     (three V tiles) in Mamba2 mode.  f32: max abs error <= 5e-5 on y and
+     the final state; bf16: every y element within 2^-7 |want| + 2^-8
+     rms(want's row), the state within 5e-5; all of it finite.  The
+     distance to the plain version of the kernel's own decomposition
+     (``chunk_scan_blocked_ref``, 3 TF32 passes) is printed beside it;
  12. model-level route parity: rwkv6-7b at full width with 2 layers,
      B 2 x 256 tokens (two chunks): f32 logits through the kernel route
      against the plain route (2e-4); 16 decode steps against the full
@@ -78,8 +84,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      as phase 9, and the lowest in-chunk cumulative log-decay of the
      prefill's 32 layers (how close the JAX package's factorisation came
      to overflowing on this input);
- 14. ``chunk_scan`` timed at the serving shape beside its plain version
-     and its bound (no single PyTorch call computes the recurrence);
+ 14. ``chunk_scan`` timed at the serving shape: the kernel (one launch a
+     call) and the wrapper (every kernel of a call: the zeroing of its
+     sync buffer too), beside its plain version and its bound both ways —
+     bytes, which bound the tensor-core route, and operations at the f32
+     FMA peak of the earlier design (no single PyTorch call computes the
+     recurrence);
  15. hubert-xlarge at its published width (head dim 80) through
      ``registry.apply``: the kernel route against the plain route at 2
      layers in f32, B 2 x 300 frames (2e-4); then the 48-layer forward in
@@ -108,6 +118,7 @@ SRC = ROOT / "src"
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
 H100_BF16_FLOP_PER_S = 989e12       # bf16 tensor cores, dense
+H100_TF32_FLOP_PER_S = 495e12       # TF32 tensor cores, dense
 F32_EPS = 2.0 ** -24
 L2_BYTES = 50 * 2 ** 20
 FED_AGG_TOL = 1e-5                  # max abs error, outputs of order 1
@@ -588,8 +599,8 @@ def main() -> None:
 
 def kernel_name(mangled: str) -> str:
     """The last length-prefixed name ending in "kernel" in a mangled
-    symbol, with its integer template arguments:
-    flash_wgmma_kernel<128,128>."""
+    symbol, with its integer or element-type template arguments:
+    flash_wgmma_kernel<128,128>, chunk_scan_kernel<bf16>."""
     import re
     found = mangled
     for m in re.finditer(r"\d+", mangled):
@@ -597,11 +608,14 @@ def kernel_name(mangled: str) -> str:
             n = int(mangled[d:m.end()])
             name = mangled[m.end():m.end() + n]
             if len(name) == n and name.endswith("kernel"):
-                args = re.match(r"I((?:Li\d+E)+)", mangled[m.end() + n:])
                 found = name
+                arg = r"f|13__nv_bfloat16|Li\d+E"
+                args = re.match(rf"I((?:{arg})+)E", mangled[m.end() + n:])
                 if args:
-                    ints = re.findall(r"Li(\d+)E", args.group(1))
-                    found += f"<{','.join(ints)}>"
+                    names = {"f": "f32", "13__nv_bfloat16": "bf16"}
+                    found += "<" + ",".join(
+                        names.get(a, a.strip("LiE"))
+                        for a in re.findall(arg, args.group(1))) + ">"
                 break
     return found
 
@@ -630,10 +644,23 @@ def ptxas_kernels(log: str):
     return out, warn
 
 
+def sass_of(kernels, name: str) -> str:
+    """``cuobjdump -sass`` of the built library of ``csrc/<name>.cu``."""
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(kernels.library_path(name))],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass {name} failed: {sass.stderr.strip()[:300]}")
+    return sass.stdout
+
+
 def check_build(kernels, logs) -> dict:
     """Phase 1's checks: registers and spills per kernel; the wgmma
     kernel of flash_attention without spills and without serialised
-    wgmma; HGMMA (wgmma) and UTMALDG (TMA loads) in its library's SASS."""
+    wgmma; HGMMA (wgmma) and UTMALDG (TMA loads) in its library's SASS;
+    every chunk_scan kernel without spills, and TF32 HMMA in its
+    library's SASS."""
     report = {}
     for name, log in logs.items():
         rows, warn = ptxas_kernels(log)
@@ -653,19 +680,28 @@ def check_build(kernels, logs) -> dict:
     if flash["warnings"]:
         fail(f"ptxas serialised wgmma or ignored setmaxnreg: "
              f"{flash['warnings']}")
-    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(kernels.library_path("flash_attention"))],
-                          capture_output=True, text=True, timeout=300)
-    if sass.returncode != 0:
-        fail(f"cuobjdump -sass failed: {sass.stderr.strip()[:300]}")
-    counts = {op: sass.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    sass = sass_of(kernels, "flash_attention")
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
     print(f"  flash_attention SASS: {counts['HGMMA']} HGMMA (wgmma), "
           f"{counts['UTMALDG']} UTMALDG (TMA loads)")
     if not all(counts.values()):
         fail(f"the flash_attention library's SASS lacks wgmma or TMA: "
              f"{counts}")
     report["flash_sass"] = counts
+    scan = [r for r in report["chunk_scan"]["kernels"]
+            if r[0].startswith("chunk_scan_")]
+    if not scan:
+        fail("ptxas reported no chunk_scan kernel")
+    if any(st or ld for _, _, st, ld in scan):
+        fail(f"the chunk_scan kernels spill: {scan}")
+    hmma = [line for line in sass_of(kernels, "chunk_scan").splitlines()
+            if "HMMA" in line]
+    tf32 = sum(".TF32" in line for line in hmma)
+    print(f"  chunk_scan SASS: {len(hmma)} HMMA, {tf32} of them TF32 "
+          f"(mma.sync.m16n8k8 on the tensor cores)")
+    if not tf32:
+        fail("the chunk_scan library's SASS holds no TF32 HMMA")
+    report["chunk_scan_sass"] = dict(hmma=len(hmma), tf32=tf32)
     return report
 
 
@@ -1050,10 +1086,12 @@ def scan_vs_plain(torch, dev, gen, report) -> float:
     sequential recurrence); returns the largest abs error of the f32 cases
     (y and the final state)."""
     from repro_torch.kernels.chunk_scan import chunk_scan
-    from repro_torch.kernels.chunk_scan.ref import chunk_scan_ref
+    from repro_torch.kernels.chunk_scan.ref import (chunk_scan_blocked_ref,
+                                                    chunk_scan_ref)
     phase("phase 11: chunk_scan kernel vs plain (max abs error of y and the "
           "final state; bf16 y also error / (2^-7 |want| + 2^-8 rms(want "
-          "row)))")
+          "row)); the distance to the blocked plain version, 3 TF32 "
+          "passes, beside it)")
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -1077,6 +1115,8 @@ def scan_vs_plain(torch, dev, gen, report) -> float:
         kw = dict(include_current=not rwkv, bonus=u)
         y, s_fin = chunk_scan(r, k, v, ld, s0, chunk=chunk, **kw)
         y_want, s_want = chunk_scan_ref(r, k, v, ld, s0, **kw)
+        y_blk, s_blk = chunk_scan_blocked_ref(r, k, v, ld, s0, chunk=chunk,
+                                              tf32_passes=3, **kw)
         torch.cuda.synchronize()
         name = (f"B={B} T={T:4d} H={H:2d} K={K:2d} V={V:3d} chunk={chunk:3d} "
                 f"{mode:5s} {dt:8s}" + (" strided" if strided else "")
@@ -1089,6 +1129,8 @@ def scan_vs_plain(torch, dev, gen, report) -> float:
         yg, yw = y.float(), y_want.float()
         y_err = float((yg - yw).abs().max())
         s_err = float((s_fin - s_want).abs().max())
+        blk_err = max(float((yg - y_blk.float()).abs().max()),
+                      float((s_fin - s_blk).abs().max()))
         scaled = None
         if dt == "bfloat16":
             row_rms = yw.square().mean(-1, keepdim=True).sqrt()
@@ -1096,7 +1138,8 @@ def scan_vs_plain(torch, dev, gen, report) -> float:
             scaled = float(((yg - yw).abs() / limit).max())
         print(f"  {name}: y {y_err:.3e}, state {s_err:.3e}, rms |y| "
               f"{float(yw.square().mean().sqrt()):.3e}"
-              + (f", scaled {scaled:.3f}" if scaled is not None else ""))
+              + (f", scaled {scaled:.3f}" if scaled is not None else "")
+              + f"; to the blocked version {blk_err:.3e}")
         if dt == "float32" and not y_err <= SCAN_TOL:
             fail(f"chunk_scan {name}: y error {y_err} > {SCAN_TOL}")
         if not s_err <= SCAN_TOL:
@@ -1104,7 +1147,7 @@ def scan_vs_plain(torch, dev, gen, report) -> float:
         if scaled is not None and not scaled <= 1.0:
             fail(f"chunk_scan {name}: scaled error {scaled} > 1")
         return dict(name=name, dtype=dt, y_err=y_err, s_err=s_err,
-                    scaled_err=scaled)
+                    scaled_err=scaled, blocked_err=blk_err)
 
     results = []
     for B, T, H, K, V, chunk in ((1, 64, 2, 8, 16, 16),
@@ -1130,6 +1173,10 @@ def scan_vs_plain(torch, dev, gen, report) -> float:
                                  ld_const=-1.0))
     print(f"  at ld = -1, chunk 128: the TPU kernel's exp(-L) would reach "
           f"exp(128.0) > exp({F32_EXP_MAX}) (not a finite f32)")
+    # many chunks (128 steps of the state pass), one chunk, three V tiles
+    results.append(check(2, 2048, 4, 64, 64, 16, "rwkv", "float32"))
+    results.append(check(2, 128, 4, 64, 64, 128, "rwkv", "float32"))
+    results.append(check(2, 256, 4, 64, 192, 128, "mamba", "float32"))
     worst = max(max(r["y_err"], r["s_err"]) for r in results
                 if r["dtype"] == "float32")
     scaled = max(r["scaled_err"] for r in results
@@ -1285,18 +1332,25 @@ def scan_timings(torch, dev, gen, report) -> dict:
     pairs = Lc * (Lc - 1) // 2
     flops = B * H * (T // Lc) * 2.0 * (Lc * K * V + pairs * K + pairs * V
                                        + K * Lc * V)
-    b_ms, by = bound_ms(nbytes, flops)
+    # the products run on the tensor cores (TF32 operands): the bound is
+    # the bytes; the earlier design's products on the f32 FMA units
+    b_ms, by = bound_ms(nbytes, flops, peak=H100_TF32_FLOP_PER_S)
+    fma_ms = flops / H100_F32_FLOP_PER_S * 1e3
+    tf32_ms = flops / H100_TF32_FLOP_PER_S * 1e3
     t = dict(shape=[B, T, H, K, V], chunk=Lc, ms=k_ms, wrapper_ms=w_ms,
              queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms, library_ms=None,
-             bound_ms=b_ms, bound_by=by, flops=flops, nbytes=nbytes,
+             bound_ms=b_ms, bound_by=by, bound_fma_ms=fma_ms,
+             bound_tf32_ms=tf32_ms, flops=flops, nbytes=nbytes,
              tflops=flops / k_ms / 1e9)
     print(f"chunk_scan [{B}, {T}, {H}, {K}, {V}] chunk {Lc} bf16 RWKV6: "
           f"kernel {k_ms:.4f} ms ({t['tflops']:.1f} TFLOP/s; the wrapper "
-          f"with its decay clamp {w_ms:.4f} ms; queued {q_ms:.4f} ms/call, "
-          f"host enqueue {host_ms * 1e3:.1f} us/call), bound {b_ms:.4f} ms "
-          f"({by}; {flops:.3e} flops, {nbytes / 1e6:.1f} MB), plain "
-          f"{p_ms:.2f} ms, library none (no single PyTorch call computes "
-          f"the recurrence)")
+          f"{w_ms:.4f} ms; queued {q_ms:.4f} ms/call, host enqueue "
+          f"{host_ms * 1e3:.1f} us/call), bound {b_ms:.4f} ms ({by}, "
+          f"{nbytes / 1e6:.1f} MB; "
+          f"the {flops:.3e} flops take {tf32_ms:.4f} ms at the TF32 "
+          f"tensor-core peak, {fma_ms:.4f} ms at the f32 FMA peak of the "
+          f"earlier design), plain {p_ms:.2f} ms, library none (no single "
+          f"PyTorch call computes the recurrence)")
     report["chunk_scan_timings"] = t
     return t
 

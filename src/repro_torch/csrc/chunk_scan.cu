@@ -5,21 +5,20 @@
 //   y_t = r_t . S_{t-1} + (r_t * u . k_t) v_t         RWKV6 (bonus u)
 //
 // Replaces: src/repro/kernels/chunk_scan/kernel.py, chunk_scan_flat
-// (_chunk_kernel), in both modes.  The clamp of the log-decay to [-1, 0]
-// (and the broadcast of a scalar per-head decay) stays in the wrapper, as
-// in the JAX package.
+// (_chunk_kernel), in both modes.  The log-decay is clamped to [-1, 0] as
+// it is read (the JAX package clamps it in its wrapper), and a scalar
+// per-head decay comes in with a channel stride of 0.
 //
 // Layout: r, k and ld (B, T, H, K), v (B, T, H, V), read through their
 // four strides each (the model's projections go in without a copy); s0
 // and s_fin (B, H, K, V) f32 contiguous; u (H, K) f32 contiguous (RWKV6
-// mode only); y (B, T, H, V) contiguous in r/k/v's dtype (f32 or bf16,
-// widened to f32 on load).  All arithmetic is f32 on the FMA units.
+// mode only); y (B, T, H, V) contiguous in r/k/v's dtype (f32 or bf16).
 //
-// Per chunk of Lc steps, with L the inclusive cumulative log-decay and M_t
-// = L_t (Mamba2) or L_{t-1} (RWKV6):
-//   y_cross = (r exp(M)) S;   y_intra[t] = sum_{s<t | s<=t} A[t,s] v_s;
+// Per chunk c of Lc steps, with L the inclusive cumulative log-decay and
+// M_t = L_t (Mamba2) or L_{t-1} (RWKV6):
+//   y_cross = (r exp(M)) S_c;   y_intra[t] = sum_{s<t | s<=t} A[t,s] v_s;
 //   A[t,s]  = sum_k r_tk k_sk exp(M_tk - L_sk);
-//   S       = exp(L_end) S + sum_s (k_s exp(L_end - L_s)) v_s^T.
+//   S_{c+1} = exp(L_end) S_c + dS_c,   dS_c = (k exp(L_end - L))^T v.
 // The TPU kernel factors A as (r exp(M)) . (k exp(-L)); at Lc = 128 and
 // decays at the clamp, exp(-L) passes f32's range while exp(M) underflows,
 // and A holds 0 * inf = NaN.  Here the query rows go in sub-blocks of 16,
@@ -27,75 +26,82 @@
 // cumulative sum Lref_i at its first row:
 //   A[t,s] = (r_t exp(M_t - Lref_i)) . (k_s exp(Lref_i - L_s)),
 // so no factor exceeds exp(16); a key factor that underflows to 0 stands
-// for a term below f32's range.  The cross term is (r exp(M - Lref_i))
-// times exp(Lref_i), both at most 1.
+// for a term below f32's range.
 //
-// What bounds it on an H100: operations.  At the serving shape (B 4, T
-// 2048, H 64, K = V = 64, chunk 128, bf16) the work the masks keep is
-// 2 (Lc K V + Lc (Lc - 1) / 2 (K + V) + K Lc V) flops a chunk and head,
-// 1.71e10 in all: 0.255 ms at the f32 FMA peak of 67 TFLOP/s, against
-// 0.123 ms to move r, k, v, y (bf16) and ld (f32) once.
+// What bounds it on an H100: bytes.  At the serving shape (B 4, T 2048,
+// H 64, K = V = 64, chunk 128, bf16) moving r, k, v, y (bf16) and ld (f32)
+// once takes 0.123 ms; the 1.71e10 flops the masks keep take 0.255 ms at
+// the f32 FMA peak, 0.035 ms at the TF32 tensor-core peak.
 //
-// Design: no sequential grid.  Where Pallas carries the state across an
-// innermost sequential grid axis in VMEM, each CTA here owns one
-// (batch, head) and 64 of its V columns, walks the chunks in order and
-// keeps its (K, 64) slice of the state in shared memory.  The columns of
-// S and y are independent, so V > 64 splits across CTAs, each recomputing
-// A.  One chunk's r, k, L, the key factors (Lc x K each) and v (Lc x 64)
-// sit in shared memory in f32 (199 KB at the maxima K 64, Lc 128: one CTA
-// an SM).  256 threads; thread (ty, tx) = (tid / 16, tid % 16) owns
-// columns 4 tx .. 4 tx + 3 of row 16 p + ty of every sub-block p, so its
-// 32 accumulators of y stay in registers from the intra term through the
-// cross term and the bonus.  Rows of r, k, L and the key factors are
-// padded to 68 floats so that the 16-row float4 reads of A's key factors
-// hit distinct banks.  A chunk arrives by 16-byte loads widened to f32
-// when every operand has a unit channel stride and 16-byte aligned rows
-// (the model's projections: a quarter less time than element loads at the
-// serving shape), by element loads otherwise.  The inclusive cumsum runs
-// as 4 segments a channel with a second pass adding the segment totals.
-// Not done yet: tensor
-// cores (the products are TF32-free f32 by contract), a deeper overlap of
-// the next chunk's loads with this chunk's math, and smaller tiles for
-// more than one CTA an SM.
+// Design: one launch, one CTA per (chunk, batch-head, 64 V columns), no
+// sequential grid.  A CTA loads its chunk (16-byte cp.async, the decay
+// first: r, k and v land while it forms L), and computes dS_c on the
+// tensor cores (warp w: channels 16 (w / 2) .., columns 32 (w % 2) ..).
+// The chunks of one head then hand the state on as CUB's single-pass scan
+// does: chunk c waits for chunk c - 1's flag, reads S_c from the
+// workspace (s0 for the first chunk), writes S_{c+1} = exp(L_end) S_c +
+// dS_c (s_fin after the last) and sets its own flag.  CTAs take their
+// work item from an atomic counter in the order they start, chunk-major,
+// so a CTA only ever waits on one that started before it (no deadlock
+// whatever the hardware's block order), one wave ahead.  Then 8 warps, one
+// 16-row sub-block each (paired 0/7, 1/6, ... on a scheduler so that
+// every scheduler gets 9 key blocks of work), add the cross term (r
+// exp(M)) S_c, the masked intra term key block by key block, and the
+// RWKV6 bonus; y leaves from registers.  The state round trip goes
+// through L2: each chunk's S_{c+1} is read by the next chunk's CTA a wave
+// later.
+// The products run on the tensor cores as mma.sync.m16n8k8 with TF32
+// operands and f32 accumulation, each f32 operand split a = hi + lo and
+// hi.hi + hi.lo + lo.hi accumulated (3 passes, where one TF32 pass misses
+// the state tolerance 5e-5 by 5x); f32 inputs take the precise variant of
+// the split and the sums (see precise()).  v widened from bf16 is exact in
+// TF32, so A.v and dS take 2 passes in bf16.  The depth of each product
+// is permuted so that a thread reads channel (or key) pairs 2t, 2t + 1:
+// the accumulator of A lands in the A-fragment layout of A.v without a
+// trip through shared memory.  Tiles are zero-filled past the
+// chunk, past K and past V, so the products need no per-tile branch.
+// Element loads replace cp.async for an operand without a unit channel
+// stride and 16-byte aligned rows.  Row pitches of 72 (bf16: 36 words) and
+// 68 or 72 f32 words keep the fragment reads free of bank conflicts.
+// Shared memory: 109 KB in bf16 (two CTAs an SM), 161 KB in f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;           // 8 warps
 constexpr int kMaxK = 64;
 constexpr int kMaxL = 128;
 constexpr int kVT = 64;                 // V columns per CTA
 constexpr int kSB = 16;                 // query rows per sub-block
-constexpr int kNSB = kMaxL / kSB;       // sub-blocks per chunk, at most
-constexpr int kLDK = kMaxK + 4;         // row stride of the (Lc, K) tiles
-constexpr int kLDA = kMaxL + 16;        // row stride of A (16, Lc)
-constexpr int kSegs = 4;                // cumsum segments per channel
+constexpr int kLD = 72;                 // pitch of the r, k, ld tiles
+constexpr int kLDS = 68;                // pitch of the state tile (f32)
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kOffR = 0;
-constexpr int kOffK = kOffR + kMaxL * kLDK;
-constexpr int kOffL = kOffK + kMaxL * kLDK;
-constexpr int kOffKp = kOffL + kMaxL * kLDK;
-constexpr int kOffV = kOffKp + kMaxL * kLDK;
-constexpr int kOffA = kOffV + kMaxL * kVT;
-constexpr int kOffS = kOffA + kSB * kLDA;
-constexpr int kOffD = kOffS + kMaxK * kVT;
-constexpr int kOffTot = kOffD + kMaxL;
-constexpr int kSmemFloats = kOffTot + kSegs * kMaxK;
-constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
+// the v pitch: the A.v fragments read rows 2t, 2t + 1
+template <typename T> __host__ __device__ constexpr int ldv_out() {
+  return sizeof(T) == 2 ? 72 : 68;
+}
+
+template <typename T> constexpr size_t smem_bytes() {
+  return 2 * kMaxL * kLD * sizeof(T) + kMaxL * ldv_out<T>() * sizeof(T) +
+         ((kMaxL + 1) * kLD + kMaxK * kLDS + kThreads) * sizeof(float);
+}
 
 struct Params {
   const void* r;
   const void* k;
   const void* v;
   const float* ld;
-  const float* s0;
   const float* u;
+  const float* s0;
   void* y;
   float* sfin;
-  int T, H, K, V, Lc, include_current;
-  int vec;                                // 16-byte loads (see the launch)
+  float* work;                            // (B H, nc, K, V): S_{c+1}
+  int* sync;                              // the item counter, then flags
+  int T, H, K, V, Lc, nc, include_current;
+  int vec, ld_vec;                        // 16-byte loads (see the launch)
   long long rs[4], ks[4], vs[4], ls[4];   // element strides b, t, h, channel
 };
 
@@ -103,321 +109,503 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-
-__device__ __forceinline__ void store4(float* dst, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* dst,
-                                       const float (&x)[4]) {
-  reinterpret_cast<__nv_bfloat162*>(dst)[0] =
-      __floats2bfloat162_rn(x[0], x[1]);
-  reinterpret_cast<__nv_bfloat162*>(dst)[1] =
-      __floats2bfloat162_rn(x[2], x[3]);
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
 }
 
-// 16 bytes of T as floats: 4 of f32, 8 of bf16
-__device__ __forceinline__ void widen16(const float* src, float* dst) {
-  const float4 x = __ldg(reinterpret_cast<const float4*>(src));
-  *reinterpret_cast<float4*>(dst) = x;
+// elements e, e + 1 of a shared-memory row, widened
+__device__ __forceinline__ float2 pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ void widen16(const __nv_bfloat16* src,
-                                        float* dst) {
-  const uint4 x = __ldg(reinterpret_cast<const uint4*>(src));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
+__device__ __forceinline__ float2 pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
-// acc[e] += a * b[e]
-__device__ __forceinline__ void axpy4(float (&acc)[4], float a, float4 b) {
-  acc[0] = fmaf(a, b.x, acc[0]);
-  acc[1] = fmaf(a, b.y, acc[1]);
-  acc[2] = fmaf(a, b.z, acc[2]);
-  acc[3] = fmaf(a, b.w, acc[3]);
+// f32 inputs take the precise variant of three steps below: expf for the
+// factors, lo rounded to nearest, and each product's hi.hi summed into the
+// running total on the FMA units rather than in the tensor core's
+// accumulator (which rounds toward zero).  At rwkv6-7b's width in f32 the
+// plain route holds the kernel route's logits to 2e-4 (chip_smoke.py
+// phase 12), and the group norm of its first positions turns the fast
+// variant's rounding into more than that; bf16 outputs round far above
+// either.
+template <typename T> __host__ __device__ constexpr bool precise() {
+  return sizeof(T) == 4;
 }
 
+// exp(x) of a difference of two cumulative sums, formed in natural units
+// (scaling the sums themselves by log2(e) would round each one apart and
+// lose the cancellation of their common prefix); ex2.approx when fast
+template <bool kPrecise>
+__device__ __forceinline__ float fexp(float x) {
+  if (kPrecise) return expf(x);
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * kLog2e));
+  return y;
+}
+
+// x = hi + lo for a product on the tensor cores: hi is x rounded to TF32
+// to nearest (ties away from zero, as cvt.rna rounds, without its guard
+// for inf and NaN, which these finite operands never need) and lo = x -
+// hi, rounded the same way when precise; the fast variant leaves lo's low
+// bits to the tensor core, which reads its top 19 (lo truncated).  Three
+// or five integer and float instructions where two cvt.rna take fourteen.
+// Volatile, so that the compiler does not hoist the split of a loop's
+// invariant operand and keep both halves live across the loop.
+template <bool kPrecise>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if (kPrecise)
+    asm volatile(
+        "{\n\t.reg .b32 t;\n\tadd.u32 t, %2, 4096;\n\t"
+        "and.b32 %0, t, -8192;\n\tsub.f32 t, %3, %0;\n\t"
+        "add.u32 t, t, 4096;\n\tand.b32 %1, t, -8192;\n\t}"
+        : "=r"(hi), "=r"(lo) : "r"(__float_as_uint(x)), "f"(x));
+  else
+    asm volatile(
+        "{\n\t.reg .b32 t;\n\tadd.u32 t, %2, 4096;\n\t"
+        "and.b32 %0, t, -8192;\n\tsub.f32 %1, %3, %0;\n\t}"
+        : "=r"(hi), "=r"(lo) : "r"(__float_as_uint(x)), "f"(x));
+}
+
+// d += a (16x8, row) * b (8x8, col), TF32 in, f32 accumulate.  Fragments
+// as in the PTX ISA's m16n8k8 .tf32 layout, with g = lane / 4, t = lane % 4:
+// a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4);
+// b0 (t, g), b1 (t + 4, g); d[0..1] (g, 2t..2t + 1), d[2..3] (g + 8, ..).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b with a given as its hi and lo halves; b is split here (3
+// passes) unless it is exact in TF32 (kExact: v widened from bf16, 2)
+template <bool kPrecise, bool kExact>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  float m[4] = {}, e[4] = {};
+  float (&hh)[4] = kPrecise ? m : d;
+  float (&hl)[4] = kPrecise ? e : d;
+  if (kExact) {
+    mma_tf32(hl, al, __float_as_uint(b0), __float_as_uint(b1));
+    mma_tf32(hh, ah, __float_as_uint(b0), __float_as_uint(b1));
+  } else {
+    uint32_t h0, l0, h1, l1;
+    split<kPrecise>(b0, h0, l0);
+    split<kPrecise>(b1, h1, l1);
+    mma_tf32(hl, al, h0, h1);
+    mma_tf32(hl, ah, l0, l1);
+    mma_tf32(hh, ah, h0, h1);
+  }
+  if (kPrecise) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] += m[i] + e[i];
+  }
+}
+
+// The same product with hi.hi into d and the two corrections into e: two
+// dependency chains where one would be three deep.
+template <bool kPrecise>
+__device__ __forceinline__ void mma3x2(float (&d)[4], float (&e)[4],
+                                      const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], float b0,
+                                      float b1) {
+  uint32_t h0, l0, h1, l1;
+  split<kPrecise>(b0, h0, l0);
+  split<kPrecise>(b1, h1, l1);
+  mma_tf32(e, al, h0, h1);
+  if (kPrecise) {
+    float m[4] = {};
+    mma_tf32(m, ah, h0, h1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] += m[i];
+  } else {
+    mma_tf32(d, ah, h0, h1);
+  }
+  mma_tf32(e, ah, l0, l1);
+}
+
+template <bool kPrecise>
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split<kPrecise>(x[e], hi[e], lo[e]);
+}
+
+// Asynchronous 16-byte copy global -> shared (zero-filled when !valid).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Rows [0, n) and columns [0, w) of an operand at g (row stride rs,
+// column stride cs) into a shared tile of pitch LD, zero on rows [n,
+// rows) and columns [w, cols).  vec: cs == 1, 16-byte aligned rows, w and
+// cols multiples of 16 bytes; the copies are asynchronous (commit and wait
+// follow).
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__device__ __forceinline__ void load_tile(T* dst, int LD, const T* g,
+                                          long long rs, long long cs, int n,
+                                          int w, int rows, int cols,
+                                          bool vec) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);
+    const int q = cols / E;
+    for (int i = threadIdx.x; i < rows * q; i += kThreads) {
+      const int t = i / q, c = (i - t * q) * E;
+      const bool ok = t < n && c < w;
+      cp_async16(dst + t * LD + c, ok ? g + t * rs + c : g, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+      const int t = i / cols, c = i - t * cols;
+      dst[t * LD + c] = (t < n && c < w) ? g[t * rs + c * cs] : zero<T>();
+    }
+  }
+}
+
+// Rows 1..Lc of the (Lc + 1, kLD) tile Ls hold the raw log-decay of one
+// chunk (row 0 zeros): each becomes the inclusive cumulative sum of the
+// decay clamped to [-1, 0].  Row t + 1 is then L_t and row t the exclusive
+// sum.  kThreads / K segments a channel, then the totals of the earlier
+// segments.
+__device__ __forceinline__ void cumsum(float* Ls, float* Tot, int Lc,
+                                       int K) {
+  const int tid = threadIdx.x;
+  const int nseg = kThreads / K;
+  const int seglen = (Lc + nseg - 1) / nseg;
+  const int c = tid % K, sg = tid / K;
+  const int lo = min(sg * seglen, Lc), hi = min(lo + seglen, Lc);
+  const bool act = sg < nseg;
+  if (act) {
+    float run = 0.f;
+    for (int t = lo; t < hi; ++t) {
+      float* q = Ls + (t + 1) * kLD + c;
+      run += fminf(fmaxf(*q, -1.f), 0.f);
+      *q = run;
+    }
+    Tot[sg * K + c] = run;
+  }
+  __syncthreads();
+  if (act) {
+    float off = 0.f;
+    for (int e = 0; e < sg; ++e) off += Tot[e * K + c];
+    for (int t = lo; t < hi; ++t) {
+      float* q = Ls + (t + 1) * kLD + c;
+      *q += off;
+    }
+  }
+  __syncthreads();
+}
+
+// dS_c = (k exp(L_end - L))^T v over this warp's tile, channels m0 .. m0 +
+// 15 and columns n0 .. n0 + 31 (M = channel, N = column, depth = step):
+// acc[nt] holds (channel m0 + g | + 8, column n0 + 8 nt + 2t | + 1).  Ks,
+// Vs (pitch LDV) and Ls as the loads leave them, zero past the chunk and
+// past K.
+template <typename T, int LDV>
+__device__ __forceinline__ void chunk_state(float (&acc)[4][4], const T* Ks,
+                                            const T* Vs, const float* Ls,
+                                            int Lc, int m0, int n0, int g,
+                                            int t) {
+  constexpr bool P = precise<T>();
+  const int L8 = (Lc + 7) & ~7;
+  const int ca = m0 + g, cb = ca + 8;
+  const float ea = Ls[Lc * kLD + ca], eb = Ls[Lc * kLD + cb];
+  for (int s0 = 0; s0 < L8; s0 += 8) {
+    const int sa = s0 + t, sb = sa + 4;
+    float a[4];
+    a[0] = to_f32(Ks[sa * kLD + ca]) * fexp<P>(ea - Ls[(sa + 1) * kLD + ca]);
+    a[1] = to_f32(Ks[sa * kLD + cb]) * fexp<P>(eb - Ls[(sa + 1) * kLD + cb]);
+    a[2] = to_f32(Ks[sb * kLD + ca]) * fexp<P>(ea - Ls[(sb + 1) * kLD + ca]);
+    a[3] = to_f32(Ks[sb * kLD + cb]) * fexp<P>(eb - Ls[(sb + 1) * kLD + cb]);
+    uint32_t ah[4], al[4];
+    split4<P>(a, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int j = n0 + nt * 8 + g;
+      mma3<P, !P>(acc[nt], ah, al, to_f32(Vs[sa * LDV + j]),
+                  to_f32(Vs[sb * LDV + j]));
+    }
+  }
+}
+
+__device__ __forceinline__ int ld_acquire(const int* q) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(q)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* q, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" :: "l"(q), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ float2 ld_relaxed2(const float* q) {
+  float2 v;
+  asm volatile("ld.relaxed.gpu.global.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "l"(q) : "memory");
+  return v;
+}
+
+// One chunk and 64 V columns: the chunk's state and its outputs.  In the
+// outputs, warp w owns the 16 query rows of sub-block 0, 1, 2, 3, 7, 6, 5,
+// 4 (so warps w and w + 4, on one scheduler, have 9 key blocks between
+// them); this thread owns rows ta = a + g and tb = ta + 8 and, of each
+// 8-column tile, columns 2t, 2t + 1.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     chunk_scan_kernel(Params p) {
-  extern __shared__ __align__(16) float sm[];
-  float* Rs = sm + kOffR;     // r, then r exp(M - Lref), then r exp(M)
-  float* Ks = sm + kOffK;     // k
-  float* Ls = sm + kOffL;     // ld, then its inclusive cumsum L
-  float* Kp = sm + kOffKp;    // key factors k exp(Lref - L), k exp(Lend - L)
-  float* Vs = sm + kOffV;     // v, this CTA's 64 columns
-  float* As = sm + kOffA;     // A of one sub-block (16, Lc)
-  float* Ss = sm + kOffS;     // the state (K, 64)
-  float* Ds = sm + kOffD;     // the bonus term r_t * u . k_t
-  float* Tot = sm + kOffTot;  // cumsum segment totals
+  constexpr int LDV = ldv_out<T>();
+  constexpr bool P = precise<T>();     // f32: v is not exact in TF32
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Rs = reinterpret_cast<T*>(smem);
+  T* Ks = Rs + kMaxL * kLD;
+  T* Vs = Ks + kMaxL * kLD;
+  float* Ls = reinterpret_cast<float*>(Vs + kMaxL * LDV);
+  float* Ss = Ls + (kMaxL + 1) * kLD;
+  float* Tot = Ss + kMaxK * kLDS;
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh - b * p.H;
-  const int v0 = blockIdx.y * kVT;
-  const int Vw = min(kVT, p.V - v0);
-  const int K = p.K, Lc = p.Lc;
-  const int nsb = (Lc + kSB - 1) / kSB;
-  const bool rwkv = !p.include_current;
-  const int j0 = 4 * tx;            // this thread's 4 columns
-  const bool jok = j0 < Vw;         // V % 4 == 0: all four or none
-
-  const T* rg = static_cast<const T*>(p.r) + b * p.rs[0] + h * p.rs[2];
-  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + h * p.ks[2];
-  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + h * p.vs[2] +
-                v0 * p.vs[3];
-  const float* lg = p.ld + b * p.ls[0] + h * p.ls[2];
-  const float* ug = rwkv ? p.u + static_cast<long long>(h) * K : nullptr;
-  T* yg = static_cast<T*>(p.y) +
-          (static_cast<long long>(b) * p.T * p.H + h) * p.V + v0 + j0;
-  const long long y_row = static_cast<long long>(p.H) * p.V;
-
-  for (int i = tid; i < K * kVT; i += kThreads) {
-    const int c = i / kVT, j = i - c * kVT;
-    Ss[c * kVT + j] =
-        j < Vw ? p.s0[(static_cast<long long>(bh) * K + c) * p.V + v0 + j]
-               : 0.f;
-  }
-
-  for (int t0 = 0; t0 < p.T; t0 += Lc) {
-    __syncthreads();   // the last chunk is done with every buffer
-    if (p.vec) {
-      constexpr int E = 16 / sizeof(T);
-      const int kq = K / E, vq = kVT / E;
-      for (int i = tid; i < Lc * kq; i += kThreads) {
-        const int t = i / kq, c = (i - t * kq) * E;
-        const long long tt = t0 + t;
-        widen16(rg + tt * p.rs[1] + c, Rs + t * kLDK + c);
-        widen16(kg + tt * p.ks[1] + c, Ks + t * kLDK + c);
-      }
-      for (int i = tid; i < Lc * (K / 4); i += kThreads) {
-        const int t = i / (K / 4), c = (i - t * (K / 4)) * 4;
-        widen16(lg + (t0 + t) * p.ls[1] + c, Ls + t * kLDK + c);
-      }
-      for (int i = tid; i < nsb * kSB * vq; i += kThreads) {
-        const int t = i / vq, j = (i - t * vq) * E;
-        if (t < Lc && j < Vw) {
-          widen16(vg + (t0 + t) * p.vs[1] + j, Vs + t * kVT + j);
-        } else {
-#pragma unroll
-          for (int e = 0; e < E; ++e) Vs[t * kVT + j + e] = 0.f;
-        }
-      }
-    } else {
-      for (int i = tid; i < Lc * K; i += kThreads) {
-        const int t = i / K, c = i - t * K;
-        const long long tt = t0 + t;
-        Rs[t * kLDK + c] = to_f32(rg[tt * p.rs[1] + c * p.rs[3]]);
-        Ks[t * kLDK + c] = to_f32(kg[tt * p.ks[1] + c * p.ks[3]]);
-        Ls[t * kLDK + c] = lg[tt * p.ls[1] + c * p.ls[3]];
-      }
-      // v, zero past Vw and on the rows up to the last sub-block's end (the
-      // intra term reads them, against zeros in A)
-      for (int i = tid; i < nsb * kSB * kVT; i += kThreads) {
-        const int t = i / kVT, j = i - t * kVT;
-        Vs[t * kVT + j] = (j < Vw && t < Lc)
-            ? to_f32(vg[(t0 + t) * p.vs[1] + j * p.vs[3]]) : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // inclusive cumsum of ld over the chunk: 4 segments a channel, then
-    // the totals of the earlier segments
-    const int seglen = (Lc + kSegs - 1) / kSegs;
-    const int sc = tid % K, sg = tid / K;
-    const int slo = sg * seglen, shi = min(slo + seglen, Lc);
-    if (tid < kSegs * K) {
-      float run = 0.f;
-      for (int t = slo; t < shi; ++t) {
-        run += Ls[t * kLDK + sc];
-        Ls[t * kLDK + sc] = run;
-      }
-      Tot[sg * kMaxK + sc] = run;
-    }
-    if (rwkv && tid < Lc) {   // the bonus, from r and k as loaded
-      float d = 0.f;
-      for (int c = 0; c < K; ++c)
-        d = fmaf(Rs[tid * kLDK + c] * __ldg(ug + c), Ks[tid * kLDK + c], d);
-      Ds[tid] = d;
-    }
-    __syncthreads();
-    if (tid < kSegs * K && sg > 0) {
-      float off = 0.f;
-      for (int e = 0; e < sg; ++e) off += Tot[e * kMaxK + sc];
-      for (int t = slo; t < shi; ++t) Ls[t * kLDK + sc] += off;
-    }
-    __syncthreads();
-
-    // query factors r exp(M - Lref) of each row's sub-block
-    for (int i = tid; i < Lc * K; i += kThreads) {
-      const int t = i / K, c = i - t * K;
-      const float M = !rwkv ? Ls[t * kLDK + c]
-                            : (t ? Ls[(t - 1) * kLDK + c] : 0.f);
-      const int a = (t / kSB) * kSB;
-      const float ref = a ? Ls[(a - 1) * kLDK + c] : 0.f;
-      Rs[t * kLDK + c] *= expf(M - ref);
-    }
-
-    float acc[kNSB][4];
-#pragma unroll
-    for (int q = 0; q < kNSB; ++q) acc[q][0] = acc[q][1] = acc[q][2] =
-        acc[q][3] = 0.f;
-
-    // the intra-chunk term, one sub-block of query rows at a time
-#pragma unroll
-    for (int sb = 0; sb < kNSB; ++sb) {
-      if (sb < nsb) {
-        const int a = sb * kSB, bend = min(a + kSB, Lc);
-        for (int i = tid; i < bend * K; i += kThreads) {
-          const int s = i / K, c = i - s * K;
-          const float ref = a ? Ls[(a - 1) * kLDK + c] : 0.f;
-          Kp[s * kLDK + c] = Ks[s * kLDK + c] * expf(ref - Ls[s * kLDK + c]);
-        }
-        __syncthreads();   // key factors (and the query factors) are in
-
-        // A[ty][s] for s = tx + 16 m, m <= sb; masked entries are 0
-        const int t = a + ty;
-        float av[kNSB];
-#pragma unroll
-        for (int m = 0; m < kNSB; ++m) av[m] = 0.f;
-        if (t < Lc) {
-          const float* rrow = Rs + t * kLDK;
-          for (int c = 0; c < K; c += 4) {
-            const float4 rv = *reinterpret_cast<const float4*>(rrow + c);
-#pragma unroll
-            for (int m = 0; m <= sb; ++m)
-              av[m] = dot4(rv, *reinterpret_cast<const float4*>(
-                                   Kp + (tx + 16 * m) * kLDK + c), av[m]);
-          }
-        }
-#pragma unroll
-        for (int m = 0; m <= sb; ++m) {
-          const int s = tx + 16 * m;
-          const bool keep = t < Lc && s < bend && (rwkv ? s < t : s <= t);
-          As[ty * kLDA + s] = keep ? av[m] : 0.f;
-        }
-        __syncthreads();   // A is in
-
-        if (jok) {
-          const float* arow = As + ty * kLDA;
-          for (int s = 0; s < (sb + 1) * kSB; s += 4) {
-            const float4 a4 = *reinterpret_cast<const float4*>(arow + s);
-            axpy4(acc[sb], a4.x,
-                  *reinterpret_cast<const float4*>(Vs + s * kVT + j0));
-            axpy4(acc[sb], a4.y,
-                  *reinterpret_cast<const float4*>(Vs + (s + 1) * kVT + j0));
-            axpy4(acc[sb], a4.z,
-                  *reinterpret_cast<const float4*>(Vs + (s + 2) * kVT + j0));
-            axpy4(acc[sb], a4.w,
-                  *reinterpret_cast<const float4*>(Vs + (s + 3) * kVT + j0));
-          }
-        }
-        // the next sub-block writes Kp (read before the sync above) and,
-        // after its own sync, A (read here): no barrier needed
-      }
-    }
-
-    // query factors back to r exp(M) = (r exp(M - Lref)) exp(Lref)
-    for (int i = tid; i < Lc * K; i += kThreads) {
-      const int t = i / K, c = i - t * K;
-      const int a = (t / kSB) * kSB;
-      if (a) Rs[t * kLDK + c] *= expf(Ls[(a - 1) * kLDK + c]);
-    }
-    __syncthreads();
-
-    // the cross-chunk term (r exp(M)) S, the bonus, and y
-    if (jok) {
-      for (int c = 0; c < K; c += 4) {
-        const float4 s0 = *reinterpret_cast<const float4*>(Ss + c * kVT + j0);
-        const float4 s1 =
-            *reinterpret_cast<const float4*>(Ss + (c + 1) * kVT + j0);
-        const float4 s2 =
-            *reinterpret_cast<const float4*>(Ss + (c + 2) * kVT + j0);
-        const float4 s3 =
-            *reinterpret_cast<const float4*>(Ss + (c + 3) * kVT + j0);
-#pragma unroll
-        for (int q = 0; q < kNSB; ++q) {
-          const int t = q * kSB + ty;
-          if (t < Lc) {
-            const float4 rv =
-                *reinterpret_cast<const float4*>(Rs + t * kLDK + c);
-            axpy4(acc[q], rv.x, s0);
-            axpy4(acc[q], rv.y, s1);
-            axpy4(acc[q], rv.z, s2);
-            axpy4(acc[q], rv.w, s3);
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kNSB; ++q) {
-        const int t = q * kSB + ty;
-        if (t < Lc) {
-          if (rwkv)
-            axpy4(acc[q], Ds[t],
-                  *reinterpret_cast<const float4*>(Vs + t * kVT + j0));
-          store4(yg + (t0 + t) * y_row, acc[q]);
-        }
-      }
-    }
-
-    // state: S = exp(Lend) S + (k exp(Lend - L))^T v
-    for (int i = tid; i < Lc * K; i += kThreads) {
-      const int s = i / K, c = i - s * K;
-      Kp[s * kLDK + c] =
-          Ks[s * kLDK + c] * expf(Ls[(Lc - 1) * kLDK + c] - Ls[s * kLDK + c]);
-    }
-    __syncthreads();   // key factors are in; every read of the old S is done
-    if (jok) {
-      float sacc[kMaxK / 16][4];
-#pragma unroll
-      for (int q = 0; q < kMaxK / 16; ++q) sacc[q][0] = sacc[q][1] =
-          sacc[q][2] = sacc[q][3] = 0.f;
-      for (int s = 0; s < Lc; ++s) {
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + s * kVT + j0);
-#pragma unroll
-        for (int q = 0; q < kMaxK / 16; ++q) {
-          const int c = ty + 16 * q;
-          if (c < K) axpy4(sacc[q], Kp[s * kLDK + c], vv);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kMaxK / 16; ++q) {
-        const int c = ty + 16 * q;
-        if (c < K) {
-          const float dec = expf(Ls[(Lc - 1) * kLDK + c]);
-          float* srow = Ss + c * kVT + j0;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) srow[e] = fmaf(dec, srow[e], sacc[q][e]);
-        }
-      }
-    }
-  }
-
+  const int nvt = (p.V + kVT - 1) / kVT;
+  __shared__ int item;     // chunk-major, in the order the CTAs start
+  if (tid == 0) item = atomicAdd(p.sync, 1);
   __syncthreads();
-  for (int i = tid; i < K * Vw; i += kThreads) {
-    const int c = i / Vw, j = i - c * Vw;
-    p.sfin[(static_cast<long long>(bh) * K + c) * p.V + v0 + j] =
-        Ss[c * kVT + j];
+  const int rows = gridDim.x / p.nc;                  // B H nvt
+  const int c = item / rows;
+  const int bh = (item - c * rows) / nvt;
+  const int vt = item - c * rows - bh * nvt;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int v0 = vt * kVT, Vw = min(kVT, p.V - v0);
+  const int K = p.K, Lc = p.Lc;
+  const int L16 = (Lc + 15) & ~15;
+  const int nsb = L16 / kSB;
+  const bool rwkv = !p.include_current;
+  const long long t0 = static_cast<long long>(c) * Lc;
+
+  const float* lg = p.ld + b * p.ls[0] + h * p.ls[2] + t0 * p.ls[1];
+  const T* rg = static_cast<const T*>(p.r) + b * p.rs[0] + h * p.rs[2] +
+                t0 * p.rs[1];
+  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + h * p.ks[2] +
+                t0 * p.ks[1];
+  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + h * p.vs[2] +
+                t0 * p.vs[1] + v0 * p.vs[3];
+  load_tile(Ls + kLD, kLD, lg, p.ls[1], p.ls[3], Lc, K, L16, kMaxK,
+            p.ld_vec);
+  for (int i = tid; i < kMaxK; i += kThreads) Ls[i] = 0.f;
+  cp_async_commit();
+  load_tile(Rs, kLD, rg, p.rs[1], p.rs[3], Lc, K, L16, kMaxK, p.vec);
+  load_tile(Ks, kLD, kg, p.ks[1], p.ks[3], Lc, K, L16, kMaxK, p.vec);
+  load_tile(Vs, LDV, vg, p.vs[1], p.vs[3], Lc, Vw, L16, kVT, p.vec);
+  cp_async_commit();
+  cp_async_wait<1>();      // the decay; r, k and v land during the cumsum
+  __syncthreads();
+  cumsum(Ls, Tot, Lc, K);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // dS_c of this warp's tile, then S_{c+1} = exp(L_end) S_c + dS_c once
+  // chunk c - 1 has published S_c (S_0 = s0): S_c goes to shared memory
+  // for the cross term, S_{c+1} to the workspace (s_fin after the last
+  // chunk), and chunk c + 1 may go on
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  {
+    const int m0 = 16 * (warp >> 1), n0 = 32 * (warp & 1);
+    float acc[4][4] = {};
+    if (m0 < K) chunk_state<T, LDV>(acc, Ks, Vs, Ls, Lc, m0, n0, g, t);
+    int* flag = p.sync + 1 + (static_cast<long long>(bh) * nvt + vt) * p.nc;
+    if (c > 0) {
+      if (tid == 0)
+        while (!ld_acquire(flag + c - 1)) __nanosleep(64);
+      __syncthreads();
+    }
+    const long long KV = static_cast<long long>(K) * p.V;
+    const float* sp = c ? p.work + (static_cast<long long>(bh) * p.nc + c -
+                                    1) * KV + v0
+                        : p.s0 + bh * KV + v0;
+    float* sn = c + 1 < p.nc ? p.work + (static_cast<long long>(bh) * p.nc +
+                                         c) * KV + v0
+                             : p.sfin + bh * KV + v0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + g + 8 * half;
+      const float dec = row < K ? expf(Ls[Lc * kLD + row]) : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int j = n0 + nt * 8 + 2 * t;
+        const bool in = row < K && j < Vw;
+        const float2 sv = in ? ld_relaxed2(sp + row * p.V + j)
+                             : make_float2(0.f, 0.f);
+        Ss[row * kLDS + j] = sv.x;
+        Ss[row * kLDS + j + 1] = sv.y;
+        if (in)
+          __stcg(reinterpret_cast<float2*>(sn + row * p.V + j),
+                 make_float2(fmaf(dec, sv.x, acc[nt][2 * half]),
+                             fmaf(dec, sv.y, acc[nt][2 * half + 1])));
+      }
+    }
+    __syncthreads();       // S_c is in; every store of S_{c+1} is issued
+    if (tid == 0 && c + 1 < p.nc) {
+      __threadfence();
+      st_release(flag + c, 1);
+    }
+  }
+
+  const int sb = warp < 4 ? warp : 11 - warp;
+  if (sb >= nsb) return;
+  const int a = sb * kSB, ta = a + g, tb = ta + 8;
+  const float* Lref = Ls + a * kLD;                 // exclusive sum at a
+  const float* Ma = Ls + (rwkv ? ta : ta + 1) * kLD;
+  const float* Mb = Ls + (rwkv ? tb : tb + 1) * kLD;
+
+  float y[kVT / 8][4] = {};
+  float q[kMaxK / 8][4];  // r exp(M - Lref), (ta|tb, 2t|2t+1) per k-step
+
+  // the cross term (r exp(M)) S_c, = (r exp(M - Lref)) exp(Lref) S_c
+#pragma unroll
+  for (int ks = 0; ks < kMaxK / 8; ++ks) {
+    const int cc = ks * 8 + 2 * t;
+    const float2 lr = pair(Lref + cc), ma = pair(Ma + cc), mb = pair(Mb + cc);
+    const float2 ra = pair(Rs + ta * kLD + cc), rb = pair(Rs + tb * kLD + cc);
+    q[ks][0] = ra.x * fexp<P>(ma.x - lr.x);
+    q[ks][1] = rb.x * fexp<P>(mb.x - lr.x);
+    q[ks][2] = ra.y * fexp<P>(ma.y - lr.y);
+    q[ks][3] = rb.y * fexp<P>(mb.y - lr.y);
+    const float e0 = expf(lr.x), e1 = expf(lr.y);
+    const float x[4] = {q[ks][0] * e0, q[ks][1] * e0, q[ks][2] * e1,
+                        q[ks][3] * e1};
+    uint32_t xh[4], xl[4];
+    split4<P>(x, xh, xl);
+#pragma unroll
+    for (int nt = 0; nt < kVT / 8; ++nt) {
+      const int j = nt * 8 + g;
+      mma3<P, false>(y[nt], xh, xl, Ss[cc * kLDS + j],
+                     Ss[(cc + 1) * kLDS + j]);
+    }
+  }
+
+  // the bonus r_t * u . k_t of this thread's rows, a warp a row
+  float da = 0.f, db = 0.f;
+  if (rwkv) {
+    const int cc = 2 * lane;
+    const float2 uu = cc < K ? make_float2(__ldg(p.u + h * K + cc),
+                                           __ldg(p.u + h * K + cc + 1))
+                             : make_float2(0.f, 0.f);
+    for (int i = 0; i < kSB; ++i) {
+      const int row = a + i;
+      const float2 rr = pair(Rs + row * kLD + cc);
+      const float2 kk = pair(Ks + row * kLD + cc);
+      float d = cc < K ? fmaf(rr.x * uu.x, kk.x, rr.y * uu.y * kk.y) : 0.f;
+#pragma unroll
+      for (int o = 16; o; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+      if (i == g) da = d;
+      if (i == g + 8) db = d;
+    }
+  }
+
+  // the intra term, key block by key block
+  for (int jb = 0; jb <= sb; ++jb) {
+    const int s0 = jb * kSB;
+    float A[2][4] = {}, Ac[2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kMaxK / 8; ++ks) {
+      const int cc = ks * 8 + 2 * t;
+      const float2 lr = pair(Lref + cc);
+      uint32_t qh[4], ql[4];
+      split4<P>(q[ks], qh, ql);
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2) {
+        const int s = s0 + n2 * 8 + g;
+        const float2 kk = pair(Ks + s * kLD + cc);
+        const float2 ls = pair(Ls + (s + 1) * kLD + cc);
+        mma3x2<P>(A[n2], Ac[n2], qh, ql, kk.x * fexp<P>(lr.x - ls.x),
+                  kk.y * fexp<P>(lr.y - ls.y));
+      }
+    }
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) A[n2][e] += Ac[n2][e];
+    if (jb == sb) {     // the diagonal block: s < t (RWKV6), s <= t (Mamba2)
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? ta : tb;
+          const int s = s0 + n2 * 8 + 2 * t + (e & 1);
+          if (rwkv ? s >= row : s > row) A[n2][e] = 0.f;
+        }
+    }
+    // y += A v: the accumulator (row, key 2t|2t+1) is the A fragment of
+    // depth (t, t + 4) once the keys of v are read in the same order
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {
+      const float af[4] = {A[n2][0], A[n2][2], A[n2][1], A[n2][3]};
+      uint32_t ah[4], al[4];
+      split4<P>(af, ah, al);
+      const int sk = s0 + n2 * 8 + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < kVT / 8; ++nt) {
+        const int j = nt * 8 + g;
+        mma3<P, !P>(y[nt], ah, al, to_f32(Vs[sk * LDV + j]),
+                    to_f32(Vs[(sk + 1) * LDV + j]));
+      }
+    }
+  }
+
+  T* yg = static_cast<T*>(p.y) +
+          ((static_cast<long long>(b) * p.T + t0) * p.H + h) * p.V + v0;
+  const long long y_row = static_cast<long long>(p.H) * p.V;
+#pragma unroll
+  for (int nt = 0; nt < kVT / 8; ++nt) {
+    const int j = nt * 8 + 2 * t;
+    if (j < Vw) {
+      if (ta < Lc) {
+        const float2 va = pair(Vs + ta * LDV + j);
+        store2(yg + ta * y_row + j, fmaf(da, va.x, y[nt][0]),
+               fmaf(da, va.y, y[nt][1]));
+      }
+      if (tb < Lc) {
+        const float2 vb = pair(Vs + tb * LDV + j);
+        store2(yg + tb * y_row + j, fmaf(db, vb.x, y[nt][2]),
+               fmaf(db, vb.y, y[nt][3]));
+      }
+    }
   }
 }
 
 template <typename T>
 int launch(const Params& p, int BH, cudaStream_t st) {
+  const int bytes = static_cast<int>(smem_bytes<T>());
+  // the most shared memory an SM can give, so that two CTAs fit
   cudaError_t e = cudaFuncSetAttribute(
       chunk_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(chunk_scan_kernel<T>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             100);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(BH, (p.V + kVT - 1) / kVT);
-  chunk_scan_kernel<T><<<grid, kThreads, kSmemBytes, st>>>(p);
+  const int n = BH * p.nc * ((p.V + kVT - 1) / kVT);
+  chunk_scan_kernel<T><<<n, kThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -426,38 +614,44 @@ int launch(const Params& p, int BH, cudaStream_t st) {
 extern "C" {
 
 // r, k, ld (B, T, H, K) and v (B, T, H, V) with 16 element strides in
-// `strides` (batch, time, head, channel of r, k, v, ld); r, k, v of one
-// dtype (0: f32, 1: bf16), ld f32 (already clamped).  s0 (B, H, K, V) f32,
-// u (H, K) f32 (read only when !include_current), y (B, T, H, V) in the
-// dtype and s_fin (B, H, K, V) f32, all contiguous on the current device.
-// Needs 0 < K <= 64, K and V multiples of 4, 0 < Lc <= 128, T % Lc == 0.
-// Launches on `stream` and returns the launch's cudaError_t (0 on
-// success); it does not synchronise.
+// `strides` (batch, time, head, channel of r, k, v, ld; ld's channel
+// stride 0 for a scalar per-head decay); r, k, v of one dtype (0: f32, 1:
+// bf16), ld f32 as the model gives it (clamped here).  s0 (B, H, K, V)
+// f32, u (H, K) f32 (read only when !include_current), y (B, T, H, V) in
+// the dtype and s_fin (B, H, K, V) f32, all contiguous on the current
+// device; work (B H, T / Lc, K, V) f32 scratch and sync (1 + B H T / Lc
+// ceil(V / 64) int32) zeroed.  Needs 0 < K <= 64, K and V multiples of 4,
+// 0 < Lc <= 128, T % Lc == 0.  Launches on `stream` and returns the
+// launch's cudaError_t (0 on success); it does not synchronise.
 int chunk_scan_launch(const void* r, const void* k, const void* v,
                       const void* ld, const void* s0, const void* u,
-                      void* y, void* sfin, int dtype, int B, int T, int H,
-                      int K, int V, int Lc, int include_current,
-                      const long long* strides, void* stream) {
+                      void* y, void* sfin, void* work, void* sync, int dtype,
+                      int B, int T, int H, int K, int V, int Lc,
+                      int include_current, const long long* strides,
+                      void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || K <= 0 || K > kMaxK || K % 4 != 0 ||
       V <= 0 || V % 4 != 0 || Lc <= 0 || Lc > kMaxL || T % Lc != 0 ||
       (!include_current && u == nullptr) ||
-      static_cast<long long>(B) * H > 2147483647LL ||
-      (V + kVT - 1) / kVT > 65535)
+      static_cast<long long>(B) * H * (T / Lc) * ((V + kVT - 1) / kVT) >
+          2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.r = r;
   p.k = k;
   p.v = v;
   p.ld = static_cast<const float*>(ld);
-  p.s0 = static_cast<const float*>(s0);
   p.u = static_cast<const float*>(u);
+  p.s0 = static_cast<const float*>(s0);
   p.y = y;
   p.sfin = static_cast<float*>(sfin);
+  p.work = static_cast<float*>(work);
+  p.sync = static_cast<int*>(sync);
   p.T = T;
   p.H = H;
   p.K = K;
   p.V = V;
   p.Lc = Lc;
+  p.nc = T / Lc;
   p.include_current = include_current;
   for (int i = 0; i < 4; ++i) {
     p.rs[i] = strides[i];
@@ -466,18 +660,18 @@ int chunk_scan_launch(const void* r, const void* k, const void* v,
     p.ls[i] = strides[12 + i];
   }
   {   // 16-byte loads: unit channel strides, 16-byte aligned rows
-    const int E = dtype == 1 ? 8 : 4;
     const auto al = [](const void* q) {
       return reinterpret_cast<uintptr_t>(q) % 16 == 0;
     };
-    bool vec = K % E == 0 && V % E == 0 && al(r) && al(k) && al(v) && al(ld);
-    for (int i = 0; i < 4; ++i) {
-      const long long* st4 = strides + 4 * i;
-      const int e = i == 3 ? 4 : E;
-      vec = vec && st4[3] == 1 && st4[0] % e == 0 && st4[1] % e == 0 &&
-            st4[2] % e == 0;
-    }
-    p.vec = vec;
+    const auto rows16 = [](const long long* st4, int e) {
+      return st4[3] == 1 && st4[0] % e == 0 && st4[1] % e == 0 &&
+             st4[2] % e == 0;
+    };
+    const int E = dtype == 1 ? 8 : 4;
+    p.vec = K % E == 0 && V % E == 0 && al(r) && al(k) && al(v) &&
+            rows16(strides, E) && rows16(strides + 4, E) &&
+            rows16(strides + 8, E);
+    p.ld_vec = al(ld) && rows16(strides + 12, 4);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(p, B * H, st);

@@ -1,12 +1,14 @@
 """The chunk_scan wrapper: the chunked linear recurrence over the model's
 (B, T, H, ·) layout, as the JAX package's ``kernels/chunk_scan/ops.py``.
 
-The log-decay is clamped (and a scalar per-head decay broadcast over K)
-by ``scan_ops._prep_decay`` before the kernel, as in the JAX package.  A
-tensor on the CPU takes the plain version (``ref.chunk_scan_ref``, the
-sequential recurrence); a CUDA tensor launches the CUDA kernel
-(``csrc/chunk_scan.cu``), which reads r, k, v and the decay through their
-strides, or raises.  ``chunk_scan.launches`` counts kernel launches.
+A tensor on the CPU takes the plain version (``ref.chunk_scan_ref``, the
+sequential recurrence, which clamps the log-decay through
+``scan_ops._prep_decay`` as the JAX package does); a CUDA tensor launches
+the CUDA kernel (``csrc/chunk_scan.cu``), or raises.  It reads r, k, v
+and the raw log-decay through their strides (a scalar per-head decay with
+a channel stride of 0) and clamps the decay as it loads it, so no clamped
+copy is made.  ``chunk_scan.launches`` counts calls, one a layer: each is
+one kernel launch, after the zeroing of its small sync buffer.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.chunk_scan.ref import chunk_scan_ref
-from repro_torch.models.scan_ops import _prep_decay, check_chunk
+from repro_torch.models.scan_ops import check_chunk
 
 MAX_K = 64                     # the kernel's shared-memory tiles
 MAX_CHUNK = 128
@@ -26,8 +28,8 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
     "chunk_scan_launch": ([_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-                           _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                           _PTR, _PTR], _INT),
+                           _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
+                           _INT, _INT, _PTR, _PTR], _INT),
 }
 
 
@@ -83,21 +85,29 @@ def chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"chunk_scan: no kernel for device {dev}")
     B, T, H, K = r.shape
     V = v.shape[-1]
-    ld = _prep_decay(log_decay, K).float()
+    Lc = min(chunk, T)
+    ld = log_decay.float()             # no copy for the model's f32 decay
+    ld_strides = ld.stride() if ld.dim() == 4 else (*ld.stride(), 0)
     s0 = (torch.zeros((B, H, K, V), dtype=torch.float32, device=dev)
           if state0 is None else state0.float().contiguous())
     u = None if include_current else bonus.float().contiguous()
     y = torch.empty((B, T, H, V), dtype=v.dtype, device=dev)
     s_fin = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
+    # the state after each chunk, handed to the next chunk's CTA; the
+    # kernel's work-item counter and one flag per (chunk, head, 64 columns)
+    nc = T // Lc
+    work = torch.empty((B * H, nc, K, V), dtype=torch.float32, device=dev)
+    sync = torch.zeros(1 + B * H * nc * -(-V // 64), dtype=torch.int32,
+                       device=dev)
     strides = (ctypes.c_longlong * 16)(*r.stride(), *k.stride(),
-                                       *v.stride(), *ld.stride())
+                                       *v.stride(), *ld_strides)
     lib = kernels.library("chunk_scan", _SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.chunk_scan_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), ld.data_ptr(),
             s0.data_ptr(), None if u is None else u.data_ptr(),
-            y.data_ptr(), s_fin.data_ptr(), _DTYPES[r.dtype], B, T, H, K, V,
-            min(chunk, T), int(bool(include_current)),
+            y.data_ptr(), s_fin.data_ptr(), work.data_ptr(), sync.data_ptr(),
+            _DTYPES[r.dtype], B, T, H, K, V, Lc, int(bool(include_current)),
             ctypes.cast(strides, _PTR),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
