@@ -12,22 +12,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      nor have their wgmma serialised, and its SASS (``cuobjdump -sass``)
      must hold HGMMA (wgmma) and UTMALDG (TMA loads); no
      ``chunk_scan_*_kernel`` may spill, and the chunk_scan library's SASS
-     must hold TF32 HMMA (its products on the tensor cores);
-  2. ``fed_agg`` against its plain version on the card, max abs error;
-  3. ``pairwise_dist_sq`` against its plain version, error over max(D, 1);
+     must hold TF32 HMMA (its products on the tensor cores); no
+     ``fed_agg`` or ``pairwise_dist`` kernel may spill, and the
+     pairwise_dist library's SASS must hold TF32 HMMA (the tiled Gram);
+  2. ``fed_agg`` against its plain version on the card, max abs error: one
+     segment, and two segments in one launch (C in 64, 9, 1 beside C2 in
+     0, 1, 4, 8), both base alignments, ``out`` aliasing ``base``;
+  3. ``pairwise_dist_sq`` against its plain version (in float64), error
+     over max(D, 1), at M in 1, 2, 8, 9, 65, 66, 130 (the few-rows design
+     up to 8 rows, the tiled one above), as one stack and in the
+     leading-row form (row 0 from its own pointer) against the plain
+     version over the concatenation; on rows a quarter of a TF32 spacing
+     off TF32 numbers (one TF32 pass errs by 2^-11 of D there); close rows
+     (ref + 1e-3 randn) at phase 5's limit; two calls on one input must be
+     bit-equal, and one call at M = 2 must launch exactly one kernel
+     (profiler);
   4. the main path: ``repro_torch.fl_constellation_sim.main`` runs
      asyncfleo-hap with MNIST_CNN at full width (N = 206,922), S = 40,
      J = 30, b = 32, 3 epochs, IID shards of the example's synthetic data.
-     ``fed_agg`` must launch twice per epoch step; the host-side history
-     must equal a CPU run of the port on the same inputs; the last accuracy
-     must be above 0.10;
+     ``fed_agg`` must launch once per epoch step (bank and carry in one
+     launch); the host-side history must equal a CPU run of the port on
+     the same inputs; the last accuracy must be above 0.10;
   5. the grouping path: ``GroupingState.observe_orbit`` through
      ``pairwise_dist_sq`` on each orbit's rows of a bank trained from the
      main path's final model, against the plain route: the same groups;
-  6. timings at the main path's shapes (kernel time from the profiler's
-     device trace over 200 calls, inputs cycled through more than the
-     50 MB L2; CUDA events and the host clock beside it), the warm 3-epoch
-     wall time and a ``torch.profiler`` table of the top device ops;
+  6. timings at the main path's shapes, in a process of their own
+     (kernel time from the profiler's device trace over 200 calls, which
+     must hold each call's kernels, inputs cycled through more than the
+     50 MB L2; CUDA events and the host clock beside it): eq. 14 over
+     bank and carry in one launch beside two one-segment calls, the plain
+     version and two ``torch.addmv`` (bound 17.3 us), each segment alone,
+     the whole grouping call ``dist_to_ref``, ``pairwise_dist_sq`` at 2
+     and 65 rows beside its plain version and ``torch.cdist`` and at M
+     from 4 to 130 (the few-rows design up to 8, the tiled one from 9),
+     the one-CTA floors; then the warm 3-epoch wall time and a
+     ``torch.profiler`` table of the top device ops;
   7. ``flash_attention`` against its plain version on the card: the JAX
      package's kernel sweep (S = 200 and KV = 1 included; causal, window
      48 and non-causal; f32 and bf16), a strided-view case, the serving
@@ -115,6 +134,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
+MAIN_N = 206922                     # MNIST_CNN's parameters, the main path's N
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
 H100_BF16_FLOP_PER_S = 989e12       # bf16 tensor cores, dense
@@ -175,13 +195,19 @@ def cycled_inputs(make, nbytes: int):
     return [make() for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)))]
 
 
-def time_device(torch, fn, sets, reps: int = 200, only=None):
+def time_device(torch, fn, sets, reps: int = 200, only=None,
+                per_call=None):
     """Per call of ``fn`` over ``reps`` calls cycling through ``sets``:
     (device ms: the summed durations of the kernels it launched — of those
     whose name holds ``only``, if given — from the profiler's CUPTI trace;
     queue ms: CUDA events around the queued calls, which include the gaps
     when the host enqueues slower than the card runs; host ms: the wall
-    time of one enqueue)."""
+    time of one enqueue; device operations, kernels and copies, from the
+    same trace).  ``per_call``, where given, is the number of those
+    operations one call launches: a trace has come back without some of
+    them, and its time was then too low, so a trace that does not hold
+    exactly ``per_call * reps`` is taken again, and the run fails after
+    three."""
     from torch.profiler import ProfilerActivity, profile
     for s in sets[:2]:
         fn(*s)
@@ -196,20 +222,30 @@ def time_device(torch, fn, sets, reps: int = 200, only=None):
     host = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
     queue = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(*sets[i % len(sets)])
-        torch.cuda.synchronize()
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if str(e.device_type).endswith("CUDA")
-                 and (only is None or only in e.key))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(*sets[i % len(sets)])
+            torch.cuda.synchronize()
+        ops = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and (only is None or only in e.key)]
+        count = sum(e.count for e in ops)
+        if per_call is None or count == per_call * reps:
+            break
+    else:
+        fail(f"three profiler traces of {reps} calls held {count} device "
+             f"operations" + (f" named {only!r}" if only else "")
+             + f", not {per_call} a call: "
+             f"{sorted((e.key[:60], e.count) for e in ops)}")
+    dev_us = sum(e.self_device_time_total for e in ops)
     if dev_us <= 0:
         fail("the profiler recorded no device time for a timed kernel"
              + (f" named {only!r}; it saw "
                 f"{sorted({e.key[:60] for e in prof.key_averages()})}"
                 if only else ""))
-    return dev_us / reps / 1e3, queue, host
+    return dev_us / reps / 1e3, queue, host, count / reps
 
 
 def bound_ms(nbytes: float, flops: float, peak=H100_F32_FLOP_PER_S):
@@ -319,32 +355,141 @@ def main() -> None:
                 if not err <= FED_AGG_TOL:
                     fail(f"fed_agg aliased C={C} N={N} bw={bw}: error {err}")
             print(f"  C={C:2d} N={N:6d}: ok")
+    # two segments in one launch (the epoch step's bank and carry) against
+    # the plain version's two-segment form
+    for C in (64, 9, 1):
+        for C2 in (0, 1, 4, 8):
+            for N in (206922, 10003, 1001):
+                stack, stack2 = randn(C, N), randn(C2, N)
+                gamma = torch.rand(C, generator=gen, device=dev) / C
+                gamma2 = torch.rand(C2, generator=gen, device=dev) / 4
+                seg2 = dict(stack2=stack2, gamma2=gamma2)
+                buf = randn(N + 1)
+                for base in (buf[:N], buf[1:]):   # 16-byte aligned or not
+                    got = fed_agg(stack, gamma, base, 0.35, **seg2)
+                    want = fed_agg_ref(stack, gamma, base, 0.35, stack2,
+                                       gamma2)
+                    err = float((got - want).abs().max())
+                    fed_err = max(fed_err, err)
+                    if not err <= FED_AGG_TOL:
+                        fail(f"fed_agg C={C} C2={C2} N={N}: error {err}")
+                out = buf[:N].clone()
+                want = fed_agg_ref(stack, gamma, out, 0.35, stack2, gamma2)
+                fed_agg(stack, gamma, out, 0.35, out=out, **seg2)
+                err = float((out - want).abs().max())
+                fed_err = max(fed_err, err)
+                if not err <= FED_AGG_TOL:
+                    fail(f"fed_agg aliased C={C} C2={C2} N={N}: error {err}")
+        print(f"  C={C:2d} + C2 in (0, 1, 4, 8), N in (206922, 10003, 1001): "
+              f"ok")
     empty = fed_agg(torch.zeros((0, 1001), device=dev),
                     torch.zeros(0, device=dev), buf[:1001], 0.35)
     if not torch.allclose(empty, 0.35 * buf[:1001], atol=0, rtol=1e-6):
         fail("fed_agg C=0 is not bw * base")
     torch.cuda.synchronize()
-    print(f"fed_agg: max abs error {fed_err:.3e} over 24 shapes, both base "
-          f"alignments, aliased out, C=0 (tolerance {FED_AGG_TOL})")
+    print(f"fed_agg: max abs error {fed_err:.3e} over 24 one-segment and 36 "
+          f"two-segment shapes, both base alignments, aliased out, C=0 "
+          f"(tolerance {FED_AGG_TOL})")
 
     # ---- 3. pairwise_dist_sq vs plain -------------------------------------
-    phase("phase 3: pairwise_dist_sq kernel vs plain (error / max(D, 1))")
+    phase("phase 3: pairwise_dist_sq kernel vs plain (error / max(D, 1)); "
+          "both designs, the leading-row form, repeats bit-equal")
+
+    def held(label, rows, want, limit):
+        """pairwise_dist_sq on ``rows`` (an (M, N) stack, or (ref, stack)
+        for the leading-row form) against ``want`` (the plain version in
+        float64): max abs error within ``limit``, D symmetric, two calls
+        bit-equal.  Returns the error."""
+        def call():
+            return (pairwise_dist_sq(rows[1], ref=rows[0])
+                    if isinstance(rows, tuple) else pairwise_dist_sq(rows))
+        got, again = call(), call()
+        err = float((got.double() - want).abs().max())
+        if not err <= limit or not torch.equal(got, got.T):
+            fail(f"pairwise_dist_sq {label}: error {err} > {limit}")
+        if not torch.equal(got, again):
+            fail(f"pairwise_dist_sq {label}: two calls on one input differ")
+        return err
+
     pd_err = pd_abs = 0.0
-    for M in (2, 9, 65):
-        for N in (206922, 4097):
+    # up to 8 rows the few-rows design, above it the tiled one
+    for M in (1, 2, 8, 9, 65, 66, 130):
+        for N in (MAIN_N, 4097):
             x = randn(M, N)
-            got, want = pairwise_dist_sq(x), pairwise_dist_sq_ref(x)
+            # the plain version in float64: at M = 1, D is exactly 0 and
+            # the f32 plain version's own rounding (~eps n) is all of it
+            want = pairwise_dist_sq_ref(x.double())
             scale = max(float(want.max()), 1.0)
-            abs_err = float((got - want).abs().max())
-            err = abs_err / scale
-            pd_err, pd_abs = max(pd_err, err), max(pd_abs, abs_err)
-            if not err <= PDIST_TOL or not torch.equal(got, got.T):
-                fail(f"pairwise_dist_sq M={M} N={N}: scaled error {err}")
-            print(f"  M={M:2d} N={N:6d}: abs {abs_err:.3e}, scaled "
-                  f"{err:.3e} (max D {scale:.3e})")
+            forms = {"stack": x}
+            # row 0 from its own pointer beside rows 1.. (dist_to_ref's
+            # form): the concatenation is x itself
+            if M >= 2:
+                forms["ref"] = (x[0], x[1:])
+            errs = []
+            for name, rows in forms.items():
+                abs_err = held(f"M={M} N={N} {name}", rows, want,
+                               PDIST_TOL * scale)
+                pd_err = max(pd_err, abs_err / scale)
+                pd_abs = max(pd_abs, abs_err)
+                errs.append(f"{name} {abs_err / scale:.2e}")
+            print(f"  M={M:3d} N={N:6d}: scaled {', '.join(errs)} (max D "
+                  f"{scale:.3e}); repeats bit-equal")
+    # rows that tell one TF32 pass from three: every value is a (1 + 2^-12),
+    # a in {-1, 0, 1}, a quarter of a TF32 spacing above a TF32 number.  One
+    # pass rounds each operand to a and falls short by 2^-11 of D, all in
+    # one direction (50x PDIST_TOL); 3xTF32 (hi hi + hi lo + lo hi, lo =
+    # a 2^-12 exactly) misses only lo lo, 2^-24 of D
+    tf32_err = 0.0
+    for M in (2, 8, 9, 65):
+        a = torch.randint(-1, 2, (M, MAIN_N), generator=gen, device=dev)
+        x = a.float() * (1.0 + 2.0 ** -12)
+        want = pairwise_dist_sq_ref(x.double())
+        scale = max(float(want.max()), 1.0)
+        for name, rows in (("stack", x), ("ref", (x[0], x[1:]))):
+            err = held(f"TF32-sensitive M={M} {name}", rows, want,
+                       PDIST_TOL * scale) / scale
+            tf32_err = max(tf32_err, err)
+    print(f"  rows a quarter TF32 spacing off, M in (2, 8, 9, 65): max "
+          f"scaled error {tf32_err:.3e} (one TF32 pass: {2.0 ** -11:.2e})")
+    # close rows, as grouping feeds them (a partial model beside w0):
+    # ref + 1e-3 randn, most digits of n_i + n_j - 2 G cancel; phase 5's
+    # limit eps max(n) sqrt(N)
+    close = {}
+    for M in (2, 8, 9, 65):
+        r = randn(MAIN_N)
+        rest = r[None, :] + 1e-3 * randn(M - 1, MAIN_N)
+        x = torch.cat([r[None, :], rest])
+        x64 = x.double()
+        want = pairwise_dist_sq_ref(x64)
+        tol = F32_EPS * float((x64 * x64).sum(1).max()) * math.sqrt(MAIN_N)
+        err = max(held(f"close rows M={M} {name}", rows, want, tol)
+                  for name, rows in (("stack", x), ("ref", (r, rest))))
+        close[M] = dict(abs_err=err, max_d=float(want.max()), limit=tol)
+        print(f"  close rows M={M:2d}, both forms: abs error {err:.3e} (max "
+              f"D {float(want.max()):.3e}, limit {tol:.3e})")
+    report["pairwise_dist_checks"] = dict(
+        max_scaled=pd_err, max_abs=pd_abs, tf32_sensitive_scaled=tf32_err,
+        close_rows=close)
+    # one kernel a call at the grouping shape: 20 calls in the trace, and
+    # every device operation of theirs that one kernel
+    from torch.profiler import ProfilerActivity, profile
+    x2 = randn(2, MAIN_N)
+    pairwise_dist_sq(x2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            pairwise_dist_sq(x2)
+        torch.cuda.synchronize()
+    ops = {e.key[:60]: e.count for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")}
+    if len(ops) != 1 or round(sum(ops.values()) / 20) != 1:
+        fail(f"20 pairwise_dist_sq calls at M = 2 ran {ops}, not one kernel "
+             f"a call")
     torch.cuda.synchronize()
     print(f"pairwise_dist_sq: max scaled error {pd_err:.3e} (tolerance "
-          f"{PDIST_TOL}), max abs {pd_abs:.3e}")
+          f"{PDIST_TOL}), max abs {pd_abs:.3e}; one kernel a call at M = 2 "
+          f"(profiler)")
 
     # ---- 4. the main path -------------------------------------------------
     phase("phase 4: main path — repro_torch.fl_constellation_sim.main, "
@@ -367,8 +512,10 @@ def main() -> None:
           f"{ {k: round(v, 3) for k, v in sim.segment_seconds.items()} }")
     if len(hist) != 3:
         fail(f"main path ran {len(hist)} epochs, not 3")
-    if main_launches < 2 * steps or (prog.fallback_dispatches == 0
-                                     and main_launches != 2 * steps):
+    # one launch a step (bank and carry together); a fallback step
+    # aggregates afterwards, with more launches
+    if main_launches < steps or (prog.fallback_dispatches == 0
+                                 and main_launches != steps):
         fail(f"fed_agg launched {main_launches} times for {steps} steps")
     if not all(math.isfinite(r.accuracy) for r in hist):
         fail("non-finite accuracy")
@@ -461,47 +608,15 @@ def main() -> None:
     # ---- 6. timings -------------------------------------------------------
     phase("phase 6: timings (kernel time from the profiler's device trace "
           "over 200 calls; inputs cycled through > 2x L2)")
-    N = 206922
-    timings = {}
-
-    def fed_case(C):
-        nbytes = (C * N + 2 * N + C) * 4
-        sets = cycled_inputs(lambda: (randn(C, N), torch.rand(
-            C, generator=gen, device=dev) / C, randn(N)), nbytes)
-        k_ms, q_ms, host_ms = time_device(
-            torch, lambda s, g, b: fed_agg(s, g, b, 0.35, out=b), sets)
-        p_ms, _, _ = time_device(
-            torch, lambda s, g, b: fed_agg_ref(s, g, b, 0.35), sets)
-        l_ms, _, _ = time_device(
-            torch, lambda s, g, b: torch.addmv(b, s.t(), g, beta=0.35), sets)
-        b_ms, by = bound_ms(nbytes, 2.0 * C * N)
-        return dict(shape=[C, N], ms=k_ms, queue_ms=q_ms, host_ms=host_ms,
-                    plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                    bound_by=by)
-
-    def pd_case(M):
-        nbytes = (M * N + M * M) * 4
-        sets = cycled_inputs(lambda: (randn(M, N),), nbytes)
-        k_ms, q_ms, host_ms = time_device(torch, pairwise_dist_sq, sets)
-        p_ms, _, _ = time_device(torch, pairwise_dist_sq_ref, sets)
-        l_ms, _, _ = time_device(torch, lambda x: torch.cdist(
-            x, x, compute_mode="use_mm_for_euclid_dist"), sets)
-        b_ms, by = bound_ms(nbytes, float(M * (M + 1)) * N)
-        return dict(shape=[M, N], ms=k_ms, queue_ms=q_ms, host_ms=host_ms,
-                    plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                    bound_by=by)
-
-    timings["fed_agg_bank"] = fed_case(C_bank)
-    timings["fed_agg_carry"] = fed_case(4)
-    timings["pairwise_dist_grouping"] = pd_case(2)
-    timings["pairwise_dist_m65"] = pd_case(65)
+    timings = timings_process(C_bank)
     for name, t in timings.items():
-        print(f"{name} {t['shape']}: kernel {t['ms'] * 1e3:.1f} us (queued "
+        print(f"{name} {t['shape']}: kernel {t['ms'] * 1e3:.2f} us, "
+              f"{t['launches']:g} launch(es) a call (queued "
               f"{t['queue_ms'] * 1e3:.1f} us/call, host enqueue "
               f"{t['host_ms'] * 1e3:.1f} us/call), bound "
-              f"{t['bound_ms'] * 1e3:.1f} us ({t['bound_by']}), plain "
-              f"{t['plain_ms'] * 1e3:.1f} us, library "
-              f"{t['library_ms'] * 1e3:.1f} us")
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})"
+              + "".join(f", {k} {t[k] * 1e3:.2f} us" for k in (
+                  "plain_ms", "library_ms", "two_calls_ms") if k in t))
     report["timings"] = timings
 
     warm = []
@@ -559,7 +674,7 @@ def main() -> None:
                 others=(fed_agg, pairwise_dist_sq, chunk_scan))
 
     # ---- 16. the kernel line ----------------------------------------------
-    fb, pg = timings["fed_agg_bank"], timings["pairwise_dist_grouping"]
+    fb, pg = timings["eq14_bank_carry"], timings["pairwise_dist_grouping"]
     kernel_line = {"kernels": [
         dict(name="fed_agg", route="cuda",
              source="src/repro_torch/csrc/fed_agg.cu",
@@ -595,6 +710,163 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# device operations one call of each of kernel_timings' cases launches
+# (the fed_agg kernels of eq. 14's call; dist_to_ref is the kernel and a
+# sqrt; the tiled Gram above 8 rows is three kernels); timing an older
+# checkout's package, set its own counts here first
+KERNELS_A_CALL = dict(eq14_bank_carry=1, fed_agg_bank=1, fed_agg_carry=1,
+                      dist_to_ref_grouping=2, pairwise_dist_grouping=1,
+                      pairwise_dist_m65=3, floor_fed_agg=1,
+                      floor_pairwise_dist=1)
+
+
+def kernel_timings(torch, dev, gen, c_bank: int = 64) -> dict:
+    """Phase 6's kernel timings at the main path's shapes (N = 206,922):
+    - eq. 14 over the bank (``c_bank`` rows) and the carry (4 rows) as
+      ``combine_stacked`` runs it with two live terms (its fed_agg kernels
+      only: the weights' host copies are not counted);
+    - each segment alone through ``fed_agg``;
+    - the grouping call ``dist_to_ref(pm[None], w0)``, every kernel it
+      launches;
+    - ``pairwise_dist_sq`` at 2 and 65 rows, every kernel of the call;
+    - the one-CTA floors, ``fed_agg`` at C = 1, N = 1024 and
+      ``pairwise_dist_sq`` at M = 2, N = 1024 (inputs warm in L2): what a
+      launch alone costs on this card.
+    Each entry: device ms a call, CUDA-event queue ms and host enqueue ms a
+    call, device operations a call (``KERNELS_A_CALL``, which the trace
+    must hold) and the bound."""
+    import numpy as np
+    from repro_torch.core.aggregation import combine_stacked
+    from repro_torch.kernels.fed_agg import fed_agg
+    from repro_torch.kernels.pairwise_dist import dist_to_ref, pairwise_dist_sq
+    N = MAIN_N
+    C_carry = 4
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def weights(c):
+        return torch.rand(c, generator=gen, device=dev) / c
+
+    out = {}
+
+    def case(key, shape, fn, sets, nbytes, flops, only=None):
+        k_ms, q_ms, host_ms, n = time_device(
+            torch, fn, sets, only=only, per_call=KERNELS_A_CALL[key])
+        b_ms, by = bound_ms(nbytes, flops)
+        out[key] = dict(shape=shape, ms=k_ms, queue_ms=q_ms,
+                        host_ms=host_ms, bound_ms=b_ms, bound_by=by,
+                        launches=n)
+
+    rows = c_bank + C_carry
+    w_bank = np.asarray(weights(c_bank).cpu())
+    w_carry = np.asarray(weights(C_carry).cpu())
+    nbytes = (rows * N + 2 * N + rows) * 4
+    case("eq14_bank_carry", [c_bank, C_carry, N],
+         lambda s, s2, b: combine_stacked([(s, w_bank), (s2, w_carry)], b,
+                                          0.35),
+         cycled_inputs(lambda: (randn(c_bank, N), randn(C_carry, N),
+                                randn(N)), nbytes),
+         nbytes, 2.0 * rows * N, only="fed_agg")
+    for key, C in (("fed_agg_bank", c_bank), ("fed_agg_carry", C_carry)):
+        nbytes = (C * N + 2 * N + C) * 4
+        case(key, [C, N], lambda s, g, b: fed_agg(s, g, b, 0.35, out=b),
+             cycled_inputs(lambda: (randn(C, N), weights(C), randn(N)),
+                           nbytes), nbytes, 2.0 * C * N)
+    nbytes = (2 * N + 1) * 4
+    case("dist_to_ref_grouping", [1, N], dist_to_ref,
+         cycled_inputs(lambda: (randn(1, N), randn(N)), nbytes), nbytes,
+         6.0 * N)
+    for key, M in (("pairwise_dist_grouping", 2), ("pairwise_dist_m65", 65)):
+        nbytes = (M * N + M * M) * 4
+        case(key, [M, N], pairwise_dist_sq,
+             cycled_inputs(lambda: (randn(M, N),), nbytes), nbytes,
+             float(M * (M + 1)) * N)
+    n1 = 1024
+    case("floor_fed_agg", [1, n1],
+         lambda s, g, b: fed_agg(s, g, b, 0.35, out=b),
+         [(randn(1, n1), weights(1), randn(n1))], (3 * n1 + 1) * 4,
+         2.0 * n1)
+    case("floor_pairwise_dist", [2, n1], pairwise_dist_sq,
+         [(randn(2, n1),)], (2 * n1 + 4) * 4, 6.0 * n1)
+    return out
+
+
+def timings_process(c_bank: int) -> dict:
+    """``kernel_timings`` and ``kernel_yardsticks`` in a process of their
+    own.  In the smoke's process, after phases 2-5, an H100's profiler
+    traces held 199 and 198 of 200 fed_agg launches, three traces
+    running, where fresh processes' traces held every launch of every
+    case."""
+    code = (f"import json, sys\n"
+            f"sys.path[:0] = [{str(ROOT)!r}, {str(SRC)!r}]\n"
+            "import torch, chip_smoke as cs\n"
+            "dev = torch.device('cuda')\n"
+            "gen = torch.Generator(device=dev).manual_seed(0)\n"
+            f"t = cs.kernel_timings(torch, dev, gen, {c_bank})\n"
+            f"cs.kernel_yardsticks(torch, dev, gen, t, {c_bank})\n"
+            "print(json.dumps(t))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode != 0:
+        fail(f"phase 6's timing process failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def kernel_yardsticks(torch, dev, gen, timings: dict, c_bank: int) -> None:
+    """Phase 6's yardsticks, added to ``kernel_timings``' entries: beside
+    eq. 14 in one launch, two one-segment calls (the way before it was one
+    launch), the plain version and two ``torch.addmv``; beside
+    ``pairwise_dist_sq`` at 2 and 65 rows, the plain version and
+    ``torch.cdist``.  Then ``pairwise_dist_sq`` at more M: the few-rows
+    design up to 8 rows (one kernel), the tiled one from 9 (three)."""
+    from repro_torch.kernels.fed_agg import fed_agg
+    from repro_torch.kernels.fed_agg.ref import fed_agg_ref
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_sq
+    from repro_torch.kernels.pairwise_dist.ref import pairwise_dist_sq_ref
+    N = MAIN_N
+    C_carry = 4
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def weights(c):
+        return torch.rand(c, generator=gen, device=dev) / c
+
+    rows = c_bank + C_carry
+    sets = cycled_inputs(lambda: (randn(c_bank, N), weights(c_bank),
+                                  randn(C_carry, N), weights(C_carry),
+                                  randn(N)), (rows * N + 2 * N + rows) * 4)
+
+    def two(s, g, s2, g2, b):
+        fed_agg(s, g, b, 0.35, out=b)
+        return fed_agg(s2, g2, b, 1.0, out=b)
+
+    def library(s, g, s2, g2, b):
+        return torch.addmv(torch.addmv(b, s.t(), g, beta=0.35), s2.t(), g2)
+
+    timings["eq14_bank_carry"].update(
+        two_calls_ms=time_device(torch, two, sets, per_call=2)[0],
+        plain_ms=time_device(torch, lambda s, g, s2, g2, b: fed_agg_ref(
+            s, g, b, 0.35, s2, g2), sets)[0],
+        library_ms=time_device(torch, library, sets)[0])
+    for key, M in (("pairwise_dist_grouping", 2), ("pairwise_dist_m65", 65)):
+        sets = cycled_inputs(lambda: (randn(M, N),), M * N * 4)
+        timings[key].update(
+            plain_ms=time_device(torch, pairwise_dist_sq_ref, sets)[0],
+            library_ms=time_device(torch, lambda x: torch.cdist(
+                x, x, compute_mode="use_mm_for_euclid_dist"), sets)[0])
+    for M in (4, 6, 8, 9, 16, 33, 66, 130):
+        nbytes = (M * N + M * M) * 4
+        sets = cycled_inputs(lambda: (randn(M, N),), nbytes)
+        b_ms, by = bound_ms(nbytes, float(M * (M + 1)) * N)
+        k_ms, q_ms, host_ms, n = time_device(
+            torch, pairwise_dist_sq, sets, per_call=1 if M <= 8 else 3)
+        timings[f"pairwise_dist_m{M}"] = dict(
+            shape=[M, N], ms=k_ms, queue_ms=q_ms, host_ms=host_ms,
+            bound_ms=b_ms, bound_by=by, launches=n)
 
 
 def kernel_name(mangled: str) -> str:
@@ -670,6 +942,18 @@ def check_build(kernels, logs) -> dict:
         for w in warn:
             print(f"  {name}: ptxas: {w[:160]}")
         report[name] = dict(kernels=rows, warnings=warn)
+    for name in ("fed_agg", "pairwise_dist"):
+        spilled = [r for r in report[name]["kernels"] if r[2] or r[3]]
+        if spilled:
+            fail(f"the {name} kernels spill: {spilled}")
+    tf32 = sum(".TF32" in line for line in
+               sass_of(kernels, "pairwise_dist").splitlines()
+               if "HMMA" in line)
+    print(f"  pairwise_dist SASS: {tf32} TF32 HMMA (the tiled Gram's "
+          f"mma.sync)")
+    if not tf32:
+        fail("the pairwise_dist library's SASS holds no TF32 HMMA")
+    report["pairwise_dist_sass"] = dict(tf32=tf32)
     flash = report["flash_attention"]
     wgmma = [r for r in flash["kernels"] if r[0].startswith("flash_wgmma")]
     if len(wgmma) != 3:
@@ -972,10 +1256,10 @@ def flash_timings(torch, dev, gen, report) -> dict:
                          for shape in ((B, S, H, hd), (B, S, KV, hd),
                                        (B, S, KV, hd)))
         sets = cycled_inputs(make, nbytes)
-        k_ms, q_ms, host_ms = time_device(
+        k_ms, q_ms, host_ms, _ = time_device(
             torch, lambda q, k, v: flash_attention(
                 q, k, v, causal=causal, window=window), sets)
-        p_ms, _, _ = time_device(
+        p_ms, *_ = time_device(
             torch, lambda q, k, v: attention_ref_bshd(
                 q, k, v, causal=causal, window=window), sets, reps=10)
         # the library call: SDPA, causal or with the window's boolean band
@@ -994,7 +1278,7 @@ def flash_timings(torch, dev, gen, report) -> dict:
         if not lib_err <= FLASH_TOL["bfloat16"]:
             fail(f"the library yardstick at {key} computes another "
                  f"function: {lib_err} from the kernel")
-        l_ms, _, _ = time_device(torch, library, sets)
+        l_ms, *_ = time_device(torch, library, sets)
         flops = 4.0 * hd * B * H * attention_pairs(S, S, causal, window)
         b_ms, by = bound_ms(nbytes, flops, H100_BF16_FLOP_PER_S)
         t = dict(shape=[B, S, H, KV, hd], causal=causal, window=window,
@@ -1325,10 +1609,10 @@ def scan_timings(torch, dev, gen, report) -> dict:
                               bonus=u)
 
     sets = cycled_inputs(make, nbytes)
-    k_ms, q_ms, host_ms = time_device(torch, kernel, sets,
+    k_ms, q_ms, host_ms, _ = time_device(torch, kernel, sets,
                                       only="chunk_scan_kernel")
-    w_ms, _, _ = time_device(torch, kernel, sets)
-    p_ms, _, _ = time_device(torch, plain, sets, reps=3)
+    w_ms, *_ = time_device(torch, kernel, sets)
+    p_ms, *_ = time_device(torch, plain, sets, reps=3)
     pairs = Lc * (Lc - 1) // 2
     flops = B * H * (T // Lc) * 2.0 * (Lc * K * V + pairs * K + pairs * V
                                        + K * Lc * V)

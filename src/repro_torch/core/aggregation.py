@@ -64,12 +64,13 @@ def combine_stacked(terms, base_flat: Optional[torch.Tensor] = None,
                     base_weight: float = 0.0) -> Optional[torch.Tensor]:
     """w = base_weight * base + sum over (stack, weight_vector) terms.
 
-    Each term is one ``fed_agg`` pass over its (C_s, N) stack — models
-    split across several matrices (epoch bank, carried stragglers) are
-    combined without gathering or concatenating rows.  The first pass folds
-    in the base, later passes accumulate onto its output in place.
-    Zero-weight terms are skipped on the host.  Returns a new flat (N,)
-    tensor (None when there is neither a live term nor a base).
+    Models split across several matrices (epoch bank, carried stragglers)
+    are combined without gathering or concatenating rows: ``fed_agg``
+    takes two stacks in one launch, so two live terms make one call.  The
+    first call folds in the base; any further pair of terms accumulates
+    onto its output in place.  Zero-weight terms are skipped on the host.
+    Returns a new flat (N,) tensor (None when there is neither a live term
+    nor a base).
     """
     live = []
     for stack, w in terms:
@@ -78,21 +79,23 @@ def combine_stacked(terms, base_flat: Optional[torch.Tensor] = None,
         w = np.asarray(w, np.float32)
         if not w.any():
             continue
-        live.append((stack, w))
+        live.append((stack, torch.as_tensor(w, device=stack.device)))
     if not live:
         if base_flat is None:
             return None
         return (base_weight * base_flat if base_weight != 0.0
                 else torch.zeros_like(base_flat))
     out = None
-    for stack, w in live:
-        gamma = torch.as_tensor(w, device=stack.device)
+    for k in range(0, len(live), 2):
+        stack, gamma = live[k]
+        stack2, gamma2 = live[k + 1] if k + 1 < len(live) else (None, None)
         if out is None:
             out = fed_agg(stack, gamma,
                           None if base_weight == 0.0 else base_flat,
-                          base_weight)
+                          base_weight, stack2=stack2, gamma2=gamma2)
         else:
-            fed_agg(stack, gamma, out, 1.0, out=out)
+            fed_agg(stack, gamma, out, 1.0, out=out, stack2=stack2,
+                    gamma2=gamma2)
     return out
 
 

@@ -11,9 +11,10 @@
           per-participant losses (C,)
 
 Inside: the pool trains every participant from ``w_flat``; the trained
-stack is formed; eq. 14 is two ``fed_agg`` passes — the bank pass folds in
-``base_w * w_flat``, the carry pass accumulates onto its output with
-weight 1.0 — both writing into ``w_flat``; and the distances of new orbits
+stack is formed; eq. 14 is one ``fed_agg`` launch over the bank and the
+carry together, folding in ``base_w * w_flat`` and writing into ``w_flat``
+(the JAX package runs it as a bank pass and a carry pass onto its output);
+and the distances of new orbits
 to w0 are ``|| segment_sum(w_row * rows) - ref ||`` over the same stack.
 Every per-model weight is host metadata math (eqs. 13/14 need sizes and
 staleness, not tensors), so the weight vectors are inputs.  The one case
@@ -95,8 +96,8 @@ class EpochStepProgram:
                                         ids_np, seed)
         stack = (stacked if isinstance(stacked, torch.Tensor)
                  else self.spec.flatten_stacked(stacked))
-        fed_agg(stack, host(wv_bank), w_flat, float(base_w), out=w_flat)
-        fed_agg(carry, host(wv_carry), w_flat, 1.0, out=w_flat)
+        fed_agg(stack, host(wv_bank), w_flat, float(base_w), out=w_flat,
+                stack2=carry, gamma2=host(wv_carry))
         if kpad:
             c, n = stack.shape
             dw = host(dw_row)

@@ -1,153 +1,194 @@
-// fed_agg: out = bw * base + sum_c gamma[c] * W[c]   (paper eq. 14)
+// fed_agg: out = bw * base + gamma^T W + gamma2^T W2   (paper eq. 14)
 //
 // Replaces: src/repro/kernels/fed_agg/kernel.py, fed_agg_flat (_agg_kernel).
 //
-// What bounds it on an H100: bytes.  Every element of the (C, N) stack is
-// read once and used for one multiply-add (0.5 flop per byte), so the least
-// time is (C + 2) * N * 4 bytes over 3.35 TB/s: 16.3 us at the main path's
-// bank pass, C = 64, N = 206,922.
+// The function: fed_agg_flat over the row concatenation [W; W2] with the
+// weights [gamma; gamma2], without forming the concatenation.  The epoch
+// step passes the bank (C rows) and the carried stragglers (C2 rows); the
+// JAX package runs the same sum as two passes, the carry pass onto the bank
+// pass's output (src/repro/core/epoch_step.py:169-170), and this one launch
+// differs from those only in the order of rounding.  C2 = 0 is the
+// one-segment call; C = C2 = 0 gives bw * base.
 //
-// Design: a 1-D grid over N.  Each thread owns 4 contiguous columns and
-// loops over the C rows, accumulating in f32 registers; the C weights are
-// staged in shared memory, a tile at a time.  A row segment whose address
-// is 16-byte aligned is loaded as one float4.  N = 206,922 is not a
-// multiple of 4, so rows 1.. of a (C, N) stack are not all 16-byte
-// aligned: those rows take two float2 loads where they are 8-byte aligned
-// and scalar loads otherwise, as does the ragged tail of N, inside the
-// same kernel (the branch depends on the row only, so a warp never
-// diverges on it).  The loads of kRows rows are issued before any of
-// their multiply-adds, so each thread keeps kRows loads in flight: a row
-// at a time left the kernel waiting on memory latency at twice the byte
-// bound.  `out` may alias `base` (the carry pass accumulates onto the bank
-// pass's output in place): every element is read, then written, by the
-// one thread that owns it.  C = 0 gives bw * base.
+// What bounds it on an H100: bytes.  Every element of both stacks is read
+// once and used for one multiply-add (0.5 flop per byte), so the least time
+// is (C + C2 + 2) * N * 4 bytes over 3.35 TB/s: 17.3 us at the main path's
+// bank of 64 rows plus carry of 4, N = 206,922.
+//
+// Design: a 1-D grid over N, one thread per 4 contiguous columns, f32
+// accumulators in registers.  The rows of both segments form one sequence
+// (bank rows, then carry rows), walked in batches of kRows: the loads of
+// the next batch are issued before the multiply-adds of the current one,
+// so a thread keeps up to 2 * kRows rows in flight, and rows past the end
+// are predicated off (weight 0, no load) instead of a row-at-a-time tail.
+// `base` is loaded with the first batch.  A separate launch for the carry
+// cannot get near its own 1.5 us bound (a launch and its ramp cost about
+// that much), so the carry rides in the bank's launch.  Vector width: the
+// host picks V = 4, 2 or 1 floats a load as the widest width every row
+// start (N, the stacks, base and out) is aligned to, so the loads carry no
+// alignment branch: N = 206,922 is 2 mod 4, so the main path loads float2
+// pairs.  `out` may alias `base` (the in-place epoch update): every
+// element is read, then written, by the one thread that owns it.  No
+// atomics: the result is the same from run to run.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kVec = 4;
-constexpr int kGammaTile = 1024;
-constexpr int kRows = 8;          // rows whose loads are in flight at once
+constexpr int kCols = 4;          // columns a thread owns
+constexpr int kRows = 8;          // rows a batch; two batches in flight
 
-__device__ __forceinline__ bool aligned16(const float* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-__device__ __forceinline__ bool aligned8(const float* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 7u) == 0;
-}
-
-// Loads the up-to-4 values at p[0..n) (n = 4 on a full segment; missing
-// values are 0).  kReadOnly takes the non-coherent read-only path, which is
-// only for data no thread writes during the kernel: the stack, never `base`
-// (it may be `out`).
-template <bool kReadOnly>
-__device__ __forceinline__ float ld(const float* p) {
-  return kReadOnly ? __ldg(p) : *p;
-}
-
-template <bool kReadOnly>
-__device__ __forceinline__ float4 load4(const float* p, int n) {
-  if (n == kVec && aligned16(p)) {
-    const float4* q = reinterpret_cast<const float4*>(p);
-    return kReadOnly ? __ldg(q) : *q;
-  }
-  if (n == kVec && aligned8(p)) {
-    const float2* q = reinterpret_cast<const float2*>(p);
-    const float2 a = kReadOnly ? __ldg(q) : q[0];
-    const float2 b = kReadOnly ? __ldg(q + 1) : q[1];
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (n > 0) v.x = ld<kReadOnly>(p);
-  if (n > 1) v.y = ld<kReadOnly>(p + 1);
-  if (n > 2) v.z = ld<kReadOnly>(p + 2);
-  if (n > 3) v.w = ld<kReadOnly>(p + 3);
-  return v;
-}
-
-// Stores the first n values of v at p[0..n).
-__device__ __forceinline__ void store4(float* p, int n, float4 v) {
-  if (n == kVec && aligned16(p)) {
-    *reinterpret_cast<float4*>(p) = v;
-    return;
-  }
-  if (n > 0) p[0] = v.x;
-  if (n > 1) p[1] = v.y;
-  if (n > 2) p[2] = v.z;
-  if (n > 3) p[3] = v.w;
-}
-
-__global__ void __launch_bounds__(kThreads)
-fed_agg_kernel(const float* __restrict__ W, const float* __restrict__ gamma,
-               const float* base, float bw, float* out, int C, long long N) {
-  __shared__ float g[kGammaTile];
-  const long long i0 =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kVec;
-  const int n = i0 < N ? static_cast<int>(min(static_cast<long long>(kVec), N - i0)) : 0;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c0 = 0; c0 < C; c0 += kGammaTile) {
-    const int cn = min(kGammaTile, C - c0);
-    __syncthreads();  // the previous tile's weights are no longer read
-    for (int k = threadIdx.x; k < cn; k += kThreads) g[k] = gamma[c0 + k];
-    __syncthreads();
-    if (n == 0) continue;
-    const float* row = W + static_cast<long long>(c0) * N + i0;
-    int k = 0;
-    for (; k + kRows <= cn; k += kRows) {
-      float4 v[kRows];
+// Loads this thread's kCols floats at p as vectors of V floats, or zeros
+// where `live` is false or the vector starts at or past n (n, the columns
+// left in the row, is a multiple of V).  kReadOnly takes the non-coherent
+// read-only path, for data no thread writes during the kernel: the
+// stacks, never `base` (it may be `out`).
+template <int V, bool kReadOnly>
+__device__ __forceinline__ void load_cols(const float* p, int n, bool live,
+                                          float (&v)[kCols]) {
 #pragma unroll
-      for (int u = 0; u < kRows; ++u) v[u] = load4<true>(row + u * N, n);
-#pragma unroll
-      for (int u = 0; u < kRows; ++u) {
-        const float gk = g[k + u];
-        acc.x = fmaf(gk, v[u].x, acc.x);
-        acc.y = fmaf(gk, v[u].y, acc.y);
-        acc.z = fmaf(gk, v[u].z, acc.z);
-        acc.w = fmaf(gk, v[u].w, acc.w);
+  for (int j = 0; j < kCols; j += V) {
+    if (live && j < n) {
+      if constexpr (V == 4) {
+        const float4* q = reinterpret_cast<const float4*>(p + j);
+        const float4 t = kReadOnly ? __ldg(q) : *q;
+        v[j] = t.x; v[j + 1] = t.y; v[j + 2] = t.z; v[j + 3] = t.w;
+      } else if constexpr (V == 2) {
+        const float2* q = reinterpret_cast<const float2*>(p + j);
+        const float2 t = kReadOnly ? __ldg(q) : *q;
+        v[j] = t.x; v[j + 1] = t.y;
+      } else {
+        v[j] = kReadOnly ? __ldg(p + j) : p[j];
       }
-      row += kRows * N;
-    }
-    for (; k < cn; ++k, row += N) {
-      const float4 v = load4<true>(row, n);
-      const float gk = g[k];
-      acc.x = fmaf(gk, v.x, acc.x);
-      acc.y = fmaf(gk, v.y, acc.y);
-      acc.z = fmaf(gk, v.z, acc.z);
-      acc.w = fmaf(gk, v.w, acc.w);
+    } else {
+#pragma unroll
+      for (int u = 0; u < V; ++u) v[j + u] = 0.f;
     }
   }
-  if (n == 0) return;
+}
+
+struct Segments {
+  const float* W;       // (C, N)
+  const float* gamma;   // (C,)
+  int C;
+  const float* W2;      // (C2, N)
+  const float* gamma2;  // (C2,)
+  int R;                // C + C2
+  long long N;
+};
+
+// Rows r0 .. r0 + kRows - 1 of the sequence [W; W2] at this thread's
+// columns, and their weights; rows at or past R load nothing and weigh 0.
+template <int V>
+__device__ __forceinline__ void load_batch(const Segments& s, long long i0,
+                                           int n, int r0,
+                                           float (&v)[kRows][kCols],
+                                           float (&g)[kRows]) {
+#pragma unroll
+  for (int u = 0; u < kRows; ++u) {
+    const int r = r0 + u;
+    const bool live = r < s.R;
+    const bool first = r < s.C;
+    const float* row = first ? s.W + static_cast<long long>(r) * s.N
+                             : s.W2 + static_cast<long long>(r - s.C) * s.N;
+    g[u] = live ? __ldg(first ? s.gamma + r : s.gamma2 + (r - s.C)) : 0.f;
+    load_cols<V, true>(row + i0, n, live, v[u]);
+  }
+}
+
+__device__ __forceinline__ void fma_batch(const float (&v)[kRows][kCols],
+                                          const float (&g)[kRows],
+                                          float (&acc)[kCols]) {
+#pragma unroll
+  for (int u = 0; u < kRows; ++u)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j] = fmaf(g[u], v[u][j], acc[j]);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+fed_agg_kernel(Segments s, const float* base, float bw, float* out) {
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kCols;
+  if (i0 >= s.N) return;
+  const int n = static_cast<int>(min(static_cast<long long>(kCols), s.N - i0));
+  float acc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
+  float b[kCols];
+  load_cols<V, false>(base + i0, n, base != nullptr, b);
+  float va[kRows][kCols], vb[kRows][kCols], ga[kRows], gb[kRows];
+  load_batch<V>(s, i0, n, 0, va, ga);
+  for (int r0 = 0; r0 < s.R; r0 += 2 * kRows) {
+    load_batch<V>(s, i0, n, r0 + kRows, vb, gb);
+    fma_batch(va, ga, acc);
+    if (r0 + kRows >= s.R) break;
+    load_batch<V>(s, i0, n, r0 + 2 * kRows, va, ga);
+    fma_batch(vb, gb, acc);
+  }
   if (base != nullptr) {
-    // the whole segment is read before any of it is written: out may be
-    // base
-    const float4 b = load4<false>(base + i0, n);
-    acc.x = fmaf(bw, b.x, acc.x);
-    acc.y = fmaf(bw, b.y, acc.y);
-    acc.z = fmaf(bw, b.z, acc.z);
-    acc.w = fmaf(bw, b.w, acc.w);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j] = fmaf(bw, b[j], acc[j]);
   }
-  store4(out + i0, n, acc);
+  float* o = out + i0;
+#pragma unroll
+  for (int j = 0; j < kCols; j += V) {
+    if (j < n) {
+      if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(o + j) =
+            make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+      } else if constexpr (V == 2) {
+        *reinterpret_cast<float2*>(o + j) = make_float2(acc[j], acc[j + 1]);
+      } else {
+        o[j] = acc[j];
+      }
+    }
+  }
+}
+
+bool aligned(const void* p, int bytes) {
+  return p == nullptr || (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
+}
+
+// The widest vector (in floats) that every row start is aligned to.
+int vector_width(const float* W, const float* W2, const float* base,
+                 const float* out, long long N) {
+  for (int v = 4; v > 1; v /= 2) {
+    const int bytes = v * static_cast<int>(sizeof(float));
+    if (N % v == 0 && aligned(W, bytes) && aligned(W2, bytes) &&
+        aligned(base, bytes) && aligned(out, bytes))
+      return v;
+  }
+  return 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// W (C, N) row-major, gamma (C,), base (N,) or null, out (N,); all f32 on
-// the current device.  Launches on `stream` and returns the launch's
-// cudaError_t (0 on success); it does not synchronise.
-int fed_agg_launch(const float* W, const float* gamma, const float* base,
-                   float bw, float* out, int C, long long N, void* stream) {
-  if (C < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
+// W (C, N) and W2 (C2, N) row-major, gamma (C,), gamma2 (C2,), base (N,) or
+// null, out (N,); all f32 on the current device.  C2 = 0 (W2 and gamma2
+// may then be null) is the one-segment call.  Launches on `stream` and
+// returns the launch's cudaError_t (0 on success); it does not
+// synchronise.
+int fed_agg_launch(const float* W, const float* gamma, int C,
+                   const float* W2, const float* gamma2, int C2,
+                   const float* base, float bw, float* out, long long N,
+                   void* stream) {
+  if (C < 0 || C2 < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
-  const long long per_block = static_cast<long long>(kThreads) * kVec;
-  const long long blocks = (N + per_block - 1) / per_block;
-  fed_agg_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(W, gamma, base, bw,
-                                                        out, C, N);
+  if (C == 0) W = gamma = nullptr;
+  if (C2 == 0) W2 = gamma2 = nullptr;
+  const Segments s{W, gamma, C, W2, gamma2, C + C2, N};
+  const long long per_block = static_cast<long long>(kThreads) * kCols;
+  const unsigned n = static_cast<unsigned>((N + per_block - 1) / per_block);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (vector_width(W, W2, base, out, N)) {
+    case 4: fed_agg_kernel<4><<<n, kThreads, 0, st>>>(s, base, bw, out); break;
+    case 2: fed_agg_kernel<2><<<n, kThreads, 0, st>>>(s, base, bw, out); break;
+    default: fed_agg_kernel<1><<<n, kThreads, 0, st>>>(s, base, bw, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

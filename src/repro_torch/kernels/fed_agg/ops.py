@@ -1,4 +1,5 @@
-"""The fed_agg wrapper: eq. 14's contraction over a (C, N) model stack.
+"""The fed_agg wrapper: eq. 14's contraction over a (C, N) model stack and,
+in the same launch, an optional second (C2, N) stack.
 
 A tensor on the CPU takes the plain version (``ref.py``); a CUDA tensor
 launches the CUDA kernel (``csrc/fed_agg.cu``) or raises.  ``fed_agg.launches``
@@ -16,8 +17,9 @@ from repro_torch.kernels.fed_agg.ref import fed_agg_ref
 
 _PTR = ctypes.c_void_p
 _SIGNATURES = {
-    "fed_agg_launch": ([_PTR, _PTR, _PTR, ctypes.c_float, _PTR, ctypes.c_int,
-                        ctypes.c_longlong, _PTR], ctypes.c_int),
+    "fed_agg_launch": ([_PTR, _PTR, ctypes.c_int, _PTR, _PTR, ctypes.c_int,
+                        _PTR, ctypes.c_float, _PTR, ctypes.c_longlong, _PTR],
+                       ctypes.c_int),
 }
 
 
@@ -33,6 +35,14 @@ def _check_vector(name: str, t: torch.Tensor, n: int,
                          f"{device}")
 
 
+def _check_stack(name: str, t: torch.Tensor) -> None:
+    if t.dim() != 2:
+        raise ValueError(f"fed_agg: {name} must be 2-D (C, N), got "
+                         f"{tuple(t.shape)}")
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"fed_agg: {name} must be contiguous float32")
+
+
 def _span(t: torch.Tensor):
     start = t.data_ptr()
     return start, start + t.numel() * t.element_size()
@@ -45,29 +55,43 @@ def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def fed_agg(stack: torch.Tensor, gamma: torch.Tensor,
             base: Optional[torch.Tensor] = None, base_weight: float = 0.0,
-            *, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out = base_weight * base + sum_c gamma[c] * stack[c]``.
+            *, out: Optional[torch.Tensor] = None,
+            stack2: Optional[torch.Tensor] = None,
+            gamma2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out = base_weight * base + gamma @ stack + gamma2 @ stack2``.
 
     ``stack`` (C, N), ``gamma`` (C,), ``base`` and ``out`` (N,): contiguous
-    float32 on one device.  ``base=None`` drops the base term.  ``out`` may
-    be ``base`` itself (an in-place update) but must not overlap anything
-    else; ``out=None`` allocates the result.  C = 0 gives
-    ``base_weight * base``.
+    float32 on one device.  ``stack2`` (C2, N) with ``gamma2`` (C2,) is an
+    optional second segment (the epoch's carried stragglers beside its
+    bank), summed in the same launch; both or neither are given.
+    ``base=None`` drops the base term.  ``out`` may be ``base`` itself (an
+    in-place update) but must not overlap anything else; ``out=None``
+    allocates the result.  C = C2 = 0 gives ``base_weight * base``.
     """
-    if stack.dim() != 2:
-        raise ValueError(f"fed_agg: stack must be 2-D (C, N), got "
-                         f"{tuple(stack.shape)}")
-    if stack.dtype != torch.float32 or not stack.is_contiguous():
-        raise ValueError("fed_agg: stack must be contiguous float32")
+    _check_stack("stack", stack)
     C, N = stack.shape
     dev = stack.device
     _check_vector("gamma", gamma, C, dev)
+    if (stack2 is None) != (gamma2 is None):
+        raise ValueError("fed_agg: stack2 and gamma2 come together")
+    C2 = 0
+    if stack2 is not None:
+        _check_stack("stack2", stack2)
+        C2 = stack2.shape[0]
+        if stack2.shape[1] != N:
+            raise ValueError(f"fed_agg: stack2 has {stack2.shape[1]} "
+                             f"columns, stack {N}")
+        if stack2.device != dev:
+            raise ValueError(f"fed_agg: stack2 is on {stack2.device}, the "
+                             f"stack on {dev}")
+        _check_vector("gamma2", gamma2, C2, dev)
     if base is not None:
         _check_vector("base", base, N, dev)
     if out is not None:
         _check_vector("out", out, N, dev)
-        for name, t in (("stack", stack), ("gamma", gamma)):
-            if t.numel() and _overlaps(out, t):
+        for name, t in (("stack", stack), ("gamma", gamma),
+                        ("stack2", stack2), ("gamma2", gamma2)):
+            if t is not None and t.numel() and _overlaps(out, t):
                 raise ValueError(f"fed_agg: out overlaps {name}")
         if (base is not None and _overlaps(out, base)
                 and out.data_ptr() != base.data_ptr()):
@@ -75,7 +99,7 @@ def fed_agg(stack: torch.Tensor, gamma: torch.Tensor,
     if base is None:
         base_weight = 0.0
     if dev.type == "cpu":
-        res = fed_agg_ref(stack, gamma, base, base_weight)
+        res = fed_agg_ref(stack, gamma, base, base_weight, stack2, gamma2)
         return res if out is None else out.copy_(res)
     if dev.type != "cuda":
         raise ValueError(f"fed_agg: no kernel for device {dev}")
@@ -84,9 +108,11 @@ def fed_agg(stack: torch.Tensor, gamma: torch.Tensor,
         out = torch.empty(N, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.fed_agg_launch(
-            stack.data_ptr(), gamma.data_ptr(),
+            stack.data_ptr(), gamma.data_ptr(), C,
+            None if C2 == 0 else stack2.data_ptr(),
+            None if C2 == 0 else gamma2.data_ptr(), C2,
             None if base is None else base.data_ptr(),
-            float(base_weight), out.data_ptr(), C, N,
+            float(base_weight), out.data_ptr(), N,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise kernels.launch_error(lib, "fed_agg", rc)

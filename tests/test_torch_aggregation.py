@@ -96,6 +96,57 @@ def test_fed_agg_plain_matches_pallas(C, N, base_weight):
     np.testing.assert_allclose(b.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("C2", [0, 1, 4])
+@pytest.mark.parametrize("C,N", [(7, 10_000), (16, 2050), (1, 1001)])
+def test_fed_agg_two_segments_match_two_pallas_passes(C, N, C2):
+    """Bank and carry in one call against the JAX package's epoch step: a
+    bank pass folding in the base, then a carry pass onto its output."""
+    rng = np.random.default_rng(C * 100 + C2)
+    stack = rng.standard_normal((C, N)).astype(np.float32)
+    gamma = (rng.uniform(0, 1, C) / C).astype(np.float32)
+    stack2 = rng.standard_normal((C2, N)).astype(np.float32)
+    gamma2 = (rng.uniform(0, 1, C2) / 4).astype(np.float32)
+    base = rng.standard_normal(N).astype(np.float32)
+    want = jfed.fed_agg(jnp.asarray(stack), jnp.asarray(gamma),
+                        jnp.asarray(base), 0.35)
+    if C2:
+        want = jfed.fed_agg(jnp.asarray(stack2), jnp.asarray(gamma2), want,
+                            1.0)
+    want = np.asarray(want)
+    seg2 = dict(stack2=torch.from_numpy(stack2),
+                gamma2=torch.from_numpy(gamma2))
+    got = fed_agg(torch.from_numpy(stack), torch.from_numpy(gamma),
+                  torch.from_numpy(base), 0.35, **seg2)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # in place onto base, as the epoch step calls it
+    b = torch.from_numpy(base.copy())
+    out = fed_agg(torch.from_numpy(stack), torch.from_numpy(gamma), b, 0.35,
+                  out=b, **seg2)
+    assert out.data_ptr() == b.data_ptr()
+    np.testing.assert_allclose(b.numpy(), want, **TOL)
+
+
+def test_fed_agg_second_segment_checks():
+    rng = np.random.default_rng(1)
+    stack = torch.from_numpy(rng.standard_normal((3, 1001)).astype(np.float32))
+    g = torch.tensor([0.2, 0.3, 0.5])
+    carry = torch.from_numpy(rng.standard_normal((4, 1001)).astype(np.float32))
+    g2 = torch.full((4,), 0.1)
+    with pytest.raises(ValueError):
+        fed_agg(stack, g, out=carry[1], stack2=carry, gamma2=g2)  # overlaps
+    with pytest.raises(ValueError):
+        fed_agg(stack, g, out=g2.new_zeros(1001), stack2=carry,
+                gamma2=g2[:3])                                  # wrong C2
+    with pytest.raises(ValueError):
+        fed_agg(stack, g, stack2=carry)                         # no gamma2
+    with pytest.raises(ValueError):
+        fed_agg(stack, g, stack2=carry[:, :1000].contiguous(), gamma2=g2)
+    with pytest.raises(ValueError):
+        fed_agg(stack, g, stack2=carry[:, ::2], gamma2=g2)      # strided
+    two = fed_agg(stack, g, stack2=carry, gamma2=g2)
+    assert torch.allclose(two, g @ stack + g2 @ carry, atol=1e-6)
+
+
 def test_fed_agg_edge_cases_and_checks():
     rng = np.random.default_rng(0)
     base = torch.from_numpy(rng.standard_normal(1001).astype(np.float32))
@@ -127,6 +178,27 @@ def _bank_pair(rng, C, shapes):
                                    for k, v in model.items()}),
                       torch.from_numpy(rows))
     return jbank, tbank
+
+
+@pytest.mark.parametrize("live", [1, 2, 3])
+@pytest.mark.parametrize("base_weight", [0.0, 0.6])
+def test_combine_stacked_terms_equal(live, base_weight):
+    """One, two (one fed_agg call) and three live terms (a second call
+    onto the first's output) against the JAX package's combiner."""
+    rng = np.random.default_rng(live)
+    n = 2050
+    stacks = [rng.standard_normal((c, n)).astype(np.float32)
+              for c in (6, 4, 3)[:live]]
+    ws = [rng.uniform(0, 1, s.shape[0]).astype(np.float32) / 8
+          for s in stacks]
+    base = rng.standard_normal(n).astype(np.float32)
+    want = jagg.combine_stacked(
+        [(jnp.asarray(s), w) for s, w in zip(stacks, ws)],
+        jnp.asarray(base), base_weight)
+    got = tagg.combine_stacked(
+        [(torch.from_numpy(s), w) for s, w in zip(stacks, ws)],
+        torch.from_numpy(base), base_weight)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("base_weight", [0.0, 0.6])

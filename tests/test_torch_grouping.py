@@ -131,7 +131,8 @@ def test_segment_inputs_equal():
         tgrp.segment_weight_matrix(new, orbit_indices, rows, sizes, totals, 4))
 
 
-@pytest.mark.parametrize("M,N", [(2, 50), (5, 9000), (8, 4096), (3, 4097)])
+@pytest.mark.parametrize("M,N", [(2, 50), (5, 9000), (8, 4096), (3, 4097),
+                                 (66, 300), (130, 4097)])
 def test_pairwise_dist_plain_matches_pallas(M, N):
     x = np.random.default_rng(N).standard_normal((M, N)).astype(np.float32)
     want = np.asarray(jpd.pairwise_dist(jnp.asarray(x), squared=True))
@@ -153,10 +154,38 @@ def test_dist_to_ref_equal(M):
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
+@pytest.mark.parametrize("M", [0, 1, 8, 65])
+def test_pairwise_dist_leading_row_matches_pallas(M):
+    """``ref`` as row 0 beside the stack: the JAX package's kernel over the
+    concatenation (what ``dist_to_ref`` runs there)."""
+    rng = np.random.default_rng(100 + M)
+    ref = rng.standard_normal(1000).astype(np.float32)
+    x = (ref[None] + rng.standard_normal((M, 1000))).astype(np.float32)
+    cat = np.concatenate([ref[None], x])
+    want = np.asarray(jpd.pairwise_dist(jnp.asarray(cat), squared=True))
+    got = pairwise_dist_sq(torch.from_numpy(x),
+                           ref=torch.from_numpy(ref)).numpy()
+    assert got.shape == (M + 1, M + 1)
+    scale = max(float(want.max()), 1.0)
+    np.testing.assert_allclose(got / scale, want / scale, atol=1e-5)
+
+
 def test_pairwise_dist_checks():
-    with pytest.raises(ValueError):
-        pairwise_dist_sq(torch.zeros((66, 10)))       # above the kernel's M
+    # 66 rows: above the largest stack dist_to_ref gives the kernel, and
+    # taken like any other M (the JAX package's kernel takes any M)
+    x = np.random.default_rng(66).standard_normal((66, 10)).astype(np.float32)
+    want = np.asarray(jpd.pairwise_dist(jnp.asarray(x), squared=True))
+    got = pairwise_dist_sq(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got / max(float(want.max()), 1.0),
+                               want / max(float(want.max()), 1.0), atol=1e-5)
     with pytest.raises(ValueError):
         pairwise_dist_sq(torch.zeros((3, 10), dtype=torch.float64))
     with pytest.raises(ValueError):
         pairwise_dist_sq(torch.zeros((3, 10))[:, ::2])
+    with pytest.raises(ValueError):
+        pairwise_dist_sq(torch.zeros((0, 10)))            # no rows
+    with pytest.raises(ValueError):
+        pairwise_dist_sq(torch.zeros((3, 10)), ref=torch.zeros(9))
+    with pytest.raises(ValueError):
+        pairwise_dist_sq(torch.zeros((3, 10)),
+                         ref=torch.zeros(10, dtype=torch.float64))
