@@ -115,15 +115,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      bf16 over B 4 x 2048 frames, which must launch ``flash_attention``
      exactly 48 times and the other kernels never, and give finite
      logits;
- 16. one JSON line of per-kernel numbers.
+ 16. the event-driven path: ``repro_torch.fl_constellation_sim.main`` with
+     ``--event-driven``, the README quickstart (asyncfleo-pipelined, 3
+     rounds in flight, MNIST_CNN at full width, S = 40, 2 epochs, IID),
+     then the same scheme with ``ps_channels=1`` through ``FLSimulation``
+     with ``SimConfig(event_driven=True)``.  Each run must record 2
+     epochs of finite accuracy, launch ``fed_agg`` once per epoch step
+     (more on a fallback step, as phase 4), and give the host-side history
+     of a CPU run of the port on the same inputs; the quickstart must
+     hold at least 2 rounds in flight.  Wall time (cold, then warm),
+     events popped, rounds opened, the host segments and the card's busy
+     share of one profiled warm run;
+ 17. one JSON line of per-kernel numbers.
 
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository beside it, it exits non-zero and prints no result.  A run
-takes 7 to 9 minutes on an H100.
+takes 8 to 10 minutes on an H100.
 ``--report PATH`` also writes every number of the run there as JSON.
 """
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -537,6 +549,9 @@ def main() -> None:
     cpu_hist = run_schemes(["asyncfleo-hap"], cpu, epochs=3)[
         "asyncfleo-hap"][1]
     cpu_s = time.perf_counter() - t0
+    if len(cpu_hist) != len(hist):
+        fail(f"{label}: the CPU run recorded {len(cpu_hist)} epochs, the "
+             f"card's {len(hist)}")
     for a, b in zip(hist, cpu_hist):
         ka = (a.epoch, a.time_s, a.num_models, a.gamma, a.stale_groups)
         kb = (b.epoch, b.time_s, b.num_models, b.gamma, b.stale_groups)
@@ -673,7 +688,11 @@ def main() -> None:
     hubert_path(torch, dev, report,
                 others=(fed_agg, pairwise_dist_sq, chunk_scan))
 
-    # ---- 16. the kernel line ----------------------------------------------
+    # ---- 16. the event-driven path ---------------------------------------
+    event_path(torch, report,
+               others=(pairwise_dist_sq, flash_attention, chunk_scan))
+
+    # ---- 17. the kernel line ----------------------------------------------
     fb, pg = timings["eq14_bank_carry"], timings["pairwise_dist_grouping"]
     kernel_line = {"kernels": [
         dict(name="fed_agg", route="cuda",
@@ -987,6 +1006,156 @@ def check_build(kernels, logs) -> dict:
         fail("the chunk_scan library's SASS holds no TF32 HMMA")
     report["chunk_scan_sass"] = dict(hmma=len(hmma), tf32=tf32)
     return report
+
+
+EVENT_SCHEME = "asyncfleo-pipelined"
+
+
+def pipelined_run(work, ps_channels=None):
+    """``EVENT_SCHEME`` through ``FLSimulation`` with
+    ``SimConfig(event_driven=True)``, 2 epochs over 3 days, from
+    ``work.w0``; ``ps_channels`` sets the PS channels.  Returns (the
+    simulation, its history)."""
+    from repro_torch.core.simulator import FLSimulation, SimConfig
+    from repro_torch.fl.strategies import get_strategy
+    spec = get_strategy(EVENT_SCHEME)
+    if ps_channels is not None:
+        spec = dataclasses.replace(spec, ps_channels=ps_channels)
+    sim = FLSimulation(spec, work.pool, work.evaluator,
+                       SimConfig(duration_s=3 * 86400.0, event_driven=True))
+    return sim, sim.run(work.w0, max_epochs=2)
+
+
+def step_counts(sim):
+    """(one-step epochs, fallback epochs) the simulation's trainer has run
+    so far, over its cached epoch programs."""
+    progs = sim.trainer._epoch_programs.values()
+    return (sum(p.dispatches for p in progs),
+            sum(p.fallback_dispatches for p in progs))
+
+
+def check_event_run(label, sim, hist, launches, steps, cpu_hist) -> dict:
+    """Phase 16's checks of one event-driven run on the card: 2 finite
+    records, ``fed_agg`` once per epoch step (more on a fallback step), the
+    CPU run's host history.  Returns the run's numbers."""
+    one, fallback = steps
+    rt = sim.runtime
+    popped = sum(rt.events.counts.values()) - len(rt.events)
+    stats = dict(rt.stats)
+    print(f"{label}: {len(hist)} epochs, {one + fallback} epoch steps "
+          f"({fallback} fallback), fed_agg launches {launches}, events "
+          f"popped {popped} ({rt.events.counts}), rounds opened "
+          f"{stats['rounds_opened']}, max in flight "
+          f"{stats['max_rounds_in_flight']}, segments "
+          f"{ {k: round(v, 3) for k, v in sim.segment_seconds.items()} }")
+    if len(hist) != 2:
+        fail(f"{label} recorded {len(hist)} epochs, not 2")
+    if not all(math.isfinite(r.accuracy) for r in hist):
+        fail(f"{label}: non-finite accuracy")
+    if launches < one + fallback or (fallback == 0 and launches != one):
+        fail(f"{label}: fed_agg launched {launches} times for "
+             f"{one + fallback} epoch steps")
+    if len(cpu_hist) != len(hist):
+        fail(f"{label}: the CPU run recorded {len(cpu_hist)} epochs, the "
+             f"card's {len(hist)}")
+    for a, b in zip(hist, cpu_hist):
+        ka = (a.epoch, a.time_s, a.num_models, a.gamma, a.stale_groups)
+        kb = (b.epoch, b.time_s, b.num_models, b.gamma, b.stale_groups)
+        if ka != kb:
+            fail(f"{label}: card and CPU histories differ: {ka} vs {kb}")
+    for a, b in zip(hist, cpu_hist):
+        print(f"  epoch {a.epoch}: t={a.time_s / 3600:.3f} h "
+              f"acc={a.accuracy:.4f} (CPU {b.accuracy:.4f}) "
+              f"models={a.num_models} gamma={a.gamma:.3f} "
+              f"stale_groups={a.stale_groups}")
+    return dict(fed_agg_launches=launches, epoch_steps=one,
+                fallback_steps=fallback, events_popped=popped,
+                event_counts=dict(rt.events.counts), stats=stats,
+                contention=rt.contention_stats(),
+                segments_s=dict(sim.segment_seconds),
+                history=[vars(r) for r in hist],
+                history_cpu=[vars(r) for r in cpu_hist])
+
+
+def event_path(torch, report, *, others) -> None:
+    """Phase 16: the README quickstart on the event-driven runtime, at
+    full width on the card, then with one PS channel; each run against a
+    CPU run of the port, then warm walls and one profiled run."""
+    from repro_torch.fl_constellation_sim import (build_workload, main as
+                                                  sim_main)
+    from repro_torch.kernels.fed_agg import fed_agg
+    phase(f"phase 16: event-driven path — repro_torch.fl_constellation_sim."
+          f"main --event-driven, {EVENT_SCHEME}, MNIST_CNN, S=40, J=30, "
+          f"b=32, 2 epochs, IID; then ps_channels=1")
+    argv = ["--schemes", EVENT_SCHEME, "--epochs", "2", "--iid",
+            "--event-driven", "--device", "cuda"]
+    for w in (fed_agg,) + tuple(others):
+        w.launches = 0
+    t0 = time.perf_counter()
+    sim, hist = sim_main(argv)[EVENT_SCHEME]
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = fed_agg.launches
+    other = {w.__name__: w.launches for w in others}
+    steps = step_counts(sim)
+    work = sim_workload(sim)
+
+    t0 = time.perf_counter()
+    cpu = build_workload(iid=True, device="cpu")
+    cpu_runs = {ch: pipelined_run(cpu, ch)[1] for ch in (None, 1)}
+    cpu_s = time.perf_counter() - t0
+
+    out = {"wall_s_first": cold, "cpu_s": cpu_s, "other_launches": other}
+    out["quickstart"] = check_event_run("quickstart", sim, hist, launches,
+                                        steps, cpu_runs[None])
+    rounds = out["quickstart"]["stats"]["max_rounds_in_flight"]
+    if rounds < 2:
+        fail(f"the quickstart held {rounds} round(s) in flight, not 2 or "
+             "more")
+    if any(other.values()):
+        fail(f"the event path launched other kernels: {other}")
+
+    before = step_counts(sim)
+    fed_agg.launches = 0
+    sim1, hist1 = pipelined_run(work, ps_channels=1)
+    torch.cuda.synchronize()
+    after = step_counts(sim1)
+    out["ps_channels_1"] = check_event_run(
+        "ps_channels=1", sim1, hist1, fed_agg.launches,
+        (after[0] - before[0], after[1] - before[1]), cpu_runs[1])
+    print(f"  contention: {out['ps_channels_1']['contention']}")
+
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pipelined_run(work)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipelined_run(work)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    busy_ms, n_kernels, top = top_device_ops(prof)
+    wall_ms = min(warm) * 1e3
+    share = busy_ms / wall_ms if busy_ms else float("nan")
+    per_step = launches / max(1, sum(steps))
+    print(f"event path: cold {cold:.2f} s (workload build included), warm "
+          f"{warm} s; fed_agg {launches} launches for {sum(steps)} epoch "
+          f"steps ({per_step:g} a commit); device busy {busy_ms:.1f} ms "
+          f"over {n_kernels} device operations; warm wall {wall_ms:.1f} ms "
+          f"unprofiled ({wall_prof * 1e3:.1f} ms profiled); busy share "
+          f"{share:.3f}" + ("" if busy_ms else " — the profiler showed no "
+                            "device time: not measured")
+          + f"; CPU runs {cpu_s:.1f} s")
+    for t in top:
+        print(f"  {t['ms']:9.3f} ms x{t['count']:<6d} {t['name']}")
+    out.update(warm_wall_s=warm, busy_ms=busy_ms, kernel_launches=n_kernels,
+               wall_ms=wall_ms, wall_ms_profiled=wall_prof * 1e3,
+               busy_share=share, fed_agg_per_commit=per_step, top=top)
+    report["event_path"] = out
 
 
 def results_w0(sim):

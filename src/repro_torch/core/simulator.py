@@ -26,10 +26,15 @@ The output is a history of (sim_time_s, epoch, accuracy, ...) rows, from
 which convergence time (time to reach a target accuracy) is read — the
 paper's Table II / Fig. 6 quantities.
 
+``SimConfig.event_driven`` hands the run to the event-driven runtime
+(`sched/runtime.py`), which drives the same fused commit under trigger
+policies, with pipelined rounds and, with ``StrategySpec.ps_channels``,
+finite per-PS link capacity.
+
 What the JAX package's simulator has beyond this (the stacked and legacy
-paths, the event-driven runtime, faults, tracing, profiling, scenario
-batching, a device mesh, sparse visibility, finite PS channels) raises
-``NotImplementedError`` naming the slice of the port that brings it.
+paths, faults, profiling, scenario batching, a device mesh, sparse
+visibility) raises ``NotImplementedError`` naming the slice of the port
+that brings it.
 """
 from __future__ import annotations
 
@@ -55,7 +60,6 @@ from repro_torch.core.propagation import PropagationModel
 from repro_torch.core.topology import RingOfStars
 from repro_torch.core.visibility import VisibilityTimeline
 from repro_torch.fl.strategies import StrategySpec
-from repro_torch.sched.contacts import ContactPlan
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -81,15 +85,15 @@ class SimConfig:
     use_model_bank: bool = True        # False: the legacy path (not ported)
     use_fused_step: bool = True        # False: the stacked path (not ported)
     mesh: Optional[object] = None      # a device mesh (not ported)
-    event_driven: bool = False         # the event runtime (not ported)
+    event_driven: bool = False         # run() delegates to sched.runtime
     fault_model: Optional[object] = None   # sched/faults (not ported)
-    tracer: Optional[object] = None        # obs/trace (not ported)
+    tracer: Optional[object] = None        # obs/trace.Tracer (event runtime)
     profiler: Optional[object] = None      # obs/profile (not ported)
     dispatcher: Optional[object] = None    # sweep/batch (not ported)
     visibility: str = "dense"          # "sparse" is not ported
 
 
-def _check_ported(sim: SimConfig, spec: StrategySpec) -> None:
+def _check_ported(sim: SimConfig) -> None:
     if not sim.use_model_bank:
         raise _not_ported("the legacy (host pytree) simulator path",
                           "8b (stacked and legacy simulator paths)")
@@ -98,12 +102,6 @@ def _check_ported(sim: SimConfig, spec: StrategySpec) -> None:
                           "8b (stacked and legacy simulator paths)")
     if sim.mesh is not None:
         raise _not_ported("SimConfig.mesh", "15 (mesh- and pod-shaped code)")
-    if sim.event_driven:
-        raise _not_ported("SimConfig.event_driven",
-                          "9 (the event-driven scheduler)")
-    if sim.tracer is not None:
-        raise _not_ported("SimConfig.tracer", "9 (the event-driven "
-                          "scheduler, with obs/trace)")
     if sim.fault_model is not None:
         raise _not_ported("SimConfig.fault_model",
                           "10 (faults and sparse contacts)")
@@ -117,10 +115,6 @@ def _check_ported(sim: SimConfig, spec: StrategySpec) -> None:
                           "11 (observability, obs/profile)")
     if sim.dispatcher is not None:
         raise _not_ported("SimConfig.dispatcher", "12 (the sweep engine)")
-    if spec.ps_channels is not None:
-        raise _not_ported("StrategySpec.ps_channels (finite PS link "
-                          "capacity)", "9 (the event-driven scheduler, with "
-                          "ChannelPool/ContentionModel)")
 
 
 @dataclasses.dataclass
@@ -154,7 +148,7 @@ def split_min_models(arrivals, t_agg: float, min_models: int):
 class FLSimulation:
     def __init__(self, spec: StrategySpec, trainer, evaluator,
                  sim: SimConfig, constellation: Optional[WalkerDelta] = None):
-        _check_ported(sim, spec)
+        _check_ported(sim)
         if not (hasattr(trainer, "epoch_train_fn")
                 and hasattr(trainer, "epoch_inputs")):
             raise _not_ported("a trainer without the fused-epoch protocol "
@@ -171,10 +165,19 @@ class FLSimulation:
         self.topo = RingOfStars(self.constellation, self.nodes, self.timeline)
         self.prop = PropagationModel(self.topo, sim.link or LinkModel())
         # the compiled contact plan owns the downlink/uplink timing rules
-        # (including the use_isl switch)
+        # (including the use_isl switch) and is shared with the
+        # event-driven runtime; lazy import keeps core <-> sched acyclic
+        from repro_torch.sched.contacts import ContactPlan, ContentionModel
         self.plan = ContactPlan(self.constellation, self.nodes,
                                 self.timeline, self.topo, self.prop,
                                 use_isl=spec.use_isl)
+        if spec.ps_channels is not None:
+            # finite per-PS link capacity (DESIGN.md §9): every sat<->PS
+            # model transfer serializes over spec.ps_channels parallel
+            # channels; None keeps infinite parallelism with NO contention
+            # state at all (the parity default)
+            self.plan.contention = ContentionModel(len(self.nodes),
+                                                   int(spec.ps_channels))
         self.grouping = GroupingState(num_groups=spec.num_groups)
         self.orbit_ids = self.constellation.orbit_ids()
         self.last_epoch_included: Dict[int, int] = {}
@@ -189,6 +192,9 @@ class FLSimulation:
         # grouping read so the next epoch's host timing overlaps the
         # device stream instead of draining it
         self._dist_pending = None
+        # the event-driven runtime of the last event-driven run (its
+        # stats, its tracer); None until then
+        self.runtime = None
         # wall-time attribution per host-side section
         self.segment_seconds: Dict[str, float] = {
             k: 0.0 for k in ("timing", "step", "agg", "group", "carry",
@@ -321,12 +327,28 @@ class FLSimulation:
                                   used, late)
 
     def _fused_commit(self, prog, beta, ids_np, participants, t_agg, used,
-                      late):
+                      late, train_epoch: Optional[int] = None):
         """Post-trigger tail of a fused epoch: metas/carry bookkeeping,
         grouping metadata, weight vectors, the one step call, and the
         straggler carry-over.  ``used``/``late`` are (t_arr, sat, bank row)
-        triples split at ``t_agg``."""
+        triples split at ``t_agg`` — by `_trigger` on the epoch loop, by a
+        trigger policy in the event runtime (`sched/runtime.py`).
+
+        ``train_epoch`` names the round the commit belongs to: the global
+        epoch counter when the round's downlink left the source (defaults
+        to ``beta``, the epoch-loop case where rounds never overlap).
+        With the pipelined runtime (DESIGN.md §8) a round may commit
+        after later-opened rounds advanced ``beta``; its models — used
+        AND late-carried — are stamped with ``train_epoch``, so eq. 13's
+        staleness discount and Alg. 2's fresh/stale selection see the
+        model version the round actually started from."""
         sim, spec = self.sim, self.spec
+        if train_epoch is None:
+            train_epoch = beta
+        # the minibatch seed stays keyed on the commit-time counter:
+        # commits are serialized so beta is unique per training step,
+        # while two overlapping pipelined rounds can share a train_epoch
+        # (and must NOT draw identical minibatch streams)
         seed = sim.seed * 1000 + beta
         self._spec = prog.spec
         N = prog.spec.num_params
@@ -334,7 +356,7 @@ class FLSimulation:
         c_idx, k_idx = self._carried_split(t_agg)
 
         metas = [SatelliteMeta(s, self.trainer.data_size(s),
-                               loc=(0.0, 0.0), ts=ta, epoch=beta)
+                               loc=(0.0, 0.0), ts=ta, epoch=train_epoch)
                  for (ta, s, _k) in used]
         metas += [SatelliteMeta(s, self.trainer.data_size(s),
                                 loc=(0.0, 0.0), ts=ta, epoch=ep)
@@ -470,7 +492,8 @@ class FLSimulation:
                 late_dev = gather_rows(stack, [k for (_, _, k) in late])
                 kept_dev = (late_dev if kept_dev is None
                             else torch.cat([kept_dev, late_dev]))
-                kept_meta += [(ta, s, beta) for (ta, s, _k) in late]
+                kept_meta += [(ta, s, train_epoch)
+                              for (ta, s, _k) in late]
             self._pend_dev, self._pend_meta = kept_dev, kept_meta
 
         self._w_flat = new_w
@@ -514,9 +537,12 @@ class FLSimulation:
     # ------------------------------------------------------------------
 
     def _init_run(self, w0):
-        """Run-state reset.  Returns (model bits, the epoch program)."""
+        """Run-state reset, shared by the epoch loop and the event-driven
+        runtime.  Returns (model bits, the epoch program)."""
         bits = model_bits(w0)
         self.grouping.set_reference(w0)
+        if self.plan.contention is not None:
+            self.plan.contention.reset()   # channel pools are per-run state
         prog = make_epoch_program(self.trainer, w0)
         self._spec = prog.spec
         self._w_flat = self._spec.flatten(w0)      # a new tensor, never w0
@@ -544,8 +570,14 @@ class FLSimulation:
     def run(self, w0: Dict[str, torch.Tensor], max_epochs: int = 30,
             target_accuracy: Optional[float] = None) -> List[EpochRecord]:
         """Run the epoch loop from the global model ``w0`` (a parameter
-        dict; the device of its tensors is the device of the run)."""
+        dict; the device of its tensors is the device of the run), or,
+        with ``SimConfig.event_driven``, the event-driven runtime."""
         sim, spec = self.sim, self.spec
+        if sim.event_driven:
+            from repro_torch.sched.runtime import EventDrivenRuntime
+            self.runtime = EventDrivenRuntime(self)
+            return self.runtime.run(w0, max_epochs,
+                                    target_accuracy=target_accuracy)
         bits, prog = self._init_run(w0)
         w_tree = w0                       # parameter view for the evaluator
         t = 0.0

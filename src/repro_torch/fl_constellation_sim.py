@@ -1,5 +1,4 @@
-"""Strategy comparison on the PyTorch port (paper Table II / Fig. 6):
-the epoch loop.
+"""Strategy comparison on the PyTorch port (paper Table II / Fig. 6).
 
     PYTHONPATH=src python -m repro_torch.fl_constellation_sim \\
         --schemes asyncfleo-hap fedhap --epochs 8 --iid --device cuda
@@ -7,8 +6,23 @@ the epoch loop.
 Runs the simulation for each scheme on the same synthetic data and prints
 accuracy-vs-simulated-time CSV curves, as ``examples/fl_constellation_sim.py``
 does for the JAX package.  The model is ``MNIST_CNN`` at its full width
-(16/32 conv channels, hidden 128: 206,922 parameters).  The event-driven
-scheduler (``--event-driven`` there) comes with the port's next slice.
+(16/32 conv channels, hidden 128: 206,922 parameters).
+
+``--event-driven`` swaps the epoch loop for the event-driven async
+scheduler (`repro_torch.sched`): each scheme runs under its trigger policy
+(AsyncFLEO idle window / sync barrier / FedAsync per-arrival, DESIGN.md
+§7), and the compiled contact plan's window statistics are printed with
+the curves.  ``--max-in-flight N`` (N > 1, implies ``--event-driven``)
+pipelines every scheme's rounds; ``asyncfleo-pipelined`` ships with depth
+3 and the contact-plan handoff:
+
+    PYTHONPATH=src python -m repro_torch.fl_constellation_sim \\
+        --schemes asyncfleo-pipelined --epochs 2 --iid --event-driven
+
+``--staleness-fn`` swaps eq. 13's staleness discount for a FedAsync-family
+alternative.  The example's fault flags (``--dropout``,
+``--compute-spread``, ``--eclipse-fraction``) come with ROADMAP queue A
+item 10 and are refused until then.
 """
 from __future__ import annotations
 
@@ -61,13 +75,23 @@ def build_workload(*, iid: bool, device="cuda",
 
 
 def run_schemes(schemes: Sequence[str], work: Workload, *, epochs: int,
-                days: float = 3.0) -> Dict[str, tuple]:
-    """Run each scheme's epoch loop from ``work.w0``.  Returns
-    {scheme: (FLSimulation, history)}."""
+                days: float = 3.0, event_driven: bool = False,
+                max_in_flight: int = 0,
+                staleness_fn: str = "eq13") -> Dict[str, tuple]:
+    """Run each scheme from ``work.w0``: the epoch loop, or the
+    event-driven runtime.  ``max_in_flight`` > 0 overrides every scheme's
+    pipeline depth; ``staleness_fn`` every scheme's eq. 13 discount.
+    Returns {scheme: (FLSimulation, history)}."""
     out = {}
     for name in schemes:
-        sim = FLSimulation(get_strategy(name), work.pool, work.evaluator,
-                           SimConfig(duration_s=days * 86400.0))
+        spec = get_strategy(name)
+        if max_in_flight:
+            spec = dataclasses.replace(spec, max_in_flight=max_in_flight)
+        if staleness_fn != "eq13":
+            spec = dataclasses.replace(spec, staleness_fn=staleness_fn)
+        sim = FLSimulation(spec, work.pool, work.evaluator,
+                           SimConfig(duration_s=days * 86400.0,
+                                     event_driven=event_driven))
         out[name] = (sim, sim.run(work.w0, max_epochs=epochs))
     return out
 
@@ -75,7 +99,12 @@ def run_schemes(schemes: Sequence[str], work: Workload, *, epochs: int,
 def _print_curves(results: Dict[str, tuple], target: float) -> None:
     print("scheme,epoch,sim_time_h,accuracy,num_models,gamma")
     summary = []
-    for name, (_sim, hist) in results.items():
+    for name, (sim, hist) in results.items():
+        if sim.sim.event_driven:
+            s = sim.plan.summary()
+            print(f"# {name}: contact plan — {s['num_windows']} windows, "
+                  f"coverage {s['coverage_fraction']:.3f}, "
+                  f"mean window {s['mean_window_s']:.0f}s")
         for r in hist:
             print(f"{name},{r.epoch},{r.time_s/3600:.3f},{r.accuracy:.4f},"
                   f"{r.num_models},{r.gamma:.3f}")
@@ -98,16 +127,35 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, tuple]:
     ap.add_argument("--days", type=float, default=3.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--event-driven", action="store_true",
-                    help="not ported yet: the event-driven scheduler comes "
-                         "with the next slice of the port")
+                    help="drive each scheme with the async event scheduler "
+                         "(contact plan + trigger policies) instead of the "
+                         "epoch loop")
+    ap.add_argument("--max-in-flight", type=int, default=0,
+                    help="override every scheme's pipeline depth (rounds "
+                         "in flight, DESIGN.md §8); 0 keeps each "
+                         "strategy's own setting, >1 implies "
+                         "--event-driven")
+    ap.add_argument("--staleness-fn", default="eq13",
+                    choices=["eq13", "constant", "hinge", "poly"],
+                    help="staleness discount: the paper's eq. 13 or a "
+                         "FedAsync-family alternative")
+    for flag in ("--dropout", "--compute-spread", "--eclipse-fraction"):
+        ap.add_argument(flag, type=float, default=0.0,
+                        help="not ported yet: faults come with ROADMAP "
+                             "queue A item 10")
     args = ap.parse_args(argv)
-    if args.event_driven:
-        ap.error("--event-driven is not ported yet: the event-driven "
-                 "scheduler comes with ROADMAP queue A item 9, the next "
-                 "slice of the PyTorch port")
+    for flag in ("dropout", "compute_spread", "eclipse_fraction"):
+        if getattr(args, flag):
+            ap.error(f"--{flag.replace('_', '-')} is not ported yet: the "
+                     "fault model comes with ROADMAP queue A item 10 of "
+                     "the PyTorch port")
+    if args.max_in_flight > 1:
+        args.event_driven = True
     work = build_workload(iid=args.iid, device=args.device)
     results = run_schemes(args.schemes, work, epochs=args.epochs,
-                          days=args.days)
+                          days=args.days, event_driven=args.event_driven,
+                          max_in_flight=args.max_in_flight,
+                          staleness_fn=args.staleness_fn)
     _print_curves(results, args.target)
     return results
 

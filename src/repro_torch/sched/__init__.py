@@ -1,2 +1,28 @@
-"""Contact plans (the ported part of ``repro.sched``; the event-driven
-scheduler comes with the next slice)."""
+"""Event-driven async FL scheduling (DESIGN.md §7-§9), as the JAX
+package's ``repro.sched``: contact plans compiled from orbital geometry,
+a priority-queue runtime that pipelines up to
+``StrategySpec.max_in_flight`` overlapping rounds over the fused epoch
+step, pluggable trigger policies (AsyncFLEO / sync barrier / FedAsync,
+with optional per-divergence-group deadlines), sink handoff policies
+(ring role swap / contact-plan next-contact), and finite per-PS link
+capacity (``ContentionModel``: ``StrategySpec.ps_channels`` parallel
+tx/rx channels per PS, FIFO grants, cross-round serialization).
+
+The reference's fault layer (``FaultModel``, ``OutageSchedule``,
+``EnergyState`` and the runtime's §10/§11 branches) comes with ROADMAP
+queue A item 10."""
+from repro_torch.sched.contacts import (ChannelPool, ContactPlan,
+                                        ContactWindow, ContentionModel)
+from repro_torch.sched.events import Event, EventKind, EventQueue
+from repro_torch.sched.policies import (AsyncFLEOPolicy, FedAsyncPolicy,
+                                        HANDOFF_POLICIES, NextContactHandoff,
+                                        POLICIES, RingHandoff,
+                                        SyncBarrierPolicy,
+                                        make_handoff_policy, make_policy)
+from repro_torch.sched.runtime import EventDrivenRuntime, RoundState
+
+__all__ = ["ChannelPool", "ContactPlan", "ContactWindow", "ContentionModel",
+           "Event", "EventKind", "EventQueue", "AsyncFLEOPolicy",
+           "SyncBarrierPolicy", "FedAsyncPolicy", "POLICIES", "make_policy",
+           "RingHandoff", "NextContactHandoff", "HANDOFF_POLICIES",
+           "make_handoff_policy", "EventDrivenRuntime", "RoundState"]

@@ -30,16 +30,21 @@ the plan instead of re-deriving geometry.
 event-driven runtime schedules its wake-ups from the same object — one
 compiled view of "who can talk to whom, when, at what delay".
 
-**Link capacity** (DESIGN.md §9): the JAX package's ``ContentionModel``
-(per-PS channel pools) comes to the port with the scheduler slice.  Until
-then ``contention`` stays None, which keeps the infinite-parallelism
-semantics bit-for-bit; the grant branches below are the reference's, kept
-so the two packages time transfers with one code shape.
+**Link capacity** (DESIGN.md §9): a plan may own a ``ContentionModel`` —
+per-PS transmit and receive pools of ``k`` parallel channels with FIFO
+grant-by-request-time queuing — in which case the timing evaluators
+charge every sat<->PS model transfer one channel grant, so concurrent
+transfers at the same PS serialize (including transfers from *different*
+in-flight rounds, since the pools persist across round opens).
+``contention=None`` (the default) keeps the historical
+infinite-parallelism semantics bit-for-bit.
 """
 from __future__ import annotations
 
+import bisect
+import copy
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -48,6 +53,190 @@ from repro_torch.core.links import LinkModel
 from repro_torch.core.propagation import PropagationModel
 from repro_torch.core.topology import RingOfStars
 from repro_torch.core.visibility import VisibilityTimeline
+from repro_torch.obs.metrics import Histogram
+
+
+class ChannelPool:
+    """Per-PS pool of ``channels`` parallel link channels (one direction).
+
+    ``grant(ps, t_req, duration)`` reserves one channel of ``ps`` for a
+    transfer that *wants* to start at ``t_req`` and occupies the channel
+    for ``duration`` seconds (the transmission time — propagation and
+    processing do not hold the channel).  Each channel keeps its sorted
+    busy intervals, and a grant takes the earliest feasible slot at or
+    after ``t_req`` across channels — *gaps between existing reservations
+    are usable* (a round's far-future straggler reservation must not lock
+    the idle hours before it), so an uncontended request always starts
+    exactly at ``t_req``.  FIFO: callers must request in ascending
+    ``t_req`` order within a batch (`ContentionModel.grant_*_many` sorts
+    for them).  Returns the granted start time.  ``channels=None`` models
+    infinite parallelism: every grant starts at its request time and only
+    telemetry is kept.
+    """
+
+    def __init__(self, num_ps: int, channels: Optional[int]):
+        assert channels is None or channels >= 1
+        self.channels = channels
+        # per-PS, per-channel sorted disjoint busy intervals [start, end)
+        self.res: List[List[List[Tuple[float, float]]]] = [
+            ([[] for _ in range(channels)] if channels is not None else [])
+            for _ in range(num_ps)]
+        self.grants = 0
+        self.queue_wait_s = 0.0
+        self.busy_s = [0.0] * num_ps
+        # per-grant FIFO queue-wait distribution (obs/metrics.py,
+        # DESIGN.md §12) — lives INSIDE the pool so ContentionModel's
+        # snapshot/restore deepcopy rolls rejected grants' observations
+        # back along with the reservations themselves
+        self.wait_hist = Histogram("queue_wait_s")
+
+    @staticmethod
+    def _earliest(iv: List[Tuple[float, float]], t_req: float,
+                  duration: float) -> float:
+        """Earliest start >= t_req with a free gap of ``duration`` on one
+        channel's sorted busy intervals."""
+        cand = t_req
+        for s, e in iv:
+            if e <= cand:
+                continue
+            if s >= cand + duration:
+                break                    # the gap before this slot fits
+            cand = e
+        return cand
+
+    @staticmethod
+    def _insert(iv: List[Tuple[float, float]], s: float, e: float) -> None:
+        i = bisect.bisect_left(iv, (s, e))
+        # reservations never overlap; merge with abutting neighbors so
+        # back-to-back serialized transfers keep the list compact
+        if i > 0 and iv[i - 1][1] >= s:
+            s = iv[i - 1][0]
+            e = max(e, iv[i - 1][1])
+            i -= 1
+            iv.pop(i)
+        if i < len(iv) and iv[i][0] <= e:
+            e = max(e, iv[i][1])
+            iv.pop(i)
+        iv.insert(i, (s, e))
+
+    def grant(self, ps: int, t_req: float, duration: float) -> float:
+        self.grants += 1
+        self.busy_s[ps] += duration
+        if self.channels is None or duration <= 0.0:
+            return t_req
+        best, best_c = None, 0
+        for c, iv in enumerate(self.res[ps]):
+            start = self._earliest(iv, t_req, duration)
+            if best is None or start < best:
+                best, best_c = start, c
+            if best == t_req:
+                break                    # can't start any earlier
+        self._insert(self.res[ps][best_c], best, best + duration)
+        self.queue_wait_s += best - t_req
+        self.wait_hist.observe(best - t_req)
+        return best
+
+    def backlog(self, ps: int, t: float) -> float:
+        """Total reserved channel-seconds still pending at ``ps`` after
+        ``t`` — the occupancy signal handoff policies tie-break on (and
+        the contention-aware trigger windows threshold on, §10)."""
+        return float(sum(max(0.0, e - max(s, t))
+                         for iv in self.res[ps] for (s, e) in iv))
+
+    def stats(self, horizon_s: float) -> Dict:
+        cap = self.channels if self.channels is not None else 1
+        denom = max(float(horizon_s) * cap, 1e-12)
+        return {"grants": self.grants,
+                "queue_wait_s": self.queue_wait_s,
+                "queue_wait_hist": self.wait_hist.summary(),
+                "busy_s": list(self.busy_s),
+                "utilization": [b / denom for b in self.busy_s]}
+
+
+class ContentionModel:
+    """Finite per-PS link capacity (DESIGN.md §9): one transmit and one
+    receive `ChannelPool` of ``channels`` parallel channels each.
+
+    The plan's timing evaluators charge one **tx** grant per global-model
+    copy a PS unicasts to a visible satellite (downlink) and one **rx**
+    grant per local model arriving at its first-receiving PS (uplink);
+    the PS<->PS ring is treated as dedicated point-to-point trunks and is
+    not charged.  Pools persist across rounds, so transfers from
+    different in-flight rounds serialize against each other — the
+    cross-round invariant `sched/runtime.py` relies on.  Grants within
+    one batch are FIFO by request time; batches are granted in event
+    (round-open) order, i.e. a round *reserves* its transfer slots when
+    it opens.  Later-opened rounds may still backfill idle gaps between
+    existing reservations (`ChannelPool` gap-fitting) but never displace
+    a reservation.
+
+    ``snapshot`` / ``restore`` let the runtime roll back the grants of a
+    round that was timed but never opened (aborted speculative opens).
+    """
+
+    def __init__(self, num_ps: int, channels: Optional[int]):
+        self.num_ps = num_ps
+        self.channels = channels
+        self.tx = ChannelPool(num_ps, channels)
+        self.rx = ChannelPool(num_ps, channels)
+
+    # ---- grants ------------------------------------------------------------
+
+    def grant_tx(self, ps: int, t_req: float, duration: float) -> float:
+        return self.tx.grant(int(ps), float(t_req), float(duration))
+
+    def grant_rx(self, ps: int, t_req: float, duration: float) -> float:
+        return self.rx.grant(int(ps), float(t_req), float(duration))
+
+    def _grant_many(self, pool: ChannelPool, ps_ids: Sequence[int],
+                    t_req: Sequence[float], duration: float) -> np.ndarray:
+        """FIFO batch grant: requests are granted in ascending request
+        time (ties: PS id, then input order); returns start times aligned
+        with the input order."""
+        ps_ids = np.asarray(ps_ids, dtype=np.int64)
+        t_req = np.asarray(t_req, dtype=np.float64)
+        starts = np.empty(len(ps_ids), np.float64)
+        order = sorted(range(len(ps_ids)),
+                       key=lambda j: (t_req[j], ps_ids[j], j))
+        for j in order:
+            starts[j] = pool.grant(int(ps_ids[j]), float(t_req[j]),
+                                   float(duration))
+        return starts
+
+    def grant_tx_many(self, ps_ids, t_req, duration: float) -> np.ndarray:
+        return self._grant_many(self.tx, ps_ids, t_req, duration)
+
+    def grant_rx_many(self, ps_ids, t_req, duration: float) -> np.ndarray:
+        return self._grant_many(self.rx, ps_ids, t_req, duration)
+
+    # ---- queries / lifecycle ------------------------------------------------
+
+    def backlog(self, kind: str, ps: int, t: float) -> float:
+        return (self.tx if kind == "tx" else self.rx).backlog(int(ps), t)
+
+    def reset(self) -> None:
+        self.tx = ChannelPool(self.num_ps, self.channels)
+        self.rx = ChannelPool(self.num_ps, self.channels)
+
+    def snapshot(self):
+        """Deep copy of both pools.  Rollback points for actions whose
+        grants may turn out infeasible: aborted speculative round opens
+        (DESIGN.md §8) and lossy-transfer retries whose retransmission
+        can never complete (§10) restore through this, so a transfer that
+        never happens leaves no channel occupancy.  A snapshot is
+        reusable — ``restore`` copies it again, so the same rollback
+        point can unwind several divergent continuations."""
+        return copy.deepcopy((self.tx, self.rx))
+
+    def restore(self, snap) -> None:
+        self.tx, self.rx = copy.deepcopy(snap)
+
+    def stats(self, horizon_s: float) -> Dict:
+        """Telemetry for benchmarks: grants, FIFO queue-wait totals and
+        per-PS utilization (busy channel-seconds / channels*horizon)."""
+        return {"ps_channels": self.channels,
+                "tx": self.tx.stats(horizon_s),
+                "rx": self.rx.stats(horizon_s)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +269,7 @@ class ContactPlan:
     nominal_bits: float = 0.0          # payload for window delay annotation
     # finite per-PS link capacity (DESIGN.md §9); None = infinite
     # parallelism, bit-identical to the pre-contention semantics
-    contention: Optional[object] = None
+    contention: Optional[ContentionModel] = None
 
     _windows: Optional[List[ContactWindow]] = dataclasses.field(
         default=None, repr=False)
