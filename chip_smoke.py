@@ -122,16 +122,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      with ``SimConfig(event_driven=True)``.  Each run must record 2
      epochs of finite accuracy, launch ``fed_agg`` once per epoch step
      (more on a fallback step, as phase 4), and give the host-side history
-     of a CPU run of the port on the same inputs; the quickstart must
+     of a CPU run of the port on the same inputs, each accuracy within one
+     test sample of it and the final model within 1e-4; the quickstart must
      hold at least 2 rounds in flight.  Wall time (cold, then warm),
      events popped, rounds opened, the host segments and the card's busy
      share of one profiled warm run;
- 17. one JSON line of per-kernel numbers.
+ 17. the fault path: (a) the README's robustness smoke,
+     ``repro_torch.fl_constellation_sim.main`` with ``--event-driven
+     --dropout 0.2 --compute-spread 1.0 --staleness-fn poly``
+     (asyncfleo-gs, MNIST_CNN at full width, S = 40, 2 epochs, IID);
+     (b) asyncfleo-twohap for 4 epochs with every recovery axis of
+     DESIGN.md §11 at once (burst loss with AIMD backoff, PS outages,
+     energy budgets, fault-aware selection), which must show sink
+     failovers, energy deferrals and failed transfers.  Each run must
+     give a CPU run's host history, accuracy and final model (as phase
+     16) and its whole ``rt.stats`` (every fault counter, printed) and
+     launch ``fed_agg`` once per commit (more
+     only on a fallback step).  (c) the quickstart with
+     ``SimConfig(visibility="sparse")``: phase 16's host history,
+     accuracy, final model and ``fed_agg`` launches; then the
+     200-satellite ``hapring:4`` geometry over 3 days compiled dense and
+     sparse, with equal windows (seconds,
+     peak allocations and kept bytes of each compile).  Walls (cold, then
+     warm) and the busy share of one profiled run of (a);
+ 18. one JSON line of per-kernel numbers.
 
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository beside it, it exits non-zero and prints no result.  A run
-takes 8 to 10 minutes on an H100.
+takes 8 to 11 minutes on an H100.
 ``--report PATH`` also writes every number of the run there as JSON.
 """
 import argparse
@@ -141,6 +160,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -689,10 +709,14 @@ def main() -> None:
                 others=(fed_agg, pairwise_dist_sq, chunk_scan))
 
     # ---- 16. the event-driven path ---------------------------------------
-    event_path(torch, report,
+    quickstart, quickstart_w = event_path(
+        torch, report, others=(pairwise_dist_sq, flash_attention, chunk_scan))
+
+    # ---- 17. the fault path ----------------------------------------------
+    fault_path(torch, report, quickstart, quickstart_w,
                others=(pairwise_dist_sq, flash_attention, chunk_scan))
 
-    # ---- 17. the kernel line ----------------------------------------------
+    # ---- 18. the kernel line ----------------------------------------------
     fb, pg = timings["eq14_bank_carry"], timings["pairwise_dist_grouping"]
     kernel_line = {"kernels": [
         dict(name="fed_agg", route="cuda",
@@ -837,10 +861,12 @@ def timings_process(c_bank: int) -> dict:
 def kernel_yardsticks(torch, dev, gen, timings: dict, c_bank: int) -> None:
     """Phase 6's yardsticks, added to ``kernel_timings``' entries: beside
     eq. 14 in one launch, two one-segment calls (the way before it was one
-    launch), the plain version and two ``torch.addmv``; beside
-    ``pairwise_dist_sq`` at 2 and 65 rows, the plain version and
-    ``torch.cdist``.  Then ``pairwise_dist_sq`` at more M: the few-rows
-    design up to 8 rows (one kernel), the tiled one from 9 (three)."""
+    launch), the plain version and two ``torch.addmv``; beside the carry
+    alone and the ``fed_agg`` floor, the plain version and one
+    ``torch.addmv``; beside ``pairwise_dist_sq`` at 2 and 65 rows and its
+    floor, the plain version and ``torch.cdist``.  Then
+    ``pairwise_dist_sq`` at more M: the few-rows design up to 8 rows (one
+    kernel), the tiled one from 9 (three)."""
     from repro_torch.kernels.fed_agg import fed_agg
     from repro_torch.kernels.fed_agg.ref import fed_agg_ref
     from repro_torch.kernels.pairwise_dist import pairwise_dist_sq
@@ -871,6 +897,22 @@ def kernel_yardsticks(torch, dev, gen, timings: dict, c_bank: int) -> None:
         plain_ms=time_device(torch, lambda s, g, s2, g2, b: fed_agg_ref(
             s, g, b, 0.35, s2, g2), sets)[0],
         library_ms=time_device(torch, library, sets)[0])
+    # the carry alone, through eq. 14's one-term path, and the one-CTA
+    # floors: the plain version and one torch.addmv beside each
+    for key, C, n in (("fed_agg_carry", C_carry, N), ("floor_fed_agg", 1,
+                                                      1024)):
+        sets = cycled_inputs(lambda: (randn(C, n), weights(C), randn(n)),
+                             (C * n + 2 * n + C) * 4)
+        timings[key].update(
+            plain_ms=time_device(torch, lambda s, g, b: fed_agg_ref(
+                s, g, b, 0.35), sets)[0],
+            library_ms=time_device(torch, lambda s, g, b: torch.addmv(
+                b, s.t(), g, beta=0.35), sets)[0])
+    sets = [(randn(2, 1024),)]
+    timings["floor_pairwise_dist"].update(
+        plain_ms=time_device(torch, pairwise_dist_sq_ref, sets)[0],
+        library_ms=time_device(torch, lambda x: torch.cdist(
+            x, x, compute_mode="use_mm_for_euclid_dist"), sets)[0])
     for key, M in (("pairwise_dist_grouping", 2), ("pairwise_dist_m65", 65)):
         sets = cycled_inputs(lambda: (randn(M, N),), M * N * 4)
         timings[key].update(
@@ -1011,19 +1053,28 @@ def check_build(kernels, logs) -> dict:
 EVENT_SCHEME = "asyncfleo-pipelined"
 
 
-def pipelined_run(work, ps_channels=None):
-    """``EVENT_SCHEME`` through ``FLSimulation`` with
-    ``SimConfig(event_driven=True)``, 2 epochs over 3 days, from
-    ``work.w0``; ``ps_channels`` sets the PS channels.  Returns (the
-    simulation, its history)."""
+def event_run(work, scheme=EVENT_SCHEME, epochs=2, spec_kw=None,
+              **sim_kw):
+    """``scheme`` through ``FLSimulation`` with
+    ``SimConfig(event_driven=True)`` over 3 days, from ``work.w0``;
+    ``spec_kw`` replaces strategy fields, ``sim_kw`` sets more
+    ``SimConfig`` fields.  Returns (the simulation, its history)."""
     from repro_torch.core.simulator import FLSimulation, SimConfig
     from repro_torch.fl.strategies import get_strategy
-    spec = get_strategy(EVENT_SCHEME)
-    if ps_channels is not None:
-        spec = dataclasses.replace(spec, ps_channels=ps_channels)
+    spec = get_strategy(scheme)
+    if spec_kw:
+        spec = dataclasses.replace(spec, **spec_kw)
     sim = FLSimulation(spec, work.pool, work.evaluator,
-                       SimConfig(duration_s=3 * 86400.0, event_driven=True))
-    return sim, sim.run(work.w0, max_epochs=2)
+                       SimConfig(duration_s=3 * 86400.0, event_driven=True,
+                                 **sim_kw))
+    return sim, sim.run(work.w0, max_epochs=epochs)
+
+
+def pipelined_run(work, ps_channels=None, **sim_kw):
+    """``EVENT_SCHEME``, 2 epochs, through ``event_run``; ``ps_channels``
+    sets the PS channels."""
+    spec_kw = None if ps_channels is None else dict(ps_channels=ps_channels)
+    return event_run(work, spec_kw=spec_kw, **sim_kw)
 
 
 def step_counts(sim):
@@ -1034,11 +1085,27 @@ def step_counts(sim):
             sum(p.fallback_dispatches for p in progs))
 
 
-def check_event_run(label, sim, hist, launches, steps, cpu_hist) -> dict:
-    """Phase 16's checks of one event-driven run on the card: 2 finite
-    records, ``fed_agg`` once per epoch step (more on a fallback step), the
-    CPU run's host history.  Returns the run's numbers."""
+FAULT_KEYS = ("transfers_failed", "transfer_retries",
+              "dropped_after_max_retries", "dropped_unreachable",
+              "rerouted_arrivals", "sink_failovers", "dropped_outage",
+              "outage_deferrals", "energy_deferrals",
+              "energy_skipped_recruits", "dropped_energy",
+              "fault_aware_skips", "arrivals_expected", "arrivals_committed")
+
+
+def check_event_run(label, sim, hist, launches, steps, cpu_hist, cpu_w,
+                    epochs=2, cpu_stats=None) -> dict:
+    """Phases 16 and 17's checks of one event-driven run on the card:
+    ``epochs`` finite records, ``fed_agg`` once per commit (more only on a
+    fallback step; a commit with nothing to train launches it at most
+    once, and not at all when every weight is zero), the reference run's
+    host history, each record's accuracy within one test sample of the
+    reference's, its final flat model ``cpu_w`` within atol 1e-4 (the
+    parity tests' tolerance) and, given ``cpu_stats``, its whole
+    ``rt.stats``.  Returns the run's numbers."""
+    import torch
     one, fallback = steps
+    no_train = len(hist) - one - fallback
     rt = sim.runtime
     popped = sum(rt.events.counts.values()) - len(rt.events)
     stats = dict(rt.stats)
@@ -1048,13 +1115,15 @@ def check_event_run(label, sim, hist, launches, steps, cpu_hist) -> dict:
           f"{stats['rounds_opened']}, max in flight "
           f"{stats['max_rounds_in_flight']}, segments "
           f"{ {k: round(v, 3) for k, v in sim.segment_seconds.items()} }")
-    if len(hist) != 2:
-        fail(f"{label} recorded {len(hist)} epochs, not 2")
+    if len(hist) != epochs:
+        fail(f"{label} recorded {len(hist)} epochs, not {epochs}")
     if not all(math.isfinite(r.accuracy) for r in hist):
         fail(f"{label}: non-finite accuracy")
-    if launches < one + fallback or (fallback == 0 and launches != one):
+    if (no_train < 0 or launches < one + fallback
+            or (fallback == 0 and launches > one + no_train)):
         fail(f"{label}: fed_agg launched {launches} times for "
-             f"{one + fallback} epoch steps")
+             f"{one + fallback} epoch steps and {no_train} commits without "
+             "training")
     if len(cpu_hist) != len(hist):
         fail(f"{label}: the CPU run recorded {len(cpu_hist)} epochs, the "
              f"card's {len(hist)}")
@@ -1063,13 +1132,35 @@ def check_event_run(label, sim, hist, launches, steps, cpu_hist) -> dict:
         kb = (b.epoch, b.time_s, b.num_models, b.gamma, b.stale_groups)
         if ka != kb:
             fail(f"{label}: card and CPU histories differ: {ka} vs {kb}")
+    one_sample = 1.0 / len(sim.evaluator.labels)
     for a, b in zip(hist, cpu_hist):
         print(f"  epoch {a.epoch}: t={a.time_s / 3600:.3f} h "
               f"acc={a.accuracy:.4f} (CPU {b.accuracy:.4f}) "
               f"models={a.num_models} gamma={a.gamma:.3f} "
               f"stale_groups={a.stale_groups}")
+        if not abs(a.accuracy - b.accuracy) <= one_sample + 1e-6:
+            fail(f"{label}: epoch {a.epoch}'s accuracy {a.accuracy} is more "
+                 f"than one test sample from the CPU's {b.accuracy}")
+    w = sim._w_flat
+    if w.shape != cpu_w.shape or not bool(torch.isfinite(w).all()):
+        fail(f"{label}: the global model is not a finite {tuple(cpu_w.shape)}"
+             " vector")
+    w_diff = float((w.cpu().double() - cpu_w.cpu().double()).abs().max())
+    print(f"  final model {tuple(w.shape)}: max |card - CPU| {w_diff:.3e} "
+          f"(max |w| {float(cpu_w.abs().max()):.3e})")
+    if not w_diff <= 1e-4:
+        fail(f"{label}: the final model is {w_diff} from the CPU run's, "
+             "more than 1e-4")
+    if cpu_stats is not None:
+        if stats != cpu_stats:
+            fail(f"{label}: card and CPU stats differ: {stats} vs "
+                 f"{cpu_stats}")
+        print(f"  stats equal the CPU run's; faults: "
+              f"{ {k: stats[k] for k in FAULT_KEYS} }, backoff delays "
+              f"{stats['backoff_delays_s']}")
     return dict(fed_agg_launches=launches, epoch_steps=one,
-                fallback_steps=fallback, events_popped=popped,
+                fallback_steps=fallback, no_train_commits=no_train,
+                w_max_abs_diff=w_diff, events_popped=popped,
                 event_counts=dict(rt.events.counts), stats=stats,
                 contention=rt.contention_stats(),
                 segments_s=dict(sim.segment_seconds),
@@ -1077,10 +1168,11 @@ def check_event_run(label, sim, hist, launches, steps, cpu_hist) -> dict:
                 history_cpu=[vars(r) for r in cpu_hist])
 
 
-def event_path(torch, report, *, others) -> None:
+def event_path(torch, report, *, others) -> tuple:
     """Phase 16: the README quickstart on the event-driven runtime, at
     full width on the card, then with one PS channel; each run against a
-    CPU run of the port, then warm walls and one profiled run."""
+    CPU run of the port, then warm walls and one profiled run.  Returns
+    the quickstart's numbers and its final flat model."""
     from repro_torch.fl_constellation_sim import (build_workload, main as
                                                   sim_main)
     from repro_torch.kernels.fed_agg import fed_agg
@@ -1102,12 +1194,13 @@ def event_path(torch, report, *, others) -> None:
 
     t0 = time.perf_counter()
     cpu = build_workload(iid=True, device="cpu")
-    cpu_runs = {ch: pipelined_run(cpu, ch)[1] for ch in (None, 1)}
+    cpu_runs = {ch: pipelined_run(cpu, ch) for ch in (None, 1)}
     cpu_s = time.perf_counter() - t0
 
     out = {"wall_s_first": cold, "cpu_s": cpu_s, "other_launches": other}
-    out["quickstart"] = check_event_run("quickstart", sim, hist, launches,
-                                        steps, cpu_runs[None])
+    out["quickstart"] = check_event_run(
+        "quickstart", sim, hist, launches, steps, cpu_runs[None][1],
+        cpu_runs[None][0]._w_flat)
     rounds = out["quickstart"]["stats"]["max_rounds_in_flight"]
     if rounds < 2:
         fail(f"the quickstart held {rounds} round(s) in flight, not 2 or "
@@ -1122,7 +1215,8 @@ def event_path(torch, report, *, others) -> None:
     after = step_counts(sim1)
     out["ps_channels_1"] = check_event_run(
         "ps_channels=1", sim1, hist1, fed_agg.launches,
-        (after[0] - before[0], after[1] - before[1]), cpu_runs[1])
+        (after[0] - before[0], after[1] - before[1]), cpu_runs[1][1],
+        cpu_runs[1][0]._w_flat)
     print(f"  contention: {out['ps_channels_1']['contention']}")
 
     warm = []
@@ -1156,6 +1250,198 @@ def event_path(torch, report, *, others) -> None:
                wall_ms=wall_ms, wall_ms_profiled=wall_prof * 1e3,
                busy_share=share, fed_agg_per_commit=per_step, top=top)
     report["event_path"] = out
+    return out["quickstart"], sim._w_flat
+
+
+# phase 17 (a): the README's robustness smoke (20% transfer loss, compute
+# spread 1.0, the poly staleness discount)
+FAULT_SCHEME = "asyncfleo-gs"
+FAULT_ARGV = ["--schemes", FAULT_SCHEME, "--epochs", "2", "--iid",
+              "--event-driven", "--dropout", "0.2", "--compute-spread", "1.0",
+              "--staleness-fn", "poly"]
+# phase 17 (b): every recovery axis of DESIGN.md §11 at once on the two
+# HAPs: burst loss with AIMD backoff, each HAP dark 30% of every 2 h,
+# batteries that cannot pay for an uplink right after training, and
+# fault-aware selection.  Seed 1 makes a PS go dark under an open round
+# (a sink failover) within the 4 epochs
+RECOVERY_SCHEME = "asyncfleo-twohap"
+RECOVERY_EPOCHS = 4
+RECOVERY_FAULT = dict(seed=1, loss_prob=0.3, burst_len_s=1800.0,
+                      max_retries=3, retry_backoff_s=60.0,
+                      adaptive_backoff=True, ps_outage_fraction=0.3,
+                      ps_outage_period_s=7200.0, battery_j=60.0,
+                      train_energy_j=50.0, tx_energy_j=20.0, recharge_w=0.01)
+# phase 17 (c): the 200-satellite geometry of tests/test_sparse_contacts.py
+WALKER200 = dict(num_orbits=10, sats_per_orbit=20, altitude_m=600e3,
+                 inclination_deg=60.0)
+
+
+def recovery_run(work):
+    """Phase 17 (b)'s run through ``event_run``."""
+    from repro_torch.sched import FaultModel
+    return event_run(work, RECOVERY_SCHEME, RECOVERY_EPOCHS,
+                     spec_kw=dict(fault_aware_selection=True),
+                     fault_model=FaultModel(**RECOVERY_FAULT))
+
+
+def compile_plans(days: float = 3.0, dt_s: float = 10.0) -> dict:
+    """Phase 17 (c)'s geometry: walker200 under ``hapring:4`` compiled
+    dense and sparse over ``days`` at ``dt_s``; the windows must be equal.
+    Seconds of each compile (host clock), the peak of its allocations
+    (tracemalloc, a second compile) and the bytes its timeline keeps."""
+    import tracemalloc
+    import numpy as np
+    from repro_torch.core.constellation import WalkerDelta, make_ps_nodes
+    from repro_torch.sched import ContactPlan
+    cst, nodes = WalkerDelta(**WALKER200), make_ps_nodes("hapring:4")
+
+    def compile_(vis):
+        return ContactPlan.compile(cst, nodes, days * 86400.0, dt_s,
+                                   visibility=vis)
+
+    def kept(obj):
+        if isinstance(obj, np.ndarray):
+            return obj.nbytes
+        if isinstance(obj, (list, tuple)):
+            return sum(kept(o) for o in obj)
+        return 0
+
+    out, wins = {}, {}
+    for vis in ("dense", "sparse"):
+        t0 = time.perf_counter()
+        plan = compile_(vis)
+        secs = time.perf_counter() - t0
+        wins[vis] = [(w.sat, w.node, w.t_start, w.t_end, w.delay_s)
+                     for w in plan.windows()]
+        held = sum(kept(v) for v in vars(plan.timeline).values())
+        del plan
+        tracemalloc.start()
+        compile_(vis)
+        peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        out[vis] = dict(compile_s=secs, peak_bytes=peak, timeline_bytes=held,
+                        windows=len(wins[vis]))
+        print(f"  walker200 hapring:4, {days:g} days at dt {dt_s:g} s, "
+              f"{vis}: compile {secs:.2f} s, peak allocations "
+              f"{peak / 2**20:.1f} MiB, timeline keeps "
+              f"{held / 2**20:.2f} MiB, {len(wins[vis])} windows")
+    if not wins["dense"] or wins["dense"] != wins["sparse"]:
+        fail("walker200: the sparse plan's windows differ from the dense "
+             "plan's")
+    return out
+
+
+def fault_path(torch, report, quickstart, quickstart_w, *, others) -> None:
+    """Phase 17: (a) the README's robustness smoke through
+    ``fl_constellation_sim.main`` at full width on the card; (b) every
+    §11 recovery axis at once; each against a CPU run of the port (host
+    history, accuracy, final model and every stat); (c) the quickstart
+    with sparse visibility against phase 16's dense run (``quickstart``,
+    its final model ``quickstart_w``), then the walker200 geometry
+    compiled dense and sparse.  Then warm walls and one profiled run of
+    (a)."""
+    from repro_torch.fl_constellation_sim import main as sim_main
+    from repro_torch.fl_constellation_sim import run_schemes
+    from repro_torch.kernels.fed_agg import fed_agg
+    phase(f"phase 17: fault path — repro_torch.fl_constellation_sim.main "
+          f"{' '.join(FAULT_ARGV)}, MNIST_CNN, S=40; then {RECOVERY_SCHEME} "
+          f"with every recovery axis, {RECOVERY_EPOCHS} epochs; then "
+          f"{EVENT_SCHEME} with sparse visibility")
+    for w in (fed_agg,) + tuple(others):
+        w.launches = 0
+    t0 = time.perf_counter()
+    sim, hist = sim_main(FAULT_ARGV + ["--device", "cuda"])[FAULT_SCHEME]
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = fed_agg.launches
+    steps = step_counts(sim)
+    work = sim_workload(sim)
+    smoke_fault = sim.fault
+
+    before = steps
+    fed_agg.launches = 0
+    sim_b, hist_b = recovery_run(work)
+    torch.cuda.synchronize()
+    after = step_counts(sim_b)
+    launches_b = fed_agg.launches
+    steps_b = (after[0] - before[0], after[1] - before[1])
+
+    before = after
+    fed_agg.launches = 0
+    sim_c, hist_c = pipelined_run(work, visibility="sparse")
+    torch.cuda.synchronize()
+    after = step_counts(sim_c)
+    launches_c = fed_agg.launches
+    steps_c = (after[0] - before[0], after[1] - before[1])
+    other = {w.__name__: w.launches for w in others}
+
+    t0 = time.perf_counter()
+    cpu_sim, cpu_hist = sim_main(FAULT_ARGV + ["--device", "cpu"])[
+        FAULT_SCHEME]
+    cpu_b, cpu_hist_b = recovery_run(sim_workload(cpu_sim))
+    cpu_s = time.perf_counter() - t0
+
+    out = {"wall_s_first": cold, "cpu_s": cpu_s, "other_launches": other}
+    out["smoke"] = check_event_run(
+        "robustness smoke", sim, hist, launches, steps, cpu_hist,
+        cpu_sim._w_flat, cpu_stats=dict(cpu_sim.runtime.stats))
+    out["recovery"] = check_event_run(
+        "every recovery axis", sim_b, hist_b, launches_b, steps_b,
+        cpu_hist_b, cpu_b._w_flat, epochs=RECOVERY_EPOCHS,
+        cpu_stats=dict(cpu_b.runtime.stats))
+    st = out["recovery"]["stats"]
+    for key in ("sink_failovers", "energy_deferrals", "transfers_failed"):
+        if not st[key] > 0:
+            fail(f"every recovery axis: {key} is {st[key]}, not > 0")
+    if any(other.values()):
+        fail(f"the fault path launched other kernels: {other}")
+
+    out["sparse_quickstart"] = check_event_run(
+        "quickstart, sparse visibility", sim_c, hist_c, launches_c, steps_c,
+        [types.SimpleNamespace(**r) for r in quickstart["history"]],
+        quickstart_w)
+    if launches_c != quickstart["fed_agg_launches"]:
+        fail(f"the sparse quickstart launched fed_agg {launches_c} times, "
+             f"the dense one {quickstart['fed_agg_launches']}")
+    print("  the sparse quickstart's host history, accuracy, final model and "
+          "fed_agg launches equal phase 16's dense run")
+    out["walker200"] = compile_plans()
+
+    def smoke_run():
+        return run_schemes([FAULT_SCHEME], work, epochs=2, event_driven=True,
+                           staleness_fn="poly", fault_model=smoke_fault)
+
+    warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        smoke_run()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        smoke_run()
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    busy_ms, n_kernels, top = top_device_ops(prof)
+    wall_ms = min(warm) * 1e3
+    share = busy_ms / wall_ms if busy_ms else float("nan")
+    per_commit = launches / max(1, len(hist))
+    print(f"fault path: robustness smoke cold {cold:.2f} s (workload build "
+          f"included), warm {warm} s; fed_agg {launches} launches for "
+          f"{len(hist)} commits ({per_commit:g} a commit); device busy "
+          f"{busy_ms:.1f} ms over {n_kernels} device operations; warm wall "
+          f"{wall_ms:.1f} ms unprofiled ({wall_prof * 1e3:.1f} ms "
+          f"profiled); busy share {share:.3f}"
+          + ("" if busy_ms else " — the profiler showed no device time: "
+             "not measured") + f"; CPU runs {cpu_s:.1f} s")
+    for t in top:
+        print(f"  {t['ms']:9.3f} ms x{t['count']:<6d} {t['name']}")
+    out.update(warm_wall_s=warm, busy_ms=busy_ms, kernel_launches=n_kernels,
+               wall_ms=wall_ms, wall_ms_profiled=wall_prof * 1e3,
+               busy_share=share, fed_agg_per_commit=per_commit, top=top)
+    report["fault_path"] = out
 
 
 def results_w0(sim):

@@ -29,12 +29,17 @@ paper's Table II / Fig. 6 quantities.
 ``SimConfig.event_driven`` hands the run to the event-driven runtime
 (`sched/runtime.py`), which drives the same fused commit under trigger
 policies, with pipelined rounds and, with ``StrategySpec.ps_channels``,
-finite per-PS link capacity.
+finite per-PS link capacity.  ``SimConfig.fault_model`` attaches the
+fault layer (`sched/faults.py`): per-satellite compute rates in the
+epoch loop and the runtime, eclipse and PS-outage masks on the
+visibility grid, and — on the event-driven runtime only — lossy
+transfers, outage failover and energy budgets.
+``SimConfig.visibility="sparse"`` compiles the contact geometry as
+segments instead of the dense grid, with the same answers.
 
 What the JAX package's simulator has beyond this (the stacked and legacy
-paths, faults, profiling, scenario batching, a device mesh, sparse
-visibility) raises ``NotImplementedError`` naming the slice of the port
-that brings it.
+paths, profiling, scenario batching, a device mesh) raises
+``NotImplementedError`` naming the slice of the port that brings it.
 """
 from __future__ import annotations
 
@@ -58,7 +63,8 @@ from repro_torch.core.links import LinkModel, model_bits
 from repro_torch.core.modelbank import FlatSpec, gather_rows, pad_bucket_ids
 from repro_torch.core.propagation import PropagationModel
 from repro_torch.core.topology import RingOfStars
-from repro_torch.core.visibility import VisibilityTimeline
+from repro_torch.core.visibility import (SparseVisibilityTimeline,
+                                         VisibilityTimeline)
 from repro_torch.fl.strategies import StrategySpec
 
 
@@ -86,11 +92,20 @@ class SimConfig:
     use_fused_step: bool = True        # False: the stacked path (not ported)
     mesh: Optional[object] = None      # a device mesh (not ported)
     event_driven: bool = False         # run() delegates to sched.runtime
-    fault_model: Optional[object] = None   # sched/faults (not ported)
+    # pluggable fault/heterogeneity layer (sched/faults.FaultModel,
+    # DESIGN.md §10-§11); None attaches NO fault state at all —
+    # bit-identical to the fault-free simulator
+    fault_model: Optional[object] = None
     tracer: Optional[object] = None        # obs/trace.Tracer (event runtime)
     profiler: Optional[object] = None      # obs/profile (not ported)
     dispatcher: Optional[object] = None    # sweep/batch (not ported)
-    visibility: str = "dense"          # "sparse" is not ported
+    # contact-plan geometry backend (DESIGN.md §14): "dense" precomputes
+    # the (T, S, P) visibility grid; "sparse" compiles per-(sat, PS)
+    # window segments and answers every query by bisect — the same
+    # answers, O(windows) memory.  Sparse cannot host the fault grid-masks
+    # (eclipse/outage masks AND into the dense grid), so those
+    # combinations raise at construction
+    visibility: str = "dense"
 
 
 def _check_ported(sim: SimConfig) -> None:
@@ -102,13 +117,7 @@ def _check_ported(sim: SimConfig) -> None:
                           "8b (stacked and legacy simulator paths)")
     if sim.mesh is not None:
         raise _not_ported("SimConfig.mesh", "15 (mesh- and pod-shaped code)")
-    if sim.fault_model is not None:
-        raise _not_ported("SimConfig.fault_model",
-                          "10 (faults and sparse contacts)")
-    if sim.visibility == "sparse":
-        raise _not_ported("SimConfig.visibility='sparse'",
-                          "10 (faults and sparse contacts)")
-    if sim.visibility != "dense":
+    if sim.visibility not in ("dense", "sparse"):
         raise ValueError(f"visibility must be dense|sparse: {sim.visibility}")
     if sim.profiler is not None:
         raise _not_ported("SimConfig.profiler",
@@ -160,8 +169,47 @@ class FLSimulation:
         self.sim = sim
         self.constellation = constellation or paper_constellation()
         self.nodes = make_ps_nodes(spec.ps_scenario)
-        self.timeline = VisibilityTimeline(
-            self.constellation, self.nodes, sim.duration_s, sim.dt_s)
+        tl_cls = (SparseVisibilityTimeline if sim.visibility == "sparse"
+                  else VisibilityTimeline)
+        self.timeline = tl_cls(self.constellation, self.nodes,
+                               sim.duration_s, sim.dt_s)
+        # fault/heterogeneity layer (DESIGN.md §10): eclipse windows mask
+        # the visibility grid BEFORE anything derives state from it (the
+        # timeline's next-visible cache, the topology, the contact plan's
+        # windows and covers), so every downstream rule routes around dark
+        # satellites with no special cases; the per-sat training-time
+        # scale is applied in _train_times (None = scalar math,
+        # bit-identical to the fault-free path)
+        self.fault = sim.fault_model
+        self._train_scale = None
+        self._outages = None
+        if self.fault is not None:
+            S = self.constellation.num_sats
+            self._train_scale = self.fault.train_time_scale(S)
+            mask = self.fault.availability_mask(self.timeline.times, S)
+            # PS outage windows (DESIGN.md §11) mask the PS axis the same
+            # way — a dark parameter server has no satellite contacts —
+            # and the compiled OutageSchedule drives the event runtime's
+            # ring-failover recovery.  No outage config -> no schedule,
+            # no grid mutation at all (the off-switch contract)
+            omask = self.fault.outage_mask(self.timeline.times,
+                                           len(self.nodes), sim.duration_s)
+            if sim.visibility == "sparse" and (mask is not None
+                                               or omask is not None):
+                raise ValueError(
+                    "sparse visibility cannot host eclipse/outage "
+                    "grid-masks — use visibility='dense' with this "
+                    "fault model")
+            if mask is not None:
+                self.timeline.grid &= mask[:, :, None]
+            if omask is not None:
+                # lazy, as the contact plan below: sched imports core
+                from repro_torch.sched.faults import OutageSchedule
+                self.timeline.grid &= omask[:, None, :]
+                self._outages = OutageSchedule(
+                    self.fault.outage_intervals(len(self.nodes),
+                                                sim.duration_s),
+                    len(self.nodes))
         self.topo = RingOfStars(self.constellation, self.nodes, self.timeline)
         self.prop = PropagationModel(self.topo, sim.link or LinkModel())
         # the compiled contact plan owns the downlink/uplink timing rules
@@ -294,14 +342,28 @@ class FLSimulation:
         k_idx = [i for i in range(len(self._pend_meta)) if i not in c_idx]
         return c_idx, k_idx
 
+    def _train_times(self, participants):
+        """Per-participant local-training durations.  Homogeneous fleets
+        get the scalar ``train_time_s`` (bit-identical to the fault-free
+        arithmetic); under a FaultModel compute-rate spread each
+        satellite's duration is stretched by its multiplier, which is how
+        heterogeneity reaches every TRAIN_DONE instant of the epoch loop and
+        the event runtime alike."""
+        if self._train_scale is None:
+            return self.sim.train_time_s
+        return (self.sim.train_time_s
+                * self._train_scale[np.asarray(participants, np.int64)])
+
     # ---- fused path (one step per epoch, DESIGN.md §6) ---------------
 
     def _arrival_times(self, participants, recv, bits, sink):
         """Participant timing for one round: padded bank ids, per-row
         training-done times, raw per-row sink arrival times, and the
-        sorted finite (t_arr, sat, row) arrival triples."""
+        sorted finite (t_arr, sat, row) arrival triples.  ONE shared
+        implementation for the epoch loop and the event runtime, so their
+        timing math is identical by construction."""
         ids_np, _n = pad_bucket_ids(participants)
-        t_done = recv[participants] + self.sim.train_time_s
+        t_done = recv[participants] + self._train_times(participants)
         t_arr, _haps = self.plan.uplink_times(participants, t_done, bits,
                                               sink)
         arrivals = [(float(t_arr[k]), s, k)
@@ -578,6 +640,19 @@ class FLSimulation:
             self.runtime = EventDrivenRuntime(self)
             return self.runtime.run(w0, max_epochs,
                                     target_accuracy=target_accuracy)
+        if self.fault is not None and self.fault.has_loss:
+            raise ValueError(
+                "FaultModel transfer loss (loss_prob > 0 or burst_len_s "
+                "> 0) requires the event-driven runtime "
+                "(SimConfig.event_driven=True): the epoch loop cannot "
+                "express TRANSFER_FAILED retry chains")
+        if self.fault is not None and (self.fault.has_outages
+                                       or self.fault.has_energy):
+            raise ValueError(
+                "FaultModel PS outages / energy budgets require the "
+                "event-driven runtime (SimConfig.event_driven=True): the "
+                "epoch loop cannot express ring failover or deferred "
+                "uplinks (DESIGN.md §11)")
         bits, prog = self._init_run(w0)
         w_tree = w0                       # parameter view for the evaluator
         t = 0.0

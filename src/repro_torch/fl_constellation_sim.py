@@ -20,9 +20,16 @@ pipelines every scheme's rounds; ``asyncfleo-pipelined`` ships with depth
         --schemes asyncfleo-pipelined --epochs 2 --iid --event-driven
 
 ``--staleness-fn`` swaps eq. 13's staleness discount for a FedAsync-family
-alternative.  The example's fault flags (``--dropout``,
-``--compute-spread``, ``--eclipse-fraction``) come with ROADMAP queue A
-item 10 and are refused until then.
+alternative.  The fault flags build one ``FaultModel`` (DESIGN.md §10)
+that every scheme runs under: ``--dropout`` (per-transfer loss, retried
+with exponential backoff; implies ``--event-driven``),
+``--compute-spread`` (seeded per-satellite training-time multipliers)
+and ``--eclipse-fraction`` (seeded per-satellite dark windows).  The
+README's robustness smoke:
+
+    PYTHONPATH=src python -m repro_torch.fl_constellation_sim \
+        --schemes asyncfleo-gs --epochs 2 --iid --event-driven \
+        --dropout 0.2 --compute-spread 1.0 --staleness-fn poly
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from repro_torch.data.synthetic import class_conditional_images
 from repro_torch.fl.client import Evaluator, ImageClassifierPool
 from repro_torch.fl.strategies import STRATEGIES, get_strategy
 from repro_torch.models import cnn
+from repro_torch.sched.faults import FaultModel
 
 
 @dataclasses.dataclass
@@ -76,11 +84,13 @@ def build_workload(*, iid: bool, device="cuda",
 
 def run_schemes(schemes: Sequence[str], work: Workload, *, epochs: int,
                 days: float = 3.0, event_driven: bool = False,
-                max_in_flight: int = 0,
-                staleness_fn: str = "eq13") -> Dict[str, tuple]:
+                max_in_flight: int = 0, staleness_fn: str = "eq13",
+                fault_model: Optional[FaultModel] = None
+                ) -> Dict[str, tuple]:
     """Run each scheme from ``work.w0``: the epoch loop, or the
     event-driven runtime.  ``max_in_flight`` > 0 overrides every scheme's
-    pipeline depth; ``staleness_fn`` every scheme's eq. 13 discount.
+    pipeline depth; ``staleness_fn`` every scheme's eq. 13 discount;
+    ``fault_model`` is every scheme's ``SimConfig.fault_model``.
     Returns {scheme: (FLSimulation, history)}."""
     out = {}
     for name in schemes:
@@ -91,7 +101,8 @@ def run_schemes(schemes: Sequence[str], work: Workload, *, epochs: int,
             spec = dataclasses.replace(spec, staleness_fn=staleness_fn)
         sim = FLSimulation(spec, work.pool, work.evaluator,
                            SimConfig(duration_s=days * 86400.0,
-                                     event_driven=event_driven))
+                                     event_driven=event_driven,
+                                     fault_model=fault_model))
         out[name] = (sim, sim.run(work.w0, max_epochs=epochs))
     return out
 
@@ -105,6 +116,13 @@ def _print_curves(results: Dict[str, tuple], target: float) -> None:
             print(f"# {name}: contact plan — {s['num_windows']} windows, "
                   f"coverage {s['coverage_fraction']:.3f}, "
                   f"mean window {s['mean_window_s']:.0f}s")
+            if sim.fault is not None:
+                st = sim.runtime.stats
+                dropped = (st["dropped_after_max_retries"]
+                           + st["dropped_unreachable"])
+                print(f"# {name}: faults — transfers failed "
+                      f"{st['transfers_failed']}, retried "
+                      f"{st['transfer_retries']}, dropped {dropped}")
         for r in hist:
             print(f"{name},{r.epoch},{r.time_s/3600:.3f},{r.accuracy:.4f},"
                   f"{r.num_models},{r.gamma:.3f}")
@@ -139,23 +157,31 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, tuple]:
                     choices=["eq13", "constant", "hinge", "poly"],
                     help="staleness discount: the paper's eq. 13 or a "
                          "FedAsync-family alternative")
-    for flag in ("--dropout", "--compute-spread", "--eclipse-fraction"):
-        ap.add_argument(flag, type=float, default=0.0,
-                        help="not ported yet: faults come with ROADMAP "
-                             "queue A item 10")
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="per-transfer loss probability (retried with "
+                         "exponential backoff, DESIGN.md §10); >0 implies "
+                         "--event-driven")
+    ap.add_argument("--compute-spread", type=float, default=0.0,
+                    help="per-sat compute heterogeneity: training time "
+                         "stretched by a seeded multiplier in "
+                         "[1, 1+spread]")
+    ap.add_argument("--eclipse-fraction", type=float, default=0.0,
+                    help="fraction of each (phase-shifted) orbital period "
+                         "a satellite is unavailable")
     args = ap.parse_args(argv)
-    for flag in ("dropout", "compute_spread", "eclipse_fraction"):
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} is not ported yet: the "
-                     "fault model comes with ROADMAP queue A item 10 of "
-                     "the PyTorch port")
-    if args.max_in_flight > 1:
+    if args.max_in_flight > 1 or args.dropout > 0.0:
         args.event_driven = True
+    fault = None
+    if args.dropout or args.compute_spread or args.eclipse_fraction:
+        fault = FaultModel(loss_prob=args.dropout,
+                           compute_rate_spread=args.compute_spread,
+                           eclipse_fraction=args.eclipse_fraction)
     work = build_workload(iid=args.iid, device=args.device)
     results = run_schemes(args.schemes, work, epochs=args.epochs,
                           days=args.days, event_driven=args.event_driven,
                           max_in_flight=args.max_in_flight,
-                          staleness_fn=args.staleness_fn)
+                          staleness_fn=args.staleness_fn,
+                          fault_model=fault)
     _print_curves(results, args.target)
     return results
 

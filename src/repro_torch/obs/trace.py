@@ -20,11 +20,11 @@ Span taxonomy (one track per round, ``"round <idx>"``):
 * ``trigger_window`` — first *used* arrival -> the aggregation instant.
 
 ``channel_busy`` and ``outage`` name the per-PS spans the exporters
-synthesize, and the fault instants (``TRANSFER_FAILED`` ...
-``ENERGY_DEFERRAL``) those of the fault runtime (item 10); the names are
-kept so the two packages share one vocabulary.  The runtime records
-``MODEL_ARRIVAL``, ``TRIGGER`` / ``DISPATCH`` / ``COMMIT`` and
-``WINDOW_SHRUNK``.
+synthesize (the exporters come with ROADMAP queue A item 11); the names
+are kept so the two packages share one vocabulary.  The runtime records
+``MODEL_ARRIVAL``, ``TRIGGER`` / ``DISPATCH`` / ``COMMIT``,
+``WINDOW_SHRUNK`` and the fault instants (``TRANSFER_FAILED`` ...
+``ENERGY_DEFERRAL``).
 
 **The null-tracer parity invariant**: tracing is strictly read-only —
 a traced run and a ``tracer=None`` run produce bit-identical histories

@@ -12,7 +12,8 @@ the plan instead of re-deriving geometry.
 
 * **windows** — run-length-encoded sat<->PS visibility intervals
   ``[t_start, t_end)`` (from the timeline's ``node_windows`` segment
-  export, a dense-grid RLE), each annotated with the one-hop link delay
+  export — dense-grid RLE or the sparse timeline's precompiled
+  segments, DESIGN.md §14), each annotated with the one-hop link delay
   at window start for a nominal payload.  Compiled lazily and cached.
 * **ISL / IHL availability** — intra-orbit ISL rings are permanently
   available (adjacent neighbors, §IV-A), so they are a constant hop delay,
@@ -52,7 +53,8 @@ from repro_torch.core.constellation import GroundNode, WalkerDelta
 from repro_torch.core.links import LinkModel
 from repro_torch.core.propagation import PropagationModel
 from repro_torch.core.topology import RingOfStars
-from repro_torch.core.visibility import VisibilityTimeline
+from repro_torch.core.visibility import (SparseVisibilityTimeline,
+                                         VisibilityTimeline)
 from repro_torch.obs.metrics import Histogram
 
 
@@ -283,8 +285,15 @@ class ContactPlan:
     def compile(cls, constellation: WalkerDelta, nodes: List[GroundNode],
                 duration_s: float, dt_s: float = 10.0,
                 link: Optional[LinkModel] = None, *, use_isl: bool = True,
-                nominal_bits: float = 0.0) -> "ContactPlan":
-        timeline = VisibilityTimeline(constellation, nodes, duration_s, dt_s)
+                nominal_bits: float = 0.0,
+                visibility: str = "dense") -> "ContactPlan":
+        """``visibility="sparse"`` compiles through the segment-based
+        :class:`SparseVisibilityTimeline` — O(windows) memory instead of
+        the dense (T, S, P) grid; windows and all plan queries are
+        bit-identical (DESIGN.md §14)."""
+        tl_cls = {"dense": VisibilityTimeline,
+                  "sparse": SparseVisibilityTimeline}[visibility]
+        timeline = tl_cls(constellation, nodes, duration_s, dt_s)
         topo = RingOfStars(constellation, nodes, timeline)
         prop = PropagationModel(topo, link or LinkModel())
         return cls(constellation, nodes, timeline, topo, prop,
@@ -303,7 +312,8 @@ class ContactPlan:
         T = len(tl.times)
         dt = tl.dt_s
         out: List[ContactWindow] = []
-        # per-node windows from the timeline's segment export (dense RLE)
+        # per-node windows from the timeline's segment export — dense RLE
+        # or the sparse timeline's precompiled segments, identically shaped
         for p in range(len(self.nodes)):
             s_sats, s_rows, e_rows = tl.node_windows(p)
             if len(s_sats) == 0:

@@ -27,9 +27,7 @@ separates virtual-clock state the same way):
   schedule itself is queried purely (``OutageSchedule``), so PS_UP is
   telemetry plus a wake-up point for deferred work.
 
-The port's runtime handles the first four kinds; the last three belong to
-the fault runtime (ROADMAP queue A item 10).  All seven stay, so the kind
-ids, and with them every tie order, equal the reference's.
+The kind ids, and with them every tie order, equal the reference's.
 
 Every event carries the ``round_idx`` it is addressed to, so with
 several rounds in flight a ``MODEL_ARRIVAL`` always commits into the

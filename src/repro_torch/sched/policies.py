@@ -40,12 +40,13 @@ fires (DESIGN.md §8 handoff contract):
   never).  The default is the round's first expected arrival: by then
   the fastest satellites are done training and the constellation can
   absorb the next downlink while the current collection window runs.
-
-The reference's third handoff hook, ``failover_sink`` (the replacement
-sink when a PS goes dark, DESIGN.md §11), comes with the fault runtime:
-ROADMAP queue A item 10.  The trigger policies keep the hook that runtime
-calls when a lossy transfer is dropped (``on_expected_drop``), so it can
-use them as they are.
+* ``failover_sink(rt, rnd, t) -> int | None`` — the replacement sink for
+  an open round whose sink PS just went dark (a PS_DOWN event,
+  DESIGN.md §11).  ``RingHandoff`` picks the nearest live ring PS;
+  ``NextContactHandoff`` prefers the live PS with the earliest upcoming
+  satellite contact (least-rx-busy tiebreak).  None = every PS is dark;
+  the round keeps its sink and its arrivals hold at the ring edge until
+  a recovery.
 
 Policies are selected from the strategy table (`fl/strategies.py`):
 ``StrategySpec.sched_policy`` names the trigger policy (sync strategies
@@ -343,6 +344,11 @@ class RingHandoff:
         # window runs concurrently with the next downlink
         return rnd.expected[0][0] if rnd.expected else None
 
+    def failover_sink(self, rt, rnd, t: float) -> Optional[int]:
+        # PS outage failover (DESIGN.md §11): the nearest live ring PS
+        # takes over collection; None when every PS is dark
+        return rt._next_live_ps(rnd.sink, t)
+
 
 @dataclasses.dataclass
 class NextContactHandoff(RingHandoff):
@@ -385,6 +391,23 @@ class NextContactHandoff(RingHandoff):
         else:
             sink = source
         return source, sink
+
+    def failover_sink(self, rt, rnd, t: float) -> Optional[int]:
+        # among LIVE PSs (excluding the dead sink), prefer the one whose
+        # next satellite contact comes earliest — it can resume
+        # collecting soonest — with the §9 least-rx-busy tiebreak; falls
+        # back to the ring nearest-live rule when no live PS has a
+        # finite upcoming contact
+        o = rt._outages
+        tv = rt.plan.next_contact_by_node(t)
+        live = [p for p in range(len(tv))
+                if p != rnd.sink and not o.down_at(p, t)
+                and np.isfinite(tv[p])]
+        if not live:
+            return RingHandoff.failover_sink(self, rt, rnd, t)
+        best = min(tv[p] for p in live)
+        cands = [p for p in live if tv[p] == best]
+        return self._least_busy(rt, cands, t, "rx")
 
 
 HANDOFF_POLICIES = {

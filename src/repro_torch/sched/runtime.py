@@ -54,12 +54,56 @@ exposes grants, queue-wait totals and per-PS utilization.
 ``ps_channels=None`` (default) attaches no model at all — bit-identical
 to the uncontended runtime.
 
-Not ported yet: the reference's fault handling (DESIGN.md §10-§11: lossy
-transfers and their retries, PS outages and ring failover, energy
-budgets, fault-aware selection) comes with ROADMAP queue A item 10, and
-its dispatch profiler and scenario-batching hooks with items 11 and 12;
-``FLSimulation`` refuses those options.  The stats keep the reference's
-whole key set, so ``dict(runtime.stats)`` equals the reference's.
+**Faults** (DESIGN.md §10): with ``SimConfig.fault_model`` set, each
+sat->PS model transfer draws a deterministic Bernoulli loss
+(`sched/faults.FaultModel.transfer_fails`, keyed on (seed, sat, round,
+attempt)).  A lost transfer fires TRANSFER_FAILED at its would-be
+arrival instant; the handler re-times the retransmission after an
+exponential backoff through the contact plan — a fresh rx-channel grant,
+so retries contend for the same finite ``ps_channels`` — and bounds the
+chain at ``max_retries`` before dropping the update entirely
+(``dropped_after_max_retries``).  A retry whose grant can never complete
+(unreachable sink / past the horizon) is rolled back through the same
+snapshot/restore machinery as aborted speculative opens.  Dropping
+shrinks the round's expected set, and the trigger policy's
+``on_expected_drop`` hook keeps barrier/window rounds from hanging on
+transfers that will never land.  ``fault_model=None`` (default) skips
+every check — bit-identical to the fault-free runtime.
+
+**Degradation & recovery** (DESIGN.md §11): the FaultModel's §11 axes
+extend the runtime with recovery semantics.  *PS outages*: the compiled
+`OutageSchedule` (masked into the visibility grid at construction)
+schedules a PS_DOWN/PS_UP event pair per dark window; PS_DOWN fails
+over every open round sunk at the dead PS to the handoff policy's
+replacement (ring-next-live by default), and an in-flight MODEL_ARRIVAL
+that pops at a sink dark at its arrival instant re-routes along the HAP
+ring to the next live PS — re-timed by the ring relay delay and charged
+a fresh §9 rx grant (snapshot/restore rollback on infeasible re-times).
+During a *total* outage, arrivals hold at the ring edge until the first
+recovery, round opens and triggers defer to it, and a trigger with no
+recovery inside the horizon commits anyway (the horizon clamp) so
+starved rounds terminate instead of hanging.  *Energy budgets*: per-sat
+`EnergyState` batteries drain at recruitment (training energy) and at
+every transmit attempt; a depleted satellite defers its uplink to the
+first affordable instant (or drops past the horizon), and retries pay
+transmit energy too.  *Adaptive backoff*: with
+``FaultModel.adaptive_backoff`` the retry delay is AIMD — additive
+increase on each failure scaled by the sink rx pool's observed mean
+queue wait (capped at ``retry_backoff_cap_s``), halved on a successful
+retry — replacing the blind exponential; chosen delays land in the
+bounded ``backoff_delays_s`` histogram (``stats["backoff_delays_s"]``
+renders its count/sum/min/max/p50/p95/p99 summary).  A conservation
+ledger
+(``arrivals_expected`` / ``arrivals_committed`` + the ``dropped_*``
+counters) pins that every expected arrival is committed, dropped, or
+still pending — across reroutes, deferrals and retries
+(tests/test_torch_faults.py).  Every §11 axis at its default attaches no
+state and is bit-identical to the §10 runtime.
+
+Not ported yet: the reference's dispatch profiler and scenario-batching
+hooks come with ROADMAP queue A items 11 and 12; ``FLSimulation``
+refuses those options.  The stats keep the reference's whole key set,
+so ``dict(runtime.stats)`` equals the reference's.
 
 The runtime owns no model math: it drives `FLSimulation._fused_commit`
 (the epoch loop's post-trigger tail), so under the AsyncFLEO policy its
@@ -74,17 +118,21 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.core.modelbank import gather_rows
 from repro_torch.obs.metrics import MetricRegistry, StatsView
 from repro_torch.obs.trace import (EV_ARRIVAL, EV_COMMIT, EV_DISPATCH,
+                                   EV_DROP, EV_ENERGY_DEFER, EV_FAILOVER,
+                                   EV_PS_DOWN, EV_PS_UP, EV_REROUTE,
+                                   EV_TRANSFER_FAILED, EV_TRANSFER_RETRY,
                                    EV_TRIGGER, NULL_TRACER, SPAN_RECRUIT,
                                    SPAN_ROUND, SPAN_TRANSFERS, SPAN_TRIGGER)
 from repro_torch.sched.events import Event, EventKind, EventQueue
+from repro_torch.sched.faults import EnergyState
 from repro_torch.sched.policies import make_handoff_policy, make_policy
 
 # the ``runtime.stats`` key set, in its historical order — the StatsView
 # compatibility contract: same keys, same values, same JSON shape as the
-# reference's, backed by the obs/metrics registry (DESIGN.md §12).  The
-# fault counters stay at 0 until the fault runtime (item 10) is ported
+# reference's, backed by the obs/metrics registry (DESIGN.md §12)
 STAT_COUNTER_KEYS = (
     "rounds_opened", "max_rounds_in_flight",
     "pipelined_opens", "cross_round_adoptions",
@@ -109,7 +157,8 @@ STAT_COUNTER_KEYS = (
     # run end
     "arrivals_expected", "arrivals_committed")
 
-# AIMD backoff delays of the fault runtime — a bounded histogram
+# AIMD backoff delays actually applied (adaptive_backoff) — a bounded
+# histogram (count/sum/min/max/p50/p95/p99 in the stats view)
 STAT_HISTOGRAM_KEYS = ("backoff_delays_s",)
 
 
@@ -130,7 +179,10 @@ class RoundState:
     committed: bool = False         # fused training step consumed
     closed: bool = False            # roles handed off; ignore stale events
     group_first: Dict[int, float] = dataclasses.field(default_factory=dict)
-    # the sink the round's arrival times were computed against at open
+    # the sink the round's arrival times were computed against at open —
+    # ``sink`` may fail over to a live PS mid-flight (DESIGN.md §11),
+    # but already-timed arrivals stay addressed here and reroute lazily
+    # at their pop instant when this PS is (still) dark
     open_sink: int = -1
     # open tracer span handle for the round's lifetime (obs/trace.py);
     # -1 when untraced
@@ -175,6 +227,16 @@ class EventDrivenRuntime:
         # training occupancy per satellite (the §8 overlap invariant:
         # a satellite trains for at most one in-flight round at a time)
         self._busy_until = np.zeros(self.plan.num_sats)
+        # fault layer (DESIGN.md §10): the FaultModel lives on the
+        # simulation config; None short-circuits every check
+        self.fault = fls.fault
+        # compiled PS outage schedule (DESIGN.md §11); None without any
+        # outage config — not a single query is made
+        self._outages = fls._outages
+        # per-sat battery state ((re)built in run()); None = energy off
+        self.energy = None
+        # AIMD retry-delay state for FaultModel.adaptive_backoff
+        self._retry_delay_s = 0.0
         # telemetry: one metric registry per runtime is the single
         # backing store (DESIGN.md §12); ``stats`` is the historical dict
         # surface as a live MutableMapping view over it (policies write
@@ -200,16 +262,34 @@ class EventDrivenRuntime:
         self.beta = 0
         self._stop = False
         self._busy_until[:] = 0.0
+        self._retry_delay_s = (float(self.fault.retry_backoff_s)
+                               if self.fault is not None else 0.0)
+        if self.fault is not None and self.fault.has_energy:
+            # fresh battery state per run (mirrors _init_run's pool reset)
+            self.energy = EnergyState(self.fault, self.plan.num_sats)
+        if self._outages is not None:
+            # one PS_DOWN / PS_UP pair per dark window (DESIGN.md §11);
+            # recovery decisions query the pure schedule, so these events
+            # carry the *reactive* semantics (failover sweeps) + telemetry
+            for p, s, e in self._outages.events():
+                if s < self.sim.duration_s:
+                    self.events.push(Event(s, EventKind.PS_DOWN, -1, ps=p))
+                if e < self.sim.duration_s:
+                    self.events.push(Event(e, EventKind.PS_UP, -1, ps=p))
         self._start_round(0.0, source=0)
         handlers = {
             EventKind.TRAIN_DONE: self._on_train_done,
             EventKind.MODEL_ARRIVAL: self._on_arrival,
             EventKind.TRIGGER_TIMEOUT: self._on_trigger,
             EventKind.SINK_HANDOFF: self._on_handoff,
+            EventKind.TRANSFER_FAILED: self._on_transfer_failed,
+            EventKind.PS_DOWN: self._on_ps_down,
+            EventKind.PS_UP: self._on_ps_up,
         }
         tracer = self.tracer
         t_last = 0.0
-        # batched pops (DESIGN.md §14): same-(time, kind, round) runs
+        # batched pops (DESIGN.md §14): same-(time, kind, round) runs —
+        # the MODEL_ARRIVAL floods a mega-constellation trigger produces —
         # drain as one batch through a vectorized handler tail instead of
         # one Python heap pop + handler dispatch per satellite.  The
         # run's events are exactly the pops the sequential loop would do
@@ -271,11 +351,31 @@ class EventDrivenRuntime:
             return None
         if sink is None:
             sink = fls.topo.sink_of(source)
+        if self._outages is not None:
+            # PS roles must be live at open (DESIGN.md §11): a dark
+            # source/sink is replaced by the nearest live ring PS; with
+            # EVERY PS dark the open defers to the first recovery (a
+            # round_idx=-1 SINK_HANDOFF that _on_handoff restarts)
+            if self._outages.down_at(source, t):
+                alt = self._next_live_ps(source, t)
+                if alt is None:
+                    t_up = self._outages.next_any_up(t)
+                    if t < t_up < sim.duration_s:
+                        self.stats["outage_deferrals"] += 1
+                        self.events.push(Event(t_up, EventKind.SINK_HANDOFF,
+                                               -1, sat=source,
+                                               pipelined=pipelined))
+                    return None
+                source = alt
+            if self._outages.down_at(sink, t):
+                alt = self._next_live_ps(sink, t)
+                sink = alt if alt is not None else source
         # timing a round consumes channel grants when a ContentionModel is
         # attached (DESIGN.md §9); if the open aborts below, roll the
         # grants back so a round that never ran leaves no occupancy behind
         ctn = self.plan.contention
         snap = ctn.snapshot() if ctn is not None else None
+        esnap = self.energy.snapshot() if self.energy is not None else None
         with fls._seg("timing"):
             recv = self.plan.downlink_times(t, self.bits, source)
         participants = [s for s in range(self.plan.num_sats)
@@ -287,6 +387,39 @@ class EventDrivenRuntime:
             # loop's recruit-everyone semantics for parity)
             participants = [s for s in participants
                             if self._busy_until[s] <= recv[s]]
+        if (participants and self.fault is not None
+                and getattr(self.spec, "fault_aware_selection", False)):
+            # fault-aware participant selection (DESIGN.md §11): skip
+            # satellites whose eclipse covers the expected uplink
+            # instant, or whose uplink would land in a total PS outage —
+            # the model would only wait out the dark window anyway
+            fm = self.fault
+            tt = np.broadcast_to(
+                np.asarray(fls._train_times(participants), np.float64),
+                (len(participants),))
+            keep = []
+            for k, s in enumerate(participants):
+                t_up = float(recv[s]) + float(tt[k])
+                ok = fm.sat_available_at(s, t_up, self.plan.num_sats)
+                if ok and self._outages is not None:
+                    ok = not self._outages.all_down_at(t_up)
+                if ok:
+                    keep.append(s)
+                else:
+                    self.stats["fault_aware_skips"] += 1
+            participants = keep
+        if self.energy is not None and participants:
+            # training costs energy at the recruit's receive instant
+            # (DESIGN.md §11): a satellite that cannot afford it sits the
+            # round out and recharges instead
+            keep = []
+            for s in participants:
+                if self.energy.try_drain(s, float(recv[s]),
+                                         self.energy.train_j):
+                    keep.append(s)
+                else:
+                    self.stats["energy_skipped_recruits"] += 1
+            participants = keep
         ids_np = np.zeros(0, np.int32)
         expected: List[tuple] = []
         arr_time: Dict[int, float] = {}
@@ -301,11 +434,15 @@ class EventDrivenRuntime:
         if pipelined and not expected:
             if snap is not None:
                 ctn.restore(snap)
+            if esnap is not None:
+                self.energy.restore(esnap)
             return None     # nobody free to train: the retry in
             #                 _on_handoff (or the close handoff) covers it
         if not expected and not fls._pend_meta:
             if snap is not None:
                 ctn.restore(snap)
+            if esnap is not None:
+                self.energy.restore(esnap)
             return None                     # constellation drained: halt
         rnd = RoundState(self._round_seq, self.beta, t, source, sink,
                          participants, ids_np, expected, arr_time)
@@ -322,7 +459,8 @@ class EventDrivenRuntime:
             # span for the whole round plus the two phase spans whose
             # bounds are known at open — recruit (downlink: open -> last
             # participant's receive) and transfers (uplink: first
-            # TRAIN_DONE -> last expected sink arrival)
+            # TRAIN_DONE -> last expected sink arrival; retries and
+            # reroutes that move arrivals show up as instants)
             track = f"round {rnd.idx}"
             rnd.span = self.tracer.begin(
                 SPAN_ROUND, t, track=track, source=int(source),
@@ -367,14 +505,37 @@ class EventDrivenRuntime:
         ta = rnd.arr_time.get(ev.row)
         if ta is None or not np.isfinite(ta):
             return
+        if self.energy is not None and not self.energy.try_drain(
+                ev.sat, ev.time, self.energy.tx_j):
+            # depleted battery: the uplink defers to the first affordable
+            # instant instead of transmitting now (DESIGN.md §11)
+            self._defer_uplink(rnd, ev, ta)
+            return
+        fm = self.fault
+        if (fm is not None and fm.has_loss
+                and fm.transfer_fails(ev.sat, rnd.idx, 0,
+                                      ps=rnd.open_sink, t=ta)):
+            # the transfer is lost in flight: the failure surfaces at the
+            # would-be arrival instant (the sink notices a missing /
+            # corrupt update only when it was due), DESIGN.md §10
+            self.events.push(Event(ta, EventKind.TRANSFER_FAILED, rnd.idx,
+                                   sat=ev.sat, row=ev.row, ps=rnd.open_sink))
+            return
         self.events.push(Event(ta, EventKind.MODEL_ARRIVAL, rnd.idx,
                                sat=ev.sat, row=ev.row, ps=rnd.open_sink))
 
     def _on_train_done_batch(self, evs: List[Event]) -> None:
-        """Batched TRAIN_DONE run (same time + round, DESIGN.md §14):
-        every member converts to its MODEL_ARRIVAL push — one bulk
-        ``push_many`` with per-event order preserved, which is exactly
-        the sequential loop's push sequence."""
+        """Batched TRAIN_DONE run (same time + round, DESIGN.md §14).
+        With energy or loss faults active the per-event handler runs
+        one-at-a-time (those paths draw per-sat state in event order);
+        otherwise every member just converts to its MODEL_ARRIVAL push —
+        one bulk ``push_many`` with per-event order preserved, which is
+        exactly the sequential loop's push sequence."""
+        if self.energy is not None or (self.fault is not None
+                                       and self.fault.has_loss):
+            for ev in evs:
+                self._on_train_done(ev)
+            return
         rnd = self.rounds[evs[0].round_idx]
         out = []
         for ev in evs:
@@ -389,9 +550,10 @@ class EventDrivenRuntime:
         """Batched MODEL_ARRIVAL run (same time + round, DESIGN.md §14):
         one closed-round check, one ``policy.on_arrival_batch`` call, one
         trigger-application tail — instead of one handler call per
-        arrival.  Tracing keeps the per-event path (one instant per
-        arrival)."""
-        if self.tracer.enabled:
+        arrival.  Outage reroutes, tracing, and adaptive backoff keep
+        the per-event path (they mutate per-event state mid-run)."""
+        if (self._outages is not None or self.tracer.enabled
+                or (self.fault is not None and self.fault.adaptive_backoff)):
             for ev in evs:
                 self._on_arrival(ev)
             return
@@ -422,6 +584,18 @@ class EventDrivenRuntime:
 
     def _on_arrival(self, ev: Event) -> None:
         rnd = self.rounds[ev.round_idx]
+        if (self._outages is not None and ev.ps >= 0
+                and self._outages.down_at(ev.ps, ev.time)):
+            # the sink this arrival was timed against is dark at the
+            # arrival instant: ring failover (DESIGN.md §11)
+            self._reroute_arrival(rnd, ev)
+            return
+        fm = self.fault
+        if ev.attempt > 0 and fm is not None and fm.adaptive_backoff:
+            # AIMD multiplicative decrease: a retry landed, halve the
+            # delay back toward the base (DESIGN.md §11)
+            self._retry_delay_s = max(fm.retry_backoff_s,
+                                      self._retry_delay_s / 2.0)
         if self.tracer.enabled:
             self.tracer.instant(EV_ARRIVAL, ev.time,
                                 track=f"round {ev.round_idx}",
@@ -445,6 +619,18 @@ class EventDrivenRuntime:
         rnd = self.rounds[ev.round_idx]
         if rnd.closed:
             return              # duplicate deadline (barrier already fired)
+        if self._outages is not None and self._outages.all_down_at(ev.time):
+            # no PS can aggregate right now: push the trigger to the
+            # first recovery — or, when no PS recovers inside the
+            # horizon, fall through and commit anyway so a starved round
+            # terminates (the total-outage horizon clamp, DESIGN.md §11)
+            t_up = self._outages.next_any_up(ev.time)
+            if ev.time < t_up < self.sim.duration_s:
+                self.stats["outage_deferrals"] += 1
+                rnd.trigger_scheduled = t_up
+                self.events.push(Event(t_up, EventKind.TRIGGER_TIMEOUT,
+                                       rnd.idx))
+                return
         t_agg, used, late = self.policy.split(self, rnd, ev.time)
         pend = [ta for (ta, _s, _ep) in self.fls._pend_meta]
         if not used and not any(ta <= t_agg for ta in pend):
@@ -474,10 +660,306 @@ class EventDrivenRuntime:
             return
         self._commit(rnd, t_agg, used, late)
 
+    # ---- outages, failover & energy (DESIGN.md §11) ------------------------
+
+    def _next_live_ps(self, ps: int, t: float) -> Optional[int]:
+        """Nearest live PS on the HAP ring at instant ``t``, by ring
+        distance from ``ps`` (ties toward increasing id, matching
+        ``Topology.ring_path``); None when every PS is dark."""
+        H = self.fls.topo.num_ps
+        for d in sorted(range(1, H), key=lambda d: (min(d, H - d), d)):
+            cand = (ps + d) % H
+            if not self._outages.down_at(cand, t):
+                return cand
+        return None
+
+    def _on_ps_down(self, ev: Event) -> None:
+        # reactive failover sweep: every open round sunk at the dead PS
+        # asks its handoff policy for a live replacement sink; arrivals
+        # already timed against the old sink reroute lazily at pop time
+        if self.tracer.enabled:
+            self.tracer.instant(EV_PS_DOWN, ev.time, track=f"ps {ev.ps}",
+                                ps=int(ev.ps))
+        for rnd in self.rounds.values():
+            if rnd.closed or rnd.sink != ev.ps:
+                continue
+            new_sink = self.handoff.failover_sink(self, rnd, ev.time)
+            if new_sink is not None and new_sink != rnd.sink:
+                old_sink = rnd.sink
+                rnd.sink = new_sink
+                self.stats["sink_failovers"] += 1
+                if self.tracer.enabled:
+                    self.tracer.instant(EV_FAILOVER, ev.time,
+                                        track=f"round {rnd.idx}",
+                                        old_sink=int(old_sink),
+                                        new_sink=int(new_sink))
+
+    def _on_ps_up(self, ev: Event) -> None:
+        # recovery needs no sweep: deferred opens/triggers/arrivals were
+        # re-scheduled at this instant when they hit the outage, and
+        # every outage decision queries the pure OutageSchedule — the
+        # event marks the trace-visible recovery boundary
+        if self.tracer.enabled:
+            self.tracer.instant(EV_PS_UP, ev.time, track=f"ps {ev.ps}",
+                                ps=int(ev.ps))
+
+    def _reroute_arrival(self, rnd: RoundState, ev: Event) -> None:
+        """An arrival popped at a sink that is dark at its arrival
+        instant: relay it along the HAP ring to the next live PS
+        (DESIGN.md §11) — re-timed by the ring relay delay and charged a
+        fresh §9 rx grant — or hold it at the ring edge until the first
+        recovery when EVERY PS is dark (dropping only when none recovers
+        inside the horizon)."""
+        o = self._outages
+        loc = self._locate_transfer(rnd, ev.row, ev.sat, ev.time)
+        if loc is None:
+            return          # adopted by a same-instant commit: moot
+        if not o.down_at(rnd.sink, ev.time):
+            target = rnd.sink       # the round already failed over there
+        else:
+            target = self._next_live_ps(ev.ps, ev.time)
+        if target is None:
+            # total outage: hold until the first recovery, then re-check
+            t_up = o.next_any_up(ev.time)
+            if not ev.time < t_up < self.sim.duration_s:
+                self.stats["dropped_outage"] += 1
+                self._retire_transfer(rnd, loc, ev.row, ev.time,
+                                      reason="outage")
+                return
+            self.stats["outage_deferrals"] += 1
+            self._move_transfer(rnd, loc, ev.row, ev.sat, t_up)
+            self.events.push(Event(t_up, EventKind.MODEL_ARRIVAL, rnd.idx,
+                                   sat=ev.sat, row=ev.row,
+                                   attempt=ev.attempt, ps=ev.ps))
+            return
+        ctn = self.plan.contention
+        snap = ctn.snapshot() if ctn is not None else None
+        with self.fls._seg("timing"):
+            new_ta = self.plan.reroute_times(
+                ev.ps, target, ev.time, self.bits,
+                avoid=o.down_set(ev.time) - {ev.ps, target})
+        if not np.isfinite(new_ta) or new_ta >= self.sim.duration_s:
+            # both ring arcs blocked by other dark PSs, or the relay
+            # lands past the horizon: roll the grant back and drop
+            if snap is not None:
+                ctn.restore(snap)
+            self.stats["dropped_outage"] += 1
+            self._retire_transfer(rnd, loc, ev.row, ev.time,
+                                  reason="outage")
+            return
+        self.stats["rerouted_arrivals"] += 1
+        if self.tracer.enabled:
+            self.tracer.instant(EV_REROUTE, ev.time,
+                                track=f"round {rnd.idx}", sat=int(ev.sat),
+                                ps_from=int(ev.ps), ps_to=int(target),
+                                t_arrival=float(new_ta))
+        self._move_transfer(rnd, loc, ev.row, ev.sat, new_ta)
+        self.events.push(Event(new_ta, EventKind.MODEL_ARRIVAL, rnd.idx,
+                               sat=ev.sat, row=ev.row,
+                               attempt=ev.attempt, ps=target))
+
+    def _defer_uplink(self, rnd: RoundState, ev: Event,
+                      ta_old: float) -> None:
+        """A depleted satellite's uplink waits for its battery: re-time
+        the transfer from the first instant the transmit energy is
+        affordable, or drop it when that never happens inside the
+        horizon (DESIGN.md §11)."""
+        en = self.energy
+        loc = self._locate_transfer(rnd, ev.row, ev.sat, ta_old)
+        if loc is None:
+            return
+        t_aff = en.time_to_afford(ev.sat, ev.time, en.tx_j)
+        if t_aff is None or t_aff >= self.sim.duration_s:
+            self.stats["dropped_energy"] += 1
+            self._retire_transfer(rnd, loc, ev.row, ev.time,
+                                  reason="energy")
+            return
+        ctn = self.plan.contention
+        snap = ctn.snapshot() if ctn is not None else None
+        with self.fls._seg("timing"):
+            t_arr, _haps = self.plan.uplink_times(
+                [ev.sat], [t_aff], self.bits, rnd.sink)
+        new_ta = float(t_arr[0])
+        if not np.isfinite(new_ta) or new_ta >= self.sim.duration_s:
+            if snap is not None:
+                ctn.restore(snap)
+            self.stats["dropped_energy"] += 1
+            self._retire_transfer(rnd, loc, ev.row, ev.time,
+                                  reason="energy")
+            return
+        en.try_drain(ev.sat, t_aff, en.tx_j)    # affordable by construction
+        self.stats["energy_deferrals"] += 1
+        if self.tracer.enabled:
+            self.tracer.instant(EV_ENERGY_DEFER, ev.time,
+                                track=f"round {rnd.idx}", sat=int(ev.sat),
+                                t_affordable=float(t_aff),
+                                t_arrival=float(new_ta))
+        self._move_transfer(rnd, loc, ev.row, ev.sat, new_ta)
+        fm = self.fault
+        kind = (EventKind.TRANSFER_FAILED
+                if (fm.has_loss
+                    and fm.transfer_fails(ev.sat, rnd.idx, 0,
+                                          ps=rnd.sink, t=new_ta))
+                else EventKind.MODEL_ARRIVAL)
+        self.events.push(Event(new_ta, kind, rnd.idx, sat=ev.sat,
+                               row=ev.row, ps=rnd.sink))
+
+    # ---- lossy transfers: retry / backoff / drop (DESIGN.md §10) -----------
+
+    def _locate_transfer(self, rnd: RoundState, row: int, sat: int,
+                         ta: float):
+        """Where an in-flight transfer's bookkeeping lives at failure
+        time: ("expected", i) while its round is uncommitted, ("pend", i)
+        after a commit carried it as a straggler, or None when a commit
+        tied at exactly the failure instant already adopted it (the model
+        made it into an aggregation — the failure is moot)."""
+        if not rnd.committed:
+            for i, a in enumerate(rnd.expected):
+                if a[2] == row:
+                    return ("expected", i)
+            return None
+        for i, (pta, ps, _ep) in enumerate(self.fls._pend_meta):
+            if ps == sat and pta == ta:
+                return ("pend", i)
+        return None
+
+    def _move_transfer(self, rnd: RoundState, loc, row: int, sat: int,
+                       new_ta: float) -> None:
+        """Re-time a pending transfer to its retry arrival instant."""
+        kind, i = loc
+        if kind == "expected":
+            rnd.expected[i] = (new_ta, sat, row)
+            rnd.expected.sort(key=lambda a: a[0])
+            rnd.arr_time[row] = new_ta
+        else:
+            pta, ps, ep = self.fls._pend_meta[i]
+            self.fls._pend_meta[i] = (new_ta, ps, ep)
+
+    def _retire_transfer(self, rnd: RoundState, loc, row: int,
+                         t: float, reason: str = "") -> None:
+        """Drop an update whose transfer can never complete: remove its
+        bookkeeping (the carried device row too — _pend_dev rows are
+        indexed parallel to _pend_meta) and let the trigger policy rescue
+        a round that now waits on nothing."""
+        fls = self.fls
+        if self.tracer.enabled:
+            self.tracer.instant(EV_DROP, t, track=f"round {rnd.idx}",
+                                row=int(row), reason=reason)
+        kind, i = loc
+        if kind == "pend":
+            keep = [j for j in range(len(fls._pend_meta)) if j != i]
+            fls._pend_meta = [fls._pend_meta[j] for j in keep]
+            fls._pend_dev = (gather_rows(fls._pend_dev, keep)
+                             if keep else None)
+        rnd.expected = [a for a in rnd.expected if a[2] != row]
+        rnd.arr_time.pop(row, None)
+        hook = getattr(self.policy, "on_expected_drop", None)
+        trig = hook(self, rnd, t) if hook is not None else None
+        if trig is not None and not rnd.closed:
+            if rnd.trigger_scheduled is None or trig < rnd.trigger_scheduled:
+                rnd.trigger_scheduled = trig
+            self.events.push(Event(trig, EventKind.TRIGGER_TIMEOUT, rnd.idx))
+        self._maybe_close(rnd, t)
+
+    def _on_transfer_failed(self, ev: Event) -> None:
+        fm = self.fault
+        rnd = self.rounds[ev.round_idx]
+        self.stats["transfers_failed"] += 1
+        if self.tracer.enabled:
+            self.tracer.instant(EV_TRANSFER_FAILED, ev.time,
+                                track=f"round {ev.round_idx}",
+                                sat=int(ev.sat), attempt=int(ev.attempt),
+                                ps=int(ev.ps))
+        loc = self._locate_transfer(rnd, ev.row, ev.sat, ev.time)
+        if loc is None:
+            return          # adopted by a same-instant commit: chain ends
+        attempt = ev.attempt + 1
+        new_ta = np.inf
+        snap = None
+        ctn = self.plan.contention
+        if attempt <= fm.max_retries:
+            if fm.adaptive_backoff:
+                # AIMD additive increase (DESIGN.md §11): the step is the
+                # sink rx pool's observed mean queue wait (at least the
+                # configured base), capped at retry_backoff_cap_s; the
+                # applied delays land in stats["backoff_delays_s"]
+                delay = self._retry_delay_s
+                wait = 0.0
+                if ctn is not None and ctn.rx.grants:
+                    wait = ctn.rx.queue_wait_s / ctn.rx.grants
+                self._retry_delay_s = min(
+                    fm.retry_backoff_cap_s,
+                    self._retry_delay_s + max(fm.retry_backoff_s, wait))
+                # bounded histogram, not an unbounded list: the compat
+                # view renders count/sum/min/max/p50/p95/p99
+                self.metrics.observe("backoff_delays_s", float(delay))
+            else:
+                delay = fm.retry_delay_s(ev.attempt)
+            t_retry = ev.time + delay
+            if self.energy is not None:
+                # retransmissions pay transmit energy too: wait for the
+                # battery when depleted, drop when it never recovers
+                t_aff = self.energy.time_to_afford(ev.sat, t_retry,
+                                                   self.energy.tx_j)
+                if t_aff is None:
+                    self.stats["dropped_energy"] += 1
+                    self._retire_transfer(rnd, loc, ev.row, ev.time,
+                                          reason="energy")
+                    return
+                t_retry = max(t_retry, t_aff)
+            if t_retry < self.sim.duration_s:
+                # the retransmission re-enters the shared channel pools: a
+                # fresh uplink (and rx grant) from the backoff instant
+                snap = ctn.snapshot() if ctn is not None else None
+                with self.fls._seg("timing"):
+                    t_arr, _haps = self.plan.uplink_times(
+                        [ev.sat], [t_retry], self.bits, rnd.sink)
+                new_ta = float(t_arr[0])
+        else:
+            self.stats["dropped_after_max_retries"] += 1
+            self._retire_transfer(rnd, loc, ev.row, ev.time,
+                                  reason="max_retries")
+            return
+        if not np.isfinite(new_ta) or new_ta >= self.sim.duration_s:
+            # unreachable sink or a landing past the horizon: the transfer
+            # will never happen, so its channel grant is rolled back (no
+            # occupancy ghosts — the same contract as aborted speculative
+            # opens) and the update is dropped
+            if snap is not None:
+                ctn.restore(snap)
+            self.stats["dropped_unreachable"] += 1
+            self._retire_transfer(rnd, loc, ev.row, ev.time,
+                                  reason="unreachable")
+            return
+        self.stats["transfer_retries"] += 1
+        if self.tracer.enabled:
+            self.tracer.instant(EV_TRANSFER_RETRY, ev.time,
+                                track=f"round {rnd.idx}", sat=int(ev.sat),
+                                attempt=int(attempt),
+                                delay_s=float(delay),
+                                t_arrival=float(new_ta))
+        if self.energy is not None:
+            self.energy.try_drain(ev.sat, t_retry, self.energy.tx_j)
+        self._move_transfer(rnd, loc, ev.row, ev.sat, new_ta)
+        kind = (EventKind.TRANSFER_FAILED
+                if fm.transfer_fails(ev.sat, rnd.idx, attempt,
+                                     ps=rnd.sink, t=new_ta)
+                else EventKind.MODEL_ARRIVAL)
+        self.events.push(Event(new_ta, kind, rnd.idx, sat=ev.sat,
+                               row=ev.row, attempt=attempt, ps=rnd.sink))
+
     def _on_handoff(self, ev: Event) -> None:
         # the round stays registered: stale TRAIN_DONE / MODEL_ARRIVAL
         # events for it may still be queued and look their round up
-        rnd = self.rounds[ev.round_idx]
+        rnd = self.rounds.get(ev.round_idx)
+        if rnd is None:
+            # a round open deferred through a total PS outage
+            # (DESIGN.md §11, round_idx=-1): restart it from the recorded
+            # source at the recovery instant
+            if self._open_count() < self.max_in_flight:
+                self._start_round(ev.time, max(ev.sat, 0),
+                                  pipelined=ev.pipelined)
+            return
         if self._open_count() >= self.max_in_flight:
             return              # pipeline full; a close will refill it
         source, sink = self.handoff.next_round(self, rnd, ev.time)

@@ -25,8 +25,9 @@ from repro_torch.core.simulator import FLSimulation, SimConfig
 from repro_torch.fl.strategies import get_strategy
 from repro_torch.sched import EventDrivenRuntime
 from repro_torch.sched import contacts as tcon
-from test_torch_sched import (DAYS, _host, assert_same_run, run_pair,
-                              setup)  # noqa: F401  (setup is a fixture)
+from test_torch_sched import (DAYS, _host, assert_same_run,  # noqa: F401
+                              one_torch_thread, run_pair,
+                              setup)  # (fixtures)
 
 RATE_BPS = 3e3
 

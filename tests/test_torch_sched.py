@@ -54,6 +54,17 @@ KW = dict(local_iters=2, batch_size=8)
 PIPE2 = dict(max_in_flight=2, handoff_policy="next_contact")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for these small CPU runs, restored after the
+    module: under several pytest workers torch's spinning thread pools
+    oversubscribe the cores and the runs take tens of times longer."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     imgs, labs = class_conditional_images(0, 400, separation=0.8)

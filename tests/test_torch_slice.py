@@ -167,8 +167,7 @@ def test_cuda_without_a_card_raises(setup):
 
 @pytest.mark.parametrize("change", [
     dict(use_model_bank=False), dict(use_fused_step=False),
-    dict(mesh=object()), dict(fault_model=object()),
-    dict(visibility="sparse"),
+    dict(mesh=object()),
     dict(profiler=object()), dict(dispatcher=object())])
 def test_unported_options_raise(setup, change):
     *_, work = setup
@@ -177,14 +176,8 @@ def test_unported_options_raise(setup, change):
                      SimConfig(duration_s=3600.0, **change))
 
 
-def test_unported_strategy_and_trainer_raise(setup, capsys):
+def test_unported_strategy_and_trainer_raise(setup):
     *_, work = setup
-    with pytest.raises(NotImplementedError, match="item 10 "):
-        FLSimulation(get_strategy("asyncfleo-gs"), work.pool, work.evaluator,
-                     SimConfig(duration_s=3600.0, fault_model=object()))
     with pytest.raises(NotImplementedError, match="fused-epoch protocol"):
         FLSimulation(get_strategy("asyncfleo-gs"), object(), work.evaluator,
                      SimConfig(duration_s=3600.0))
-    with pytest.raises(SystemExit):
-        main(["--event-driven", "--dropout", "0.2", "--device", "cpu"])
-    assert "ROADMAP queue A item 10" in capsys.readouterr().err
