@@ -145,13 +145,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      sparse, with equal windows (seconds,
      peak allocations and kept bytes of each compile).  Walls (cold, then
      warm) and the busy share of one profiled run of (a);
- 18. one JSON line of per-kernel numbers.
+ 18. Table II: the eight schemes of ``benchmarks/table2.py`` on the epoch
+     loop through ``run_schemes`` (MNIST_CNN at full width, S = 40, 2
+     epochs each, the paper's non-IID split, 3 days), each twice on the
+     card (the second warm).  Each must record 2 finite accuracies and
+     launch ``fed_agg`` once per epoch step (more only on a fallback
+     step, as phase 4).  The four that no earlier phase runs on the card
+     (fedisl-ideal, fedsat, fedhap, asyncfleo-twohap) must give the host
+     history of a CPU run of the port (the four CPU runs at once, one
+     process each), each accuracy within one test sample, the final
+     model within 1e-4 and the same divergence groups; records, best
+     accuracy, launches, walls and groups printed;
+ 19. observability: phase 16's quickstart with a ``Tracer`` and a
+     ``DispatchProfiler(block=False)``, then ``block=True``, then no
+     profiler.  Each run's history and final model must equal phase 16's
+     bit for bit; the profiler's dispatches must equal ``fed_agg``'s
+     launches, its triggers the commits (1.0 dispatch a trigger) and its
+     cold dispatches those of phase 16's CPU run (traced and profiled);
+     the Chrome and JSONL exports (per-PS tracks added) must validate
+     and hold that CPU run's span and instant counts.  The step's
+     host-dispatch seconds and device-inclusive seconds are printed
+     beside each run's wall and phase 16's busy time;
+ 20. one JSON line of per-kernel numbers.
 
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository beside it, it exits non-zero and prints no result.  A run
-takes 8 to 11 minutes on an H100.
-``--report PATH`` also writes every number of the run there as JSON.
+takes 9 to 13 minutes on an H100.
+``--report PATH`` also writes every number of the run there as JSON,
+with the seconds at which each phase started.
 """
 import argparse
 import dataclasses
@@ -207,8 +229,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T0 = time.perf_counter()
+PHASE_STARTS = []                   # (seconds since start, phase heading)
+
+
 def phase(msg: str) -> None:
-    print(f"# {msg}", flush=True)
+    t = time.perf_counter() - T0
+    PHASE_STARTS.append((round(t, 1), msg.split(":")[0]))
+    print(f"# {msg} [{t:.1f} s]", flush=True)
 
 
 def card_line() -> str:
@@ -709,14 +737,23 @@ def main() -> None:
                 others=(fed_agg, pairwise_dist_sq, chunk_scan))
 
     # ---- 16. the event-driven path ---------------------------------------
-    quickstart, quickstart_w = event_path(
+    quickstart, quickstart_w, quickstart_work = event_path(
         torch, report, others=(pairwise_dist_sq, flash_attention, chunk_scan))
 
     # ---- 17. the fault path ----------------------------------------------
     fault_path(torch, report, quickstart, quickstart_w,
                others=(pairwise_dist_sq, flash_attention, chunk_scan))
 
-    # ---- 18. the kernel line ----------------------------------------------
+    # ---- 18. Table II ------------------------------------------------------
+    table2_path(torch, report,
+                others=(pairwise_dist_sq, flash_attention, chunk_scan))
+
+    # ---- 19. observability -------------------------------------------------
+    observability_path(torch, report, quickstart, quickstart_w,
+                       quickstart_work,
+                       others=(pairwise_dist_sq, flash_attention, chunk_scan))
+
+    # ---- 20. the kernel line ----------------------------------------------
     fb, pg = timings["eq14_bank_carry"], timings["pairwise_dist_grouping"]
     kernel_line = {"kernels": [
         dict(name="fed_agg", route="cuda",
@@ -745,6 +782,8 @@ def main() -> None:
              bound_by=cs["bound_by"], library_ms=None),
     ]}
     report["kernels"] = kernel_line["kernels"]
+    report["phase_starts_s"] = PHASE_STARTS + [(round(
+        time.perf_counter() - T0, 1), "end")]
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1, default=str))
@@ -1077,10 +1116,10 @@ def pipelined_run(work, ps_channels=None, **sim_kw):
     return event_run(work, spec_kw=spec_kw, **sim_kw)
 
 
-def step_counts(sim):
-    """(one-step epochs, fallback epochs) the simulation's trainer has run
-    so far, over its cached epoch programs."""
-    progs = sim.trainer._epoch_programs.values()
+def step_counts(pool):
+    """(one-step epochs, fallback epochs) the pool has run so far, over
+    the epoch programs cached on it."""
+    progs = getattr(pool, "_epoch_programs", {}).values()
     return (sum(p.dispatches for p in progs),
             sum(p.fallback_dispatches for p in progs))
 
@@ -1096,14 +1135,9 @@ FAULT_KEYS = ("transfers_failed", "transfer_retries",
 def check_event_run(label, sim, hist, launches, steps, cpu_hist, cpu_w,
                     epochs=2, cpu_stats=None) -> dict:
     """Phases 16 and 17's checks of one event-driven run on the card:
-    ``epochs`` finite records, ``fed_agg`` once per commit (more only on a
-    fallback step; a commit with nothing to train launches it at most
-    once, and not at all when every weight is zero), the reference run's
-    host history, each record's accuracy within one test sample of the
-    reference's, its final flat model ``cpu_w`` within atol 1e-4 (the
-    parity tests' tolerance) and, given ``cpu_stats``, its whole
-    ``rt.stats``.  Returns the run's numbers."""
-    import torch
+    ``check_launches``, ``hold_against_cpu`` against the reference run
+    (``cpu_hist``, its final flat model ``cpu_w``) and, given
+    ``cpu_stats``, its whole ``rt.stats``.  Returns the run's numbers."""
     one, fallback = steps
     no_train = len(hist) - one - fallback
     rt = sim.runtime
@@ -1115,6 +1149,32 @@ def check_event_run(label, sim, hist, launches, steps, cpu_hist, cpu_w,
           f"{stats['rounds_opened']}, max in flight "
           f"{stats['max_rounds_in_flight']}, segments "
           f"{ {k: round(v, 3) for k, v in sim.segment_seconds.items()} }")
+    check_launches(label, hist, launches, steps, epochs)
+    w_diff = hold_against_cpu(label, sim, hist, cpu_hist, cpu_w)
+    if cpu_stats is not None:
+        if stats != cpu_stats:
+            fail(f"{label}: card and CPU stats differ: {stats} vs "
+                 f"{cpu_stats}")
+        print(f"  stats equal the CPU run's; faults: "
+              f"{ {k: stats[k] for k in FAULT_KEYS} }, backoff delays "
+              f"{stats['backoff_delays_s']}")
+    return dict(fed_agg_launches=launches, epoch_steps=one,
+                fallback_steps=fallback, no_train_commits=no_train,
+                w_max_abs_diff=w_diff, events_popped=popped,
+                event_counts=dict(rt.events.counts), stats=stats,
+                contention=rt.contention_stats(),
+                segments_s=dict(sim.segment_seconds),
+                history=[vars(r) for r in hist],
+                history_cpu=[vars(r) for r in cpu_hist])
+
+
+def check_launches(label, hist, launches, steps, epochs) -> None:
+    """``epochs`` finite records, and ``fed_agg`` once per epoch step
+    (more only on a fallback step; a record with nothing to train
+    launches it at most once, and not at all when every weight is
+    zero)."""
+    one, fallback = steps
+    no_train = len(hist) - one - fallback
     if len(hist) != epochs:
         fail(f"{label} recorded {len(hist)} epochs, not {epochs}")
     if not all(math.isfinite(r.accuracy) for r in hist):
@@ -1124,6 +1184,14 @@ def check_event_run(label, sim, hist, launches, steps, cpu_hist, cpu_w,
         fail(f"{label}: fed_agg launched {launches} times for "
              f"{one + fallback} epoch steps and {no_train} commits without "
              "training")
+
+
+def hold_against_cpu(label, sim, hist, cpu_hist, cpu_w) -> float:
+    """The card's history against the reference run's: host fields equal,
+    each accuracy within one test sample, the final flat model within
+    atol 1e-4 of ``cpu_w`` (the parity tests' tolerance).  Returns max
+    |card - reference| over the model."""
+    import torch
     if len(cpu_hist) != len(hist):
         fail(f"{label}: the CPU run recorded {len(cpu_hist)} epochs, the "
              f"card's {len(hist)}")
@@ -1151,31 +1219,18 @@ def check_event_run(label, sim, hist, launches, steps, cpu_hist, cpu_w,
     if not w_diff <= 1e-4:
         fail(f"{label}: the final model is {w_diff} from the CPU run's, "
              "more than 1e-4")
-    if cpu_stats is not None:
-        if stats != cpu_stats:
-            fail(f"{label}: card and CPU stats differ: {stats} vs "
-                 f"{cpu_stats}")
-        print(f"  stats equal the CPU run's; faults: "
-              f"{ {k: stats[k] for k in FAULT_KEYS} }, backoff delays "
-              f"{stats['backoff_delays_s']}")
-    return dict(fed_agg_launches=launches, epoch_steps=one,
-                fallback_steps=fallback, no_train_commits=no_train,
-                w_max_abs_diff=w_diff, events_popped=popped,
-                event_counts=dict(rt.events.counts), stats=stats,
-                contention=rt.contention_stats(),
-                segments_s=dict(sim.segment_seconds),
-                history=[vars(r) for r in hist],
-                history_cpu=[vars(r) for r in cpu_hist])
+    return w_diff
 
 
 def event_path(torch, report, *, others) -> tuple:
     """Phase 16: the README quickstart on the event-driven runtime, at
     full width on the card, then with one PS channel; each run against a
     CPU run of the port, then warm walls and one profiled run.  Returns
-    the quickstart's numbers and its final flat model."""
+    the quickstart's numbers, its final flat model and its workload."""
     from repro_torch.fl_constellation_sim import (build_workload, main as
                                                   sim_main)
     from repro_torch.kernels.fed_agg import fed_agg
+    from repro_torch.obs import DispatchProfiler, Tracer, add_runtime_tracks
     phase(f"phase 16: event-driven path — repro_torch.fl_constellation_sim."
           f"main --event-driven, {EVENT_SCHEME}, MNIST_CNN, S=40, J=30, "
           f"b=32, 2 epochs, IID; then ps_channels=1")
@@ -1189,15 +1244,23 @@ def event_path(torch, report, *, others) -> tuple:
     cold = time.perf_counter() - t0
     launches = fed_agg.launches
     other = {w.__name__: w.launches for w in others}
-    steps = step_counts(sim)
+    steps = step_counts(sim.trainer)
     work = sim_workload(sim)
 
     t0 = time.perf_counter()
     cpu = build_workload(iid=True, device="cpu")
-    cpu_runs = {ch: pipelined_run(cpu, ch) for ch in (None, 1)}
+    # the quickstart's CPU run traced and profiled (read-only), phase 19's
+    # reference counts
+    cpu_tr, cpu_prof = Tracer(), DispatchProfiler()
+    cpu_runs = {None: pipelined_run(cpu, tracer=cpu_tr, profiler=cpu_prof),
+                1: pipelined_run(cpu, 1)}
+    add_runtime_tracks(cpu_tr, cpu_runs[None][0].runtime)
     cpu_s = time.perf_counter() - t0
 
-    out = {"wall_s_first": cold, "cpu_s": cpu_s, "other_launches": other}
+    out = {"wall_s_first": cold, "cpu_s": cpu_s, "other_launches": other,
+           "cpu_obs": dict(spans=len(cpu_tr.spans),
+                           instants=len(cpu_tr.instants),
+                           summary=cpu_prof.summary())}
     out["quickstart"] = check_event_run(
         "quickstart", sim, hist, launches, steps, cpu_runs[None][1],
         cpu_runs[None][0]._w_flat)
@@ -1208,11 +1271,11 @@ def event_path(torch, report, *, others) -> tuple:
     if any(other.values()):
         fail(f"the event path launched other kernels: {other}")
 
-    before = step_counts(sim)
+    before = step_counts(sim.trainer)
     fed_agg.launches = 0
     sim1, hist1 = pipelined_run(work, ps_channels=1)
     torch.cuda.synchronize()
-    after = step_counts(sim1)
+    after = step_counts(sim1.trainer)
     out["ps_channels_1"] = check_event_run(
         "ps_channels=1", sim1, hist1, fed_agg.launches,
         (after[0] - before[0], after[1] - before[1]), cpu_runs[1][1],
@@ -1250,7 +1313,7 @@ def event_path(torch, report, *, others) -> tuple:
                wall_ms=wall_ms, wall_ms_profiled=wall_prof * 1e3,
                busy_share=share, fed_agg_per_commit=per_step, top=top)
     report["event_path"] = out
-    return out["quickstart"], sim._w_flat
+    return out["quickstart"], sim._w_flat, work
 
 
 # phase 17 (a): the README's robustness smoke (20% transfer loss, compute
@@ -1354,7 +1417,7 @@ def fault_path(torch, report, quickstart, quickstart_w, *, others) -> None:
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     launches = fed_agg.launches
-    steps = step_counts(sim)
+    steps = step_counts(sim.trainer)
     work = sim_workload(sim)
     smoke_fault = sim.fault
 
@@ -1362,7 +1425,7 @@ def fault_path(torch, report, quickstart, quickstart_w, *, others) -> None:
     fed_agg.launches = 0
     sim_b, hist_b = recovery_run(work)
     torch.cuda.synchronize()
-    after = step_counts(sim_b)
+    after = step_counts(sim_b.trainer)
     launches_b = fed_agg.launches
     steps_b = (after[0] - before[0], after[1] - before[1])
 
@@ -1370,7 +1433,7 @@ def fault_path(torch, report, quickstart, quickstart_w, *, others) -> None:
     fed_agg.launches = 0
     sim_c, hist_c = pipelined_run(work, visibility="sparse")
     torch.cuda.synchronize()
-    after = step_counts(sim_c)
+    after = step_counts(sim_c.trainer)
     launches_c = fed_agg.launches
     steps_c = (after[0] - before[0], after[1] - before[1])
     other = {w.__name__: w.launches for w in others}
@@ -1442,6 +1505,217 @@ def fault_path(torch, report, quickstart, quickstart_w, *, others) -> None:
                wall_ms=wall_ms, wall_ms_profiled=wall_prof * 1e3,
                busy_share=share, fed_agg_per_commit=per_commit, top=top)
     report["fault_path"] = out
+
+
+# phase 18: the schemes of the paper's Table II (benchmarks/table2.py) on
+# its non-IID split.  Each is held against a CPU run of the port where no
+# earlier phase runs it on the card; a full-width CPU run takes about 28 s
+# an epoch of 40 participants on the card's host, so holding all eight
+# would take minutes
+TABLE2 = ["fedisl", "fedisl-ideal", "fedsat", "fedspace", "fedhap",
+          "asyncfleo-gs", "asyncfleo-hap", "asyncfleo-twohap"]
+TABLE2_HELD = ("fedisl-ideal", "fedsat", "fedhap", "asyncfleo-twohap")
+TABLE2_EPOCHS = 2
+
+
+def table2_cpu_runs(schemes) -> dict:
+    """Each scheme of ``schemes`` on the CPU through ``run_schemes`` on the
+    non-IID workload, all at once, one process each sharing the host's
+    cores.  Returns {scheme: (history records, final flat model,
+    groups)}."""
+    import os
+    import tempfile
+    import torch
+    threads = max(1, (os.cpu_count() or 1) // len(schemes))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        try:
+            for name in schemes:
+                code = (f"import sys, torch\n"
+                        f"sys.path[:0] = [{str(ROOT)!r}, {str(SRC)!r}]\n"
+                        f"torch.set_num_threads({threads})\n"
+                        "from repro_torch.fl_constellation_sim import "
+                        "build_workload, run_schemes\n"
+                        f"sim, hist = run_schemes([{name!r}], build_workload("
+                        f"iid=False, device='cpu'), epochs={TABLE2_EPOCHS})"
+                        f"[{name!r}]\n"
+                        "torch.save(dict(history=[vars(r) for r in hist], "
+                        "w=sim._w_flat, groups=sim.grouping.groups), "
+                        f"{tmp + '/' + name + '.pt'!r})\n")
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-c", code], stdout=subprocess.DEVNULL,
+                    stderr=subprocess.PIPE, text=True)
+            errs = {name: p.communicate(timeout=900)[1]
+                    for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out = {}
+        for name, p in procs.items():
+            if p.returncode != 0:
+                fail(f"phase 18's CPU run of {name} failed:\n"
+                     f"{errs[name][-3000:]}")
+            d = torch.load(f"{tmp}/{name}.pt")
+            out[name] = ([types.SimpleNamespace(**r) for r in d["history"]],
+                         d["w"], d["groups"])
+    return out
+
+
+def table2_path(torch, report, *, others) -> None:
+    """Phase 18: each Table II scheme on the epoch loop at full width on
+    the card, twice (the second run warm); those in ``TABLE2_HELD``
+    against a CPU run of the port on the same non-IID shards: history,
+    accuracy and final model as phase 16 holds them, and the same
+    divergence groups."""
+    from repro_torch.fl_constellation_sim import build_workload, run_schemes
+    from repro_torch.kernels.fed_agg import fed_agg
+    phase(f"phase 18: Table II — repro_torch.fl_constellation_sim."
+          f"run_schemes, {len(TABLE2)} schemes, MNIST_CNN, S=40, J=30, "
+          f"b=32, {TABLE2_EPOCHS} epochs each, non-IID, 3 days; "
+          f"{', '.join(TABLE2_HELD)} against CPU runs")
+    work = build_workload(iid=False, device="cuda")
+    for w in (fed_agg,) + tuple(others):
+        w.launches = 0
+    out, runs = {}, {}
+    for name in TABLE2:
+        before = step_counts(work.pool)
+        fed_agg.launches = 0
+        t0 = time.perf_counter()
+        sim, hist = run_schemes([name], work, epochs=TABLE2_EPOCHS)[name]
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = fed_agg.launches
+        after = step_counts(work.pool)
+        steps = (after[0] - before[0], after[1] - before[1])
+        t0 = time.perf_counter()
+        run_schemes([name], work, epochs=TABLE2_EPOCHS)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        groups = sim.grouping.groups
+        print(f"{name}: {len(hist)} records, accuracy "
+              f"{[round(r.accuracy, 4) for r in hist]}, best "
+              f"{max(r.accuracy for r in hist):.4f}, fed_agg {launches} "
+              f"launches for {sum(steps)} epoch steps ({steps[1]} "
+              f"fallback; {launches / len(hist):g} an epoch), cold "
+              f"{cold:.3f} s, warm {warm:.3f} s, {len(groups)} groups "
+              f"{groups}")
+        check_launches(name, hist, launches, steps, TABLE2_EPOCHS)
+        runs[name] = (sim, hist)
+        out[name] = dict(
+            fed_agg_launches=launches, epoch_steps=steps[0],
+            fallback_steps=steps[1], wall_s_first=cold, warm_wall_s=warm,
+            groups=groups, best_accuracy=max(r.accuracy for r in hist),
+            history=[vars(r) for r in hist])
+    other = {w.__name__: w.launches for w in others}
+    if any(other.values()):
+        fail(f"the Table II runs launched other kernels: {other}")
+    t0 = time.perf_counter()
+    cpu = table2_cpu_runs(TABLE2_HELD)
+    cpu_s = time.perf_counter() - t0
+    for name in TABLE2_HELD:
+        (sim, hist), (cpu_hist, cpu_w, cpu_groups) = runs[name], cpu[name]
+        print(f"{name} against its CPU run:")
+        out[name]["w_max_abs_diff"] = hold_against_cpu(name, sim, hist,
+                                                       cpu_hist, cpu_w)
+        if sim.grouping.groups != cpu_groups:
+            fail(f"{name}: card groups {sim.grouping.groups}, CPU groups "
+                 f"{cpu_groups}")
+        out[name]["history_cpu"] = [vars(r) for r in cpu_hist]
+    print(f"Table II: {len(TABLE2_HELD)} schemes held against CPU runs of "
+          f"the port ({cpu_s:.1f} s, in {len(TABLE2_HELD)} processes at "
+          f"once)")
+    report["table2"] = dict(schemes=out, cpu_s=cpu_s)
+
+
+def observability_path(torch, report, quickstart, quickstart_w, work, *,
+                       others) -> None:
+    """Phase 19: phase 16's quickstart (``quickstart``, its final flat
+    model ``quickstart_w``, on its workload ``work``) with a ``Tracer``
+    and a ``DispatchProfiler`` that does not block, then one that blocks,
+    then none: each bit-identical to phase 16's run; the profiler's counts
+    against ``fed_agg``'s launches, the commits and a CPU run's; the
+    traces exported and validated; the step's host-dispatch and
+    device-inclusive seconds beside the walls and phase 16's busy time.
+    The CPU run is phase 16's, traced and profiled."""
+    import tempfile
+    from repro_torch.kernels.fed_agg import fed_agg
+    from repro_torch.obs import (DispatchProfiler, Tracer,
+                                 add_runtime_tracks, export_chrome,
+                                 export_jsonl, validate_chrome_trace)
+    phase(f"phase 19: observability — phase 16's quickstart ({EVENT_SCHEME}"
+          f", 2 epochs) traced, with DispatchProfiler(block=False), then "
+          f"block=True, then no profiler; Chrome and JSONL export")
+    ev = report["event_path"]
+    cpu_obs = ev["cpu_obs"]
+    cpu_counts = (cpu_obs["spans"], cpu_obs["instants"])
+    for w in (fed_agg,) + tuple(others):
+        w.launches = 0
+    out = {"runs": {}}
+    for label, prof in (("block=False", DispatchProfiler()),
+                        ("block=True", DispatchProfiler(block=True)),
+                        ("no profiler", None)):
+        tracer = Tracer()
+        fed_agg.launches = 0
+        t0 = time.perf_counter()
+        sim, hist = pipelined_run(work, tracer=tracer, profiler=prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fed_agg.launches
+        if ([vars(r) for r in hist] != quickstart["history"]
+                or not torch.equal(sim._w_flat, quickstart_w)):
+            fail(f"{label}: the traced quickstart's history or final model "
+                 "differs from phase 16's run")
+        run = dict(wall_s=wall, fed_agg_launches=launches)
+        print(f"{label}: wall {wall:.3f} s, {launches} fed_agg launches, "
+              f"{len(hist)} commits, history and model equal phase 16's")
+        if prof is not None:
+            summ = run["summary"] = prof.summary()
+            print(f"  summary {summ}")
+            want = dict(dispatches=launches, triggers=len(hist),
+                        dispatches_per_trigger=1.0,
+                        cold_dispatches=cpu_obs["summary"][
+                            "cold_dispatches"])
+            got = {k: summ[k] for k in want}
+            if got != want:
+                fail(f"{label}: profiler counts {got}, expected {want}")
+        add_runtime_tracks(tracer, sim.runtime)
+        with tempfile.TemporaryDirectory() as tmp:
+            obj = export_chrome(tracer, f"{tmp}/trace.json")
+            with open(f"{tmp}/trace.json") as f:
+                errors = (validate_chrome_trace(obj)
+                          + validate_chrome_trace(json.load(f)))
+            lines = export_jsonl(tracer, f"{tmp}/trace.jsonl")
+        counts = (len(tracer.spans), len(tracer.instants))
+        if errors or counts != cpu_counts or lines != sum(counts):
+            fail(f"{label}: trace errors {errors[:5]}, spans and instants "
+                 f"{counts} (CPU run {cpu_counts}), {lines} JSONL lines")
+        run.update(spans=counts[0], instants=counts[1],
+                   chrome_events=len(obj["traceEvents"]))
+        out["runs"][label] = run
+    other = {w.__name__: w.launches for w in others}
+    if any(other.values()):
+        fail(f"the observability runs launched other kernels: {other}")
+    host = out["runs"]["block=False"]
+    dev = out["runs"]["block=True"]
+    host_s = host["summary"]["compile_s"] + host["summary"]["dispatch_s"]
+    dev_s = dev["summary"]["compile_s"] + dev["summary"]["dispatch_s"]
+    busy_s, warm_s = ev["busy_ms"] / 1e3, ev["wall_ms"] / 1e3
+    split = dict(host_dispatch_s=host_s, host_wall_s=host["wall_s"],
+                 device_inclusive_s=dev_s, blocking_wall_s=dev["wall_s"],
+                 outside_step_s=dev["wall_s"] - dev_s,
+                 phase16_busy_s=busy_s, phase16_warm_wall_s=warm_s)
+    print(f"wall split: step dispatch on the host {host_s:.3f} s of a "
+          f"{host['wall_s']:.3f} s wall ({host_s / host['wall_s']:.3f}); "
+          f"step with the device waited for {dev_s:.3f} s of "
+          f"{dev['wall_s']:.3f} s ({dev_s / dev['wall_s']:.3f}); outside "
+          f"the step {dev['wall_s'] - dev_s:.3f} s; phase 16: busy "
+          f"{busy_s:.3f} s of a warm {warm_s:.3f} s wall; traces "
+          f"{cpu_counts[0]} spans and {cpu_counts[1]} instants, as phase "
+          f"16's CPU run's")
+    out["split"] = split
+    report["observability"] = out
 
 
 def results_w0(sim):

@@ -25,7 +25,9 @@ afterwards, counted in ``fallback_dispatches``.
 The JAX package donates ``w_flat`` to its jitted program, which writes the
 new global model into the same buffer.  Here the update is in place for
 the same reason: the caller must not expect ``w_flat``'s old values after
-the call.  The JAX package's mesh-sharded path and ``batched_step`` (the
+the call.  A ``DispatchProfiler`` (``obs/profile``) attached as
+``profiler`` times each ``step`` on the host.  The JAX package's
+mesh-sharded path and ``batched_step`` (the
 sweep engine's scenario batching) come with later slices.
 """
 from __future__ import annotations
@@ -67,6 +69,9 @@ class EpochStepProgram:
 
     dispatches: int = 0                # one-step epochs
     fallback_dispatches: int = 0       # epochs that needed train + agg split
+    # obs/profile.DispatchProfiler, set by FLSimulation._init_run on every
+    # run (None detaches the previous run's); None skips the hook
+    profiler: Optional[Any] = None
 
     def step(self, w_flat: torch.Tensor, carry: torch.Tensor, inputs,
              ids_np: np.ndarray, seed: int, wv_bank: np.ndarray,
@@ -87,6 +92,25 @@ class EpochStepProgram:
             self.fallback_dispatches += 1
         else:
             self.dispatches += 1
+        args = (w_flat, carry, inputs, ids_np, seed, wv_bank, wv_carry,
+                base_w, dw_row, dw_seg, kpad, blocked_m, dw_carry, ref)
+        prof = self.profiler
+        if prof is None:
+            return self._step(*args)
+        # the reference's static dispatch signature: the shapes and static
+        # arguments that force a new jit trace there (carry rows,
+        # participant count, kpad, blocked_m) and the fallback split
+        sig = (int(carry.shape[0]), int(len(ids_np)), int(kpad),
+               int(blocked_m), bool(fallback))
+        t0 = prof.timer()
+        out = self._step(*args)
+        if prof.block and w_flat.device.type == "cuda":
+            torch.cuda.synchronize(w_flat.device)
+        prof.record(sig, bool(fallback), prof.timer() - t0)
+        return out
+
+    def _step(self, w_flat, carry, inputs, ids_np, seed, wv_bank, wv_carry,
+              base_w, dw_row, dw_seg, kpad, blocked_m, dw_carry, ref):
         dev = w_flat.device
 
         def host(a, dtype=torch.float32):

@@ -36,9 +36,11 @@ visibility grid, and — on the event-driven runtime only — lossy
 transfers, outage failover and energy budgets.
 ``SimConfig.visibility="sparse"`` compiles the contact geometry as
 segments instead of the dense grid, with the same answers.
+``SimConfig.profiler`` attaches an ``obs/profile.DispatchProfiler`` to
+the run's epoch step (read-only: the same history and model bits).
 
 What the JAX package's simulator has beyond this (the stacked and legacy
-paths, profiling, scenario batching, a device mesh) raises
+paths, scenario batching, a device mesh) raises
 ``NotImplementedError`` naming the slice of the port that brings it.
 """
 from __future__ import annotations
@@ -97,7 +99,7 @@ class SimConfig:
     # bit-identical to the fault-free simulator
     fault_model: Optional[object] = None
     tracer: Optional[object] = None        # obs/trace.Tracer (event runtime)
-    profiler: Optional[object] = None      # obs/profile (not ported)
+    profiler: Optional[object] = None      # obs/profile.DispatchProfiler
     dispatcher: Optional[object] = None    # sweep/batch (not ported)
     # contact-plan geometry backend (DESIGN.md §14): "dense" precomputes
     # the (T, S, P) visibility grid; "sparse" compiles per-(sat, PS)
@@ -119,9 +121,6 @@ def _check_ported(sim: SimConfig) -> None:
         raise _not_ported("SimConfig.mesh", "15 (mesh- and pod-shaped code)")
     if sim.visibility not in ("dense", "sparse"):
         raise ValueError(f"visibility must be dense|sparse: {sim.visibility}")
-    if sim.profiler is not None:
-        raise _not_ported("SimConfig.profiler",
-                          "11 (observability, obs/profile)")
     if sim.dispatcher is not None:
         raise _not_ported("SimConfig.dispatcher", "12 (the sweep engine)")
 
@@ -606,6 +605,10 @@ class FLSimulation:
         if self.plan.contention is not None:
             self.plan.contention.reset()   # channel pools are per-run state
         prog = make_epoch_program(self.trainer, w0)
+        # dispatch profiling hook (obs/profile.py); programs are cached on
+        # the trainer, so (re)set it every run: None detaches a previous
+        # run's profiler
+        prog.profiler = self.sim.profiler
         self._spec = prog.spec
         self._w_flat = self._spec.flatten(w0)      # a new tensor, never w0
         self._dist_pending = None

@@ -6,9 +6,8 @@ flat counter dict — but not *when*: where a pipelined run's simulated
 time went, how long a round sat in its trigger window.  A
 :class:`Tracer` records the per-round lifecycle as **spans** (durations
 in simulated seconds on a named track) and **instant events** (points
-with structured args), into a plain in-memory buffer.  The exporters to
-Chrome trace-event JSON and JSONL (``obs/export`` in the JAX package)
-are not ported yet: ROADMAP queue A item 11.
+with structured args), into a plain in-memory buffer, which
+``obs/export`` renders as Chrome trace-event JSON or JSONL.
 
 Span taxonomy (one track per round, ``"round <idx>"``):
 
@@ -19,10 +18,9 @@ Span taxonomy (one track per round, ``"round <idx>"``):
   sink arrival;
 * ``trigger_window`` — first *used* arrival -> the aggregation instant.
 
-``channel_busy`` and ``outage`` name the per-PS spans the exporters
-synthesize (the exporters come with ROADMAP queue A item 11); the names
-are kept so the two packages share one vocabulary.  The runtime records
-``MODEL_ARRIVAL``, ``TRIGGER`` / ``DISPATCH`` / ``COMMIT``,
+``channel_busy`` and ``outage`` name the per-PS spans that
+``obs/export.add_runtime_tracks`` synthesizes after a run.  The runtime
+records ``MODEL_ARRIVAL``, ``TRIGGER`` / ``DISPATCH`` / ``COMMIT``,
 ``WINDOW_SHRUNK`` and the fault instants (``TRANSFER_FAILED`` ...
 ``ENERGY_DEFERRAL``).
 

@@ -100,10 +100,13 @@ still pending — across reroutes, deferrals and retries
 (tests/test_torch_faults.py).  Every §11 axis at its default attaches no
 state and is bit-identical to the §10 runtime.
 
-Not ported yet: the reference's dispatch profiler and scenario-batching
-hooks come with ROADMAP queue A items 11 and 12; ``FLSimulation``
-refuses those options.  The stats keep the reference's whole key set,
-so ``dict(runtime.stats)`` equals the reference's.
+Each commit calls the attached ``DispatchProfiler``'s ``trigger()``
+(``SimConfig.profiler``, through the epoch program), so its summary
+reports dispatches per trigger.  Not ported yet: the reference's
+scenario-batching hook comes with ROADMAP queue A item 12;
+``FLSimulation`` refuses ``SimConfig.dispatcher``.  The stats keep the
+reference's whole key set, so ``dict(runtime.stats)`` equals the
+reference's.
 
 The runtime owns no model math: it drives `FLSimulation._fused_commit`
 (the epoch loop's post-trigger tail), so under the AsyncFLEO policy its
@@ -994,6 +997,12 @@ class EventDrivenRuntime:
                 cross += int(ep != rnd.beta)
         self.stats["cross_round_adoptions"] += cross
         self.stats["arrivals_committed"] += len(used) + adopted
+        prof = getattr(self.prog, "profiler", None)
+        if prof is not None:
+            # dispatches-per-trigger attribution (obs/profile.py): the
+            # fused commit below runs one step for this trigger (none when
+            # the commit has nothing to train)
+            prof.trigger()
         t_trigger = t_agg
         # the round trains here, from the global model as it stands at
         # commit time; its models are stamped with the round's own epoch

@@ -132,7 +132,8 @@ def test_port_imports_no_jax():
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "repro_torch.core.simulator" in mods and len(mods) >= 30
+    assert {"repro_torch.core.simulator", "repro_torch.obs.export",
+            "repro_torch.obs.profile"} <= set(mods) and len(mods) >= 30
 
 
 def test_ast_scan_finds_no_jax_import():
@@ -167,8 +168,7 @@ def test_cuda_without_a_card_raises(setup):
 
 @pytest.mark.parametrize("change", [
     dict(use_model_bank=False), dict(use_fused_step=False),
-    dict(mesh=object()),
-    dict(profiler=object()), dict(dispatcher=object())])
+    dict(mesh=object()), dict(dispatcher=object())])
 def test_unported_options_raise(setup, change):
     *_, work = setup
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
