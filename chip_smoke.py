@@ -166,12 +166,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and hold that CPU run's span and instant counts.  The step's
      host-dispatch seconds and device-inclusive seconds are printed
      beside each run's wall and phase 16's busy time;
- 20. one JSON line of per-kernel numbers.
+ 20. the stacked and legacy simulator paths: phase 4's configuration
+     (asyncfleo-hap, 3 epochs), then asyncfleo-twohap with
+     ``agg_timeout_s=120`` (stragglers carried), then fedsat (the legacy
+     path's per-arrival EMA, one ``fed_agg`` a model), each through
+     ``FLSimulation`` with ``use_fused_step=False`` and with
+     ``use_model_bank=False`` beside the fused path, at full width on one
+     workload.  Every run must launch ``fed_agg`` exactly as often as its
+     path's code predicts (``predicted_launches``) and give the fused
+     run's host rows (epoch, time, models, gamma, stale groups) and
+     groups.  The stacked run's models and accuracies must be bit-equal to
+     the fused run's.  The legacy run (another summation order): the first
+     record's model within 1e-5 and its accuracy equal, the final model
+     within 1e-4 (SGD amplifies the reordering from epoch to epoch), at
+     most 40 final test predictions different and every accuracy within
+     7 test samples.  A known-bad control, the legacy path with one update
+     lost at the last record, must fail each of those three limits;
+ 21. the sweep engine: (a) 8 scenarios of the testbed at
+     ``make_model(width=321)`` (N = 206,403), seed x strategy x link rate
+     on the paper constellation, through ``run_scenarios`` sequentially,
+     then batched in exact mode: per scenario the history, the final
+     weights' bytes, the logical step counts and ``rt.stats`` must be
+     equal, with fewer physical than logical steps; the vmap mode within
+     1e-4 of exact; ``fed_agg`` on the rows of (3, N) and (4, N) stacks at
+     N = 206,922 (odd rows only 8-byte aligned) bit-equal to aligned
+     copies.  (b) 3 scenarios of the MNIST_CNN pool at full width through
+     ``run_scenarios(trainer_factory=...)``: no batch key, so every step
+     runs solo; batched bit-identical to sequential.  Walls and
+     ``batcher.summary()`` printed;
+ 22. one JSON line of per-kernel numbers.
 
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository beside it, it exits non-zero and prints no result.  A run
-takes 9 to 13 minutes on an H100.
+takes 10 to 14 minutes on an H100.
 ``--report PATH`` also writes every number of the run there as JSON,
 with the seconds at which each phase started.
 """
@@ -753,7 +781,15 @@ def main() -> None:
                        quickstart_work,
                        others=(pairwise_dist_sq, flash_attention, chunk_scan))
 
-    # ---- 20. the kernel line ----------------------------------------------
+    # ---- 20. the stacked and legacy simulator paths ----------------------
+    simulator_paths(torch, report,
+                    others=(pairwise_dist_sq, flash_attention, chunk_scan))
+
+    # ---- 21. the sweep engine ---------------------------------------------
+    sweep_path(torch, report,
+               others=(pairwise_dist_sq, flash_attention, chunk_scan))
+
+    # ---- 22. the kernel line ----------------------------------------------
     fb, pg = timings["eq14_bank_carry"], timings["pairwise_dist_grouping"]
     kernel_line = {"kernels": [
         dict(name="fed_agg", route="cuda",
@@ -1716,6 +1752,442 @@ def observability_path(torch, report, quickstart, quickstart_w, work, *,
           f"16's CPU run's")
     out["split"] = split
     report["observability"] = out
+
+
+# phase 20: the stacked and legacy simulator paths at full width, each run
+# held against the fused path's run of the same configuration on the card
+# (the fused path is held against the CPU in phase 4, the CPU tests hold
+# the rest)
+PATH_MODES = ("fused", "stacked", "legacy")
+PATH_CONFIGS = (("asyncfleo-hap", {}),
+                ("asyncfleo-twohap", dict(agg_timeout_s=120.0)),
+                ("fedsat", {}))
+# The legacy path sums each record's models in selection order, the fused
+# one in bank order.  The first record aggregates the same trained models
+# (tensor math on identical inputs: 1e-5, its accuracy equal); every later
+# record trains from globals that differ by that rounding, and J = 30 SGD
+# steps amplify it by 10-40x an epoch.  The limits on the last record are
+# set from scripts/path_divergence.py's readings at record 3 on an H100
+# (PERF.md): sound pairs (legacy - fused on the card and on the CPU, the
+# card's fused run against the CPU's) reach 4.7e-5 legacy - fused (1.7e-4
+# card - CPU), 12 differing test predictions and 2 test samples of
+# accuracy; the known-bad control below (one update lost) reads 2.4e-4
+# and 4.1e-4, 120 and 191 predictions, 26 and 47 samples.  Each limit lies
+# near the geometric mean of the two.  They hold only at PATH_EPOCHS = 3:
+# the sound legacy - fused distance passes 1e-4 at record 4 on hap
+# (1.7e-4), so the depth is not to be moved without new readings.
+PATH_EPOCHS = 3
+PATH_SAME_INPUT_TOL = 1e-5
+PATH_TRAINED_TOL = 1e-4
+PATH_FLIP_LIMIT = 40        # differing test predictions at the last record
+PATH_ACC_SAMPLES = 7        # test samples of accuracy at any record
+CONTROL_RECORD = PATH_EPOCHS - 1
+
+
+class SeenModels:
+    """A workload's evaluator that keeps a flat copy of every model it
+    evaluates: each record's global model, on every path (the legacy path
+    keeps no flat copy of its own)."""
+
+    def __init__(self, evaluator):
+        self.evaluator, self.seen = evaluator, []
+
+    def eval_async(self, params):
+        from repro_torch.core.modelbank import flatten_tree
+        self.seen.append(flatten_tree(params))
+        return self.evaluator.eval_async(params)
+
+
+def path_run(work, scheme, mode, **sim_kw):
+    """``scheme`` on the epoch loop (3 days, ``PATH_EPOCHS`` epochs) on one
+    simulator path: ``SimConfig(use_fused_step=False)`` is the stacked
+    path, ``use_model_bank=False`` the legacy one.  Returns (the
+    simulation, its history, each record's flat global model)."""
+    from repro_torch.core.simulator import FLSimulation, SimConfig
+    from repro_torch.fl.strategies import get_strategy
+    ev = SeenModels(work.evaluator)
+    sim = FLSimulation(get_strategy(scheme), work.pool, ev,
+                       SimConfig(duration_s=3 * 86400.0,
+                                 use_model_bank=mode != "legacy",
+                                 use_fused_step=mode == "fused", **sim_kw))
+    return sim, sim.run(work.w0, max_epochs=PATH_EPOCHS), ev.seen
+
+
+def lost_update_run(work, scheme, **sim_kw):
+    """The known-bad control: the legacy path with one fault, at the last
+    record, in ``asyncfleo_aggregate``: the first model of the first group
+    replaced by the global it was trained from (one satellite's update
+    lost).  Returns what ``path_run`` returns."""
+    from repro_torch.core import aggregation as agg
+    clean = agg.asyncfleo_aggregate
+
+    def lossy(w_prev, groups, models, metas, beta, **kw):
+        if beta == CONTROL_RECORD:
+            models = list(models)
+            models[next(iter(groups.values()))[0]] = dict(w_prev)
+        return clean(w_prev, groups, models, metas, beta, **kw)
+
+    agg.asyncfleo_aggregate = lossy
+    try:
+        return path_run(work, scheme, "legacy", **sim_kw)
+    finally:
+        agg.asyncfleo_aggregate = clean
+
+
+def predicted_launches(mode, agg_mode, hist, fallback_steps) -> int:
+    """The ``fed_agg`` launches each path's code makes for a run that
+    recorded ``hist`` (every record aggregating at least one model with a
+    non-zero weight, as asyncfleo, fedavg, per-arrival and interval modes
+    do):
+    - fused (``_fused_commit``): one a step, whose launch takes the bank
+      and the carry together, plus one ``combine_stacked`` after each
+      fallback step; a commit without training launches one
+      ``combine_stacked`` too — so one a record plus one a fallback;
+    - stacked (``_stacked_epoch``): one ``combine_stacked`` a record over
+      at most two segments (bank and carry), one launch;
+    - legacy (``_legacy_epoch``): one ``weighted_sum`` a record
+      (``fedavg``, ``asyncfleo_aggregate``, the interval rule), but the
+      per-arrival EMA chains one a model."""
+    if mode == "fused":
+        return len(hist) + fallback_steps
+    if mode == "legacy" and agg_mode == "per_arrival":
+        return sum(r.num_models for r in hist)
+    return len(hist)
+
+
+def test_logits(torch, work, spec, w_flat):
+    """The CNN's logits over the workload's test set at the flat model
+    ``w_flat``."""
+    from repro_torch.models import cnn
+    ev = work.evaluator
+    imgs = torch.from_numpy(ev.images).to(w_flat.device)[None]
+    params = {k: v[None] for k, v in spec.unflatten(w_flat).items()}
+    return cnn.apply(params, work.pool.cfg, imgs)[0]
+
+
+def against_fused(torch, work, run, fused) -> dict:
+    """A run's distance to the fused run of its configuration: max |w -
+    w_fused| and the accuracy difference by record, and the test
+    predictions that differ at the last record."""
+    diffs = [float((a.double() - b.double()).abs().max())
+             for a, b in zip(run["seen"], fused["seen"])]
+    accs = [a.accuracy - b.accuracy
+            for a, b in zip(run["hist"], fused["hist"])]
+    flips = int((test_logits(torch, work, fused["spec"], run["seen"][-1])
+                 .argmax(-1) != test_logits(torch, work, fused["spec"],
+                                            fused["seen"][-1]).argmax(-1))
+                .sum())
+    return dict(w_max_abs_diff_by_record=diffs, acc_diff_by_record=accs,
+                final_prediction_flips=flips)
+
+
+def legacy_faults(d, n_test: int) -> dict:
+    """What the legacy path's limits find wrong in ``against_fused``'s
+    reading ``d`` over a test set of ``n_test`` samples: {limit: message}
+    for each limit it fails (empty: none)."""
+    diffs, accs = d["w_max_abs_diff_by_record"], d["acc_diff_by_record"]
+    samples = [round(abs(a) * n_test) for a in accs]
+    flips = d["final_prediction_flips"]
+    out = {}
+    if not diffs[0] <= PATH_SAME_INPUT_TOL or samples[0]:
+        out["first record"] = (
+            f"the first record's model is {diffs[0]:.3e} from the fused "
+            f"run's (limit {PATH_SAME_INPUT_TOL}), its accuracy "
+            f"{samples[0]} test samples")
+    if not diffs[-1] <= PATH_TRAINED_TOL:
+        out["model"] = (f"the final model is {diffs[-1]:.3e} from the fused "
+                        f"run's (limit {PATH_TRAINED_TOL})")
+    if flips > PATH_FLIP_LIMIT:
+        out["predictions"] = (f"{flips} final test predictions differ "
+                              f"(limit {PATH_FLIP_LIMIT})")
+    if max(samples) > PATH_ACC_SAMPLES:
+        out["accuracy"] = (f"accuracies {samples} test samples from the "
+                           f"fused run's (limit {PATH_ACC_SAMPLES})")
+    return out
+
+
+def simulator_paths(torch, report, *, others) -> None:
+    """Phase 20: ``PATH_CONFIGS`` on the fused, stacked and legacy paths at
+    full width on the card, each on one workload (its pool draws the same
+    minibatch indices on every path).  Every run launches ``fed_agg``
+    exactly as ``predicted_launches`` says and gives the fused run's host
+    rows and groups.  The stacked path computes the fused path's sums in
+    the same order: every record's model and accuracy bit-equal.  The
+    legacy path sums each record's models in selection order and is held
+    by ``legacy_faults``; for each asyncfleo configuration the known-bad
+    control (``lost_update_run``) must fail each of its limits on the
+    last record."""
+    from repro_torch.fl_constellation_sim import build_workload
+    from repro_torch.kernels.fed_agg import fed_agg
+    phase(f"phase 20: stacked and legacy simulator paths — FLSimulation "
+          f"with use_fused_step=False, then use_model_bank=False, against "
+          f"the fused path; MNIST_CNN, S=40, J=30, b=32, {PATH_EPOCHS} "
+          f"epochs, IID: {[c for c, _ in PATH_CONFIGS]}")
+    work = build_workload(iid=True, device="cuda")
+    n_test = len(work.evaluator.images)
+    for w in (fed_agg,) + tuple(others):
+        w.launches = 0
+    out = {}
+    for scheme, sim_kw in PATH_CONFIGS:
+        label = scheme + "".join(f" {k}={v:g}" for k, v in sim_kw.items())
+        runs = {}
+        for mode in PATH_MODES:
+            before = step_counts(work.pool)
+            fed_agg.launches = 0
+            t0 = time.perf_counter()
+            sim, hist, seen = path_run(work, scheme, mode, **sim_kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fed_agg.launches
+            fallback = step_counts(work.pool)[1] - before[1]
+            want = predicted_launches(mode, sim.spec.agg_mode, hist,
+                                      fallback)
+            rows = [(r.epoch, r.time_s, r.num_models, r.gamma,
+                     r.stale_groups) for r in hist]
+            print(f"{label} {mode}: {len(hist)} records, fed_agg {launches} "
+                  f"launches (predicted {want}), wall {wall:.3f} s, "
+                  f"accuracy {[round(r.accuracy, 4) for r in hist]}, "
+                  f"groups {sim.grouping.groups}, segments "
+                  f"{ {k: round(v, 3) for k, v in sim.segment_seconds.items()} }")
+            if len(hist) != PATH_EPOCHS or len(seen) != PATH_EPOCHS or not \
+                    all(math.isfinite(r.accuracy) for r in hist):
+                fail(f"{label} {mode}: {len(hist)} records, not "
+                     f"{PATH_EPOCHS} finite ones")
+            if launches != want:
+                fail(f"{label} {mode}: fed_agg launched {launches} times, "
+                     f"the code predicts {want}")
+            runs[mode] = dict(rows=rows, hist=hist, seen=seen, wall_s=wall,
+                              fed_agg_launches=launches, spec=sim._spec,
+                              groups=sim.grouping.groups)
+        fused = runs["fused"]
+        res = {"fused": dict(wall_s=fused["wall_s"],
+                             fed_agg_launches=fused["fed_agg_launches"],
+                             history=[vars(r) for r in fused["hist"]])}
+        for mode in ("stacked", "legacy"):
+            run = runs[mode]
+            if run["rows"] != fused["rows"] or run["groups"] != fused[
+                    "groups"]:
+                fail(f"{label} {mode}: host rows {run['rows']} and groups "
+                     f"{run['groups']} differ from the fused run's "
+                     f"{fused['rows']}, {fused['groups']}")
+            d = against_fused(torch, work, run, fused)
+            res[mode] = dict(wall_s=run["wall_s"],
+                             fed_agg_launches=run["fed_agg_launches"], **d)
+            print(f"  {mode} against fused: host rows and groups equal; max "
+                  f"|w - w_fused| by record "
+                  f"{[f'{x:.3e}' for x in d['w_max_abs_diff_by_record']]}, "
+                  f"accuracy differences "
+                  f"{[round(a, 4) for a in d['acc_diff_by_record']]}, "
+                  f"{d['final_prediction_flips']} final predictions differ")
+            if mode == "stacked":
+                if any(d["w_max_abs_diff_by_record"]) or any(
+                        d["acc_diff_by_record"]):
+                    fail(f"{label} stacked: not bit-equal to the fused run")
+                continue
+            faults = legacy_faults(d, n_test)
+            if faults:
+                fail(f"{label} legacy: " + "; ".join(faults.values()))
+        if sim.spec.agg_mode == "asyncfleo":
+            _sim, hist, seen = lost_update_run(work, scheme, **sim_kw)
+            d = against_fused(torch, work, dict(hist=hist, seen=seen), fused)
+            caught = legacy_faults(d, n_test)
+            print(f"  known-bad control (one update lost at record "
+                  f"{CONTROL_RECORD + 1}): max |w - w_fused| by record "
+                  f"{[f'{x:.3e}' for x in d['w_max_abs_diff_by_record']]}, "
+                  f"accuracy differences "
+                  f"{[round(a, 4) for a in d['acc_diff_by_record']]}, "
+                  f"{d['final_prediction_flips']} final predictions differ; "
+                  f"rejected for: {sorted(caught)}")
+            missed = {"model", "predictions", "accuracy"} - set(caught)
+            if missed:
+                fail(f"{label}: the legacy limits {sorted(missed)} pass the "
+                     f"known-bad control {d}")
+            res["lost_update_control"] = dict(rejected_for=caught, **d)
+        out[label] = res
+    other = {w.__name__: w.launches for w in others}
+    if any(other.values()):
+        fail(f"the simulator paths launched other kernels: {other}")
+    report["simulator_paths"] = out
+
+
+# phase 21: the scenario sweep engine.  (a) 8 scenarios of the testbed at
+# the main path's size, seed x strategy x link rate, sequential against
+# batched; (b) 3 scenarios of the MNIST_CNN pool, which has no batch key
+SWEEP_WIDTH = 321                   # 2 w^2 + w = 206,403 parameters
+SWEEP_AXES = dict(seed=[0, 1], strategy=["asyncfleo-pipelined", "fedisl"],
+                  rate_bps=[16e6, 1e5])
+SWEEP_EPOCHS = 4
+SWEEP_TARGET = 0.9
+POOL_SWEEP_SEEDS = [0, 1, 2]
+POOL_SWEEP_EPOCHS = 2
+
+
+def sweep_key(r):
+    """Everything a sweep result must share with its twin, bit for bit:
+    the history, the final weights' bytes, the logical step counts, the
+    convergence delay and the runtime stats."""
+    return ([tuple(vars(h).values()) for h in r.history],
+            r.final_weights.tobytes(), r.dispatches, r.fallback_dispatches,
+            r.convergence_delay_s, r.stats)
+
+
+def sweep_path(torch, report, *, others) -> None:
+    """Phase 21: the sweep engine on the card.  (a) ``SWEEP_AXES`` over the
+    testbed at ``make_model(width=SWEEP_WIDTH)``: sequential, then batched
+    in exact mode, bit-identical per scenario, with fewer physical than
+    logical steps; then the vmap mode within 1e-4 of exact; the batched
+    step's rows at the MNIST_CNN N (rows only 8-byte aligned), B odd and
+    even, bit-equal to solo ``fed_agg`` calls on aligned copies.  (b) The
+    MNIST_CNN pool at full width through ``run_scenarios(trainer_factory
+    =...)``: no batch key, so every step runs solo; sequential against
+    batched, bit-identical."""
+    import numpy as np
+    from repro_torch.fl_constellation_sim import build_workload
+    from repro_torch.kernels.fed_agg import fed_agg
+    from repro_torch.sweep import (DispatchBatcher, ScenarioSpec, grid,
+                                   make_model, run_scenarios)
+    n_sweep = 2 * SWEEP_WIDTH ** 2 + SWEEP_WIDTH
+    specs = grid(ScenarioSpec(), **SWEEP_AXES)
+    phase(f"phase 21: sweep engine — run_scenarios, {len(specs)} testbed "
+          f"scenarios at N = {n_sweep} ({' x '.join(SWEEP_AXES)}), "
+          f"sequential vs batched (exact, vmap); then "
+          f"{len(POOL_SWEEP_SEEDS)} MNIST_CNN pool scenarios")
+    dev = torch.device("cuda")
+    for w in (fed_agg,) + tuple(others):
+        w.launches = 0
+    w0 = make_model(width=SWEEP_WIDTH, device=dev)
+    kw = dict(max_epochs=SWEEP_EPOCHS, target_accuracy=SWEEP_TARGET)
+    out = {}
+    walls = {}
+    for label, batched, mode in (("sequential", False, "exact"),
+                                 ("batched", True, "exact"),
+                                 ("vmap", True, "vmap")):
+        batcher = DispatchBatcher(mode=mode) if batched else None
+        fed_agg.launches = 0
+        t0 = time.perf_counter()
+        res = run_scenarios(specs, w0, batched=batched, batcher=batcher,
+                            **kw)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        logical = sum(r.dispatches + r.fallback_dispatches for r in res)
+        out[label] = dict(wall_s=walls[label], logical_steps=logical,
+                          fed_agg_launches=fed_agg.launches,
+                          results=res,
+                          summary=None if batcher is None
+                          else batcher.summary())
+        print(f"{label}: wall {walls[label]:.3f} s, {logical} logical "
+              f"steps, fed_agg launches {fed_agg.launches}"
+              + ("" if batcher is None else f", {batcher.summary()}"))
+    seq, bat, vm = (out[k]["results"] for k in ("sequential", "batched",
+                                                "vmap"))
+    # the sequential sweep launches from one thread: one launch a step at
+    # least (commits without training add their own)
+    if out["sequential"]["fed_agg_launches"] < out["sequential"][
+            "logical_steps"]:
+        fail(f"the sequential sweep launched fed_agg "
+             f"{out['sequential']['fed_agg_launches']} times for "
+             f"{out['sequential']['logical_steps']} steps")
+    if not out["batched"]["fed_agg_launches"] > 0:
+        fail("the batched sweep never launched fed_agg")
+    for s, b in zip(seq, bat):
+        if sweep_key(s) != sweep_key(b):
+            fail(f"batched and sequential differ for {s.spec}")
+        if not s.epochs or not np.isfinite(s.final_weights).all():
+            fail(f"{s.spec}: {s.epochs} records, finite weights "
+                 f"{bool(np.isfinite(s.final_weights).all())}")
+    summ = out["batched"]["summary"]
+    if not summ["physical_dispatches"] < out["batched"]["logical_steps"]:
+        fail(f"batched sweep: {summ['physical_dispatches']} physical steps "
+             f"for {out['batched']['logical_steps']} logical ones")
+    vdiff = max(float(np.abs(v.final_weights - b.final_weights).max())
+                for v, b in zip(vm, bat))
+    if not vdiff <= 1e-4 or any(len(v.history) != len(b.history)
+                                for v, b in zip(vm, bat)):
+        fail(f"vmap mode: max |w - w_exact| {vdiff} (limit 1e-4)")
+    print(f"testbed sweep: batched bit-identical to sequential in all "
+          f"{len(specs)} scenarios (histories, weight bytes, logical steps, "
+          f"stats); {summ['physical_dispatches']} physical for "
+          f"{out['batched']['logical_steps']} logical steps; vmap max |w - "
+          f"w_exact| {vdiff:.3e}; walls sequential "
+          f"{walls['sequential']:.3f} s, batched {walls['batched']:.3f} s, "
+          f"vmap {walls['vmap']:.3f} s; convergence delays (h) "
+          f"{[None if r.convergence_delay_s is None else round(r.convergence_delay_s / 3600, 3) for r in bat]}")
+
+    # rows of a (B, N) stack at N = 206,922 (2 mod 4) are only 8-byte
+    # aligned where b is odd; the per-element sum must not depend on the
+    # vector width fed_agg picks from them
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bank = torch.randn(64, MAIN_N, generator=gen, device=dev)
+    carry = torch.randn(4, MAIN_N, generator=gen, device=dev)
+    g = torch.rand(64, generator=gen, device=dev) / 64
+    g2 = torch.rand(4, generator=gen, device=dev) / 4
+    big = torch.randn(65, MAIN_N, generator=gen, device=dev)
+    for B in (3, 4):
+        stack = torch.randn(B, MAIN_N, generator=gen, device=dev)
+        for b in range(B):
+            solo = stack[b].clone()
+            fed_agg(bank, g, solo, 0.35, out=solo, stack2=carry, gamma2=g2)
+            fed_agg(bank, g, stack[b], 0.35, out=stack[b], stack2=carry,
+                    gamma2=g2)
+            shifted = fed_agg(big[1:], g, None, 0.0)
+            aligned = fed_agg(big[1:].clone(), g, None, 0.0)
+            if not (torch.equal(solo, stack[b])
+                    and torch.equal(shifted, aligned)):
+                fail(f"fed_agg on row {b} of a ({B}, {MAIN_N}) stack is not "
+                     "bit-equal to the call on an aligned copy")
+    print(f"fed_agg at N = {MAIN_N}: rows of (3, N) and (4, N) stacks and an "
+          f"8-byte-aligned bank bit-equal to aligned copies")
+
+    # (b) the MNIST_CNN pool: no batch key, every step solo
+    work = build_workload(iid=True, device="cuda")
+    pspecs = grid(ScenarioSpec(), seed=POOL_SWEEP_SEEDS)
+    pkw = dict(max_epochs=POOL_SWEEP_EPOCHS,
+               trainer_factory=lambda _w0: work.pool,
+               evaluator_factory=lambda: work.evaluator)
+    pool_out = {}
+    for label, batched in (("sequential", False), ("batched", True)):
+        batcher = DispatchBatcher() if batched else None
+        fed_agg.launches = 0
+        t0 = time.perf_counter()
+        res = run_scenarios(pspecs, work.w0, batched=batched,
+                            batcher=batcher, **pkw)
+        torch.cuda.synchronize()
+        pool_out[label] = dict(
+            wall_s=time.perf_counter() - t0, results=res,
+            fed_agg_launches=fed_agg.launches,
+            summary=None if batcher is None else batcher.summary())
+        print(f"pool {label}: wall {pool_out[label]['wall_s']:.3f} s, "
+              f"fed_agg launches {fed_agg.launches}, accuracy "
+              f"{[[round(h.accuracy, 4) for h in r.history] for r in res]}"
+              + ("" if batcher is None else f", {batcher.summary()}"))
+    pseq, pbat = pool_out["sequential"]["results"], pool_out["batched"][
+        "results"]
+    for s, b in zip(pseq, pbat):
+        if sweep_key(s) != sweep_key(b):
+            fail(f"pool sweep: batched and sequential differ for {s.spec}")
+        if len(s.history) != POOL_SWEEP_EPOCHS:
+            fail(f"pool sweep: {s.spec} recorded {len(s.history)} epochs")
+    psumm = pool_out["batched"]["summary"]
+    plogical = sum(r.dispatches + r.fallback_dispatches for r in pbat)
+    if psumm["batched_dispatches"] or psumm["solo_dispatches"] != plogical:
+        fail(f"pool sweep: {psumm} for {plogical} logical steps; every "
+             "step must run solo")
+    if not pool_out["sequential"]["fed_agg_launches"] >= plogical > 0:
+        fail(f"pool sweep: {pool_out['sequential']['fed_agg_launches']} "
+             f"fed_agg launches for {plogical} steps")
+    print(f"pool sweep: batched bit-identical to sequential, {plogical} "
+          f"steps all solo")
+    other = {w.__name__: w.launches for w in others}
+    if any(other.values()):
+        fail(f"the sweeps launched other kernels: {other}")
+    for d in (out, pool_out):
+        for v in d.values():
+            v["results"] = [dict(spec=vars(r.spec), epochs=r.epochs,
+                                 dispatches=r.dispatches,
+                                 history=[vars(h) for h in r.history])
+                            for r in v["results"]]
+    report["sweep"] = dict(testbed=out, pool=pool_out,
+                           vmap_max_abs_diff=vdiff)
 
 
 def results_w0(sim):

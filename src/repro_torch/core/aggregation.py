@@ -11,6 +11,12 @@ per-model weights p_n ∝ D_n * (k_n/beta) normalized to sum to gamma.  The
 literal eq. 14 multiplies every selected model by the scalar gamma, which is
 not convex for >1 model; ``strict_paper_eq14=True`` reproduces it anyway
 (DESIGN.md §3 records this interpretation).
+
+Every tensor update here is one ``fed_agg`` call (the reference's
+``use_kernel`` switch has no counterpart: on CUDA the contraction is
+always the kernel, on the CPU its plain version).  Models come as a
+``ModelBank`` (the stacked paths) or as a list of parameter dicts (the
+legacy path, which flattens and stacks them on the device first).
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.modelbank import ModelBank
-from repro_torch.kernels.fed_agg import fed_agg
+from repro_torch.kernels.fed_agg import fed_agg, fed_agg_bank, fed_agg_pytree
 
 
 @dataclasses.dataclass
@@ -47,6 +53,17 @@ def dedup_indices(metas: List[SatelliteMeta]) -> List[int]:
         if j is None or metas[j].ts < m.ts:
             best[m.sat_id] = i
     return sorted(best.values())
+
+
+def dedup(models, metas: List[SatelliteMeta]):
+    """Filter duplicates; ``models`` may be a list of parameter dicts or a
+    ``ModelBank`` (row gather only when needed)."""
+    keep = dedup_indices(metas)
+    if len(keep) == len(metas):         # no duplicates: skip the row gather
+        return models, metas
+    if isinstance(models, ModelBank):
+        return models.select(keep), [metas[i] for i in keep]
+    return [models[i] for i in keep], [metas[i] for i in keep]
 
 
 def scatter_weights(rows, weights, n_rows: int) -> np.ndarray:
@@ -102,15 +119,34 @@ def combine_stacked(terms, base_flat: Optional[torch.Tensor] = None,
 def weighted_sum_stacked(bank: ModelBank, weights, base=None,
                          base_weight: float = 0.0) -> torch.Tensor:
     """``base_weight * base + sum_c weights[c] * bank[c]`` in one
-    ``fed_agg`` pass.  The per-model weights are a host vector (they come
-    from metadata, eqs. 13/14); ``base`` is a flat (N,) tensor or a
-    parameter dict (flattened through the bank's spec).  Returns the flat
-    (N,) result."""
-    w = torch.as_tensor(np.asarray(weights, np.float32),
-                        device=bank.stack.device)
-    if isinstance(base, dict):
-        base = bank.spec.flatten(base)
-    return fed_agg(bank.stack, w, base, base_weight)
+    ``fed_agg`` pass (``fed_agg_bank``).  The per-model weights are a host
+    vector (they come from metadata, eqs. 13/14); ``base`` is a flat (N,)
+    tensor or a parameter dict, dropped when ``base_weight`` is 0, as in
+    the reference.  Returns the flat (N,) result."""
+    return fed_agg_bank(bank, np.asarray(weights, np.float32),
+                        base if base_weight != 0.0 else None, base_weight)
+
+
+def weighted_sum(models, weights: Sequence[float], base=None,
+                 base_weight: float = 0.0):
+    """w = base_weight * base + sum_i weights_i * models_i.
+
+    ``models`` may be a ``ModelBank`` — the flat (N,) result is returned
+    (DESIGN.md §2) — or a list of parameter dicts (the legacy path), which
+    gives a parameter dict.  Either way one ``fed_agg`` call.  A zero
+    ``base_weight`` drops the base term, as in the reference.
+    """
+    if isinstance(models, ModelBank):
+        return weighted_sum_stacked(models, weights, base, base_weight)
+    return fed_agg_pytree(models, np.asarray(weights, np.float32),
+                          base if base_weight != 0.0 else None, base_weight)
+
+
+def fedavg(models, sizes: Sequence[float]):
+    """Synchronous FedAvg (eq. 4).  Accepts parameter-dict lists or a
+    ModelBank."""
+    total = float(sum(sizes))
+    return weighted_sum(models, [s / total for s in sizes])
 
 
 def staleness_gamma(metas: Sequence[SatelliteMeta], total_data: float,
@@ -262,3 +298,36 @@ def epoch_weight_vector(agg_mode: str, metas: List[SatelliteMeta],
         ws[selected] = wsel
         return ws, 1.0 - gamma, info
     return ws, 1.0, info
+
+
+def asyncfleo_aggregate(w_prev, groups: Dict[int, List[int]], models,
+                        metas: List[SatelliteMeta], beta: int, *,
+                        strict_paper_eq14: bool = False,
+                        min_gamma: float = 0.1,
+                        staleness_fn: str = "eq13"):
+    """Algorithm 2 lines 12-17.
+
+    ``groups``: group id -> indices into models/metas.  ``models`` may be a
+    list of parameter dicts or a ``ModelBank``; selection and the
+    per-model weight vector are host metadata work either way
+    (:func:`asyncfleo_weights`), the tensor update is one ``fed_agg``
+    call.  Returns (w_new, info dict) — ``w_new`` is flat (N,) on the
+    stacked path, a parameter dict otherwise; ``w_prev`` itself when
+    nothing is selected.
+    """
+    selected, weights, gamma, info = asyncfleo_weights(
+        groups, metas, beta, strict_paper_eq14=strict_paper_eq14,
+        min_gamma=min_gamma, staleness_fn=staleness_fn)
+    if not selected:
+        return w_prev, info
+    if isinstance(models, ModelBank):
+        # no row gather: selection becomes zeros in the weight vector over
+        # the full bank, so the update stays one call
+        full = np.zeros(len(models), dtype=np.float64)
+        full[selected] = weights
+        sel_models, weights = models, full
+    else:
+        sel_models = [models[i] for i in selected]
+    w_new = weighted_sum(sel_models, weights, base=w_prev,
+                         base_weight=1.0 - gamma)
+    return w_new, info

@@ -26,9 +26,13 @@ The JAX package donates ``w_flat`` to its jitted program, which writes the
 new global model into the same buffer.  Here the update is in place for
 the same reason: the caller must not expect ``w_flat``'s old values after
 the call.  A ``DispatchProfiler`` (``obs/profile``) attached as
-``profiler`` times each ``step`` on the host.  The JAX package's
-mesh-sharded path and ``batched_step`` (the
-sweep engine's scenario batching) come with later slices.
+``profiler`` times each ``step`` on the host.
+
+``batched_step`` runs B scenarios' epochs as one physical step for the
+sweep engine (``sweep/batch.py``, DESIGN.md §13): by default each row of
+a fresh (B, N) stack goes through the same ``_step`` as a solo call, so
+every scenario's result is bit-identical to its solo step.  The JAX
+package's mesh-sharded path comes with a later slice.
 """
 from __future__ import annotations
 
@@ -69,6 +73,7 @@ class EpochStepProgram:
 
     dispatches: int = 0                # one-step epochs
     fallback_dispatches: int = 0       # epochs that needed train + agg split
+    batched_dispatches: int = 0        # scenario-batched physical steps
     # obs/profile.DispatchProfiler, set by FLSimulation._init_run on every
     # run (None detaches the previous run's); None skips the hook
     profiler: Optional[Any] = None
@@ -109,17 +114,97 @@ class EpochStepProgram:
         prof.record(sig, bool(fallback), prof.timer() - t0)
         return out
 
+    # ---- scenario batch axis (DESIGN.md §13) -------------------------------
+
+    def batched_step(self, w_stack: torch.Tensor, carry: torch.Tensor,
+                     inputs, ids: np.ndarray, seeds: np.ndarray,
+                     wv_bank: np.ndarray, wv_carry: np.ndarray,
+                     base_w: np.ndarray, dw_row: np.ndarray,
+                     dw_seg: np.ndarray, kpad: int, blocked_m: int,
+                     dw_carry: np.ndarray, ref: torch.Tensor, *,
+                     mode: str = "exact", fallback: bool = False):
+        """Run B scenarios' epochs as one physical step.
+
+        Every argument but ``kpad``/``blocked_m`` (shared: the batcher
+        groups only requests with equal static signatures) carries a
+        leading scenario axis B: ``w_stack`` (B, N) and ``carry`` (B, L, N)
+        and ``ref`` (B, N) are tensors, the batch leaves of ``inputs``
+        too (``inputs=None`` stays None), the rest host arrays.
+        ``w_stack`` is a fresh stack the batcher built: row b is updated in
+        place and becomes scenario b's new global model.  Returns B
+        per-scenario ``(new w_flat, stack, dists, losses)`` tuples.
+
+        ``mode="exact"`` runs each row through ``_step``, the solo call's
+        own code, so each scenario's result is bit-identical to its solo
+        step.  ``mode="vmap"`` trains the B scenarios in one
+        ``torch.func.vmap`` call over the trainer's train function (which
+        must be plain tensor math that vmap can trace, as the sweep
+        testbed's is), then runs each scenario's eq. 14 contraction and
+        distances as ``_step`` does: opt-in, not required to be exact.
+        The reference refuses scenario batching for its Pallas-kernel
+        switch; the port has no such switch, and both modes launch
+        ``fed_agg`` once a scenario, exactly as the solo step does.
+        """
+        if mode not in ("exact", "vmap"):
+            raise ValueError(f"unknown scenario batch mode {mode!r}")
+        self.batched_dispatches += 1
+        prof = self.profiler
+        t0 = prof.timer() if prof is not None else 0.0
+        B = int(w_stack.shape[0])
+        if mode == "exact":
+            out = [self._step(w_stack[b], carry[b], _select(inputs, b),
+                              ids[b], int(seeds[b]), wv_bank[b], wv_carry[b],
+                              float(base_w[b]), dw_row[b], dw_seg[b], kpad,
+                              blocked_m, dw_carry[b], ref[b])
+                   for b in range(B)]
+        else:
+            dev = w_stack.device
+            stacks, losses = torch.func.vmap(
+                self._train, in_dims=(0, None if inputs is None else 0, 0, 0))(
+                    w_stack, inputs,
+                    torch.as_tensor(np.asarray(ids), device=dev),
+                    torch.as_tensor(np.asarray(seeds, np.int64), device=dev))
+            out = [self._aggregate(w_stack[b], carry[b], stacks[b].contiguous(),
+                                   losses[b], wv_bank[b], wv_carry[b],
+                                   float(base_w[b]), dw_row[b], dw_seg[b],
+                                   kpad, blocked_m, dw_carry[b], ref[b])
+                   for b in range(B)]
+        if prof is not None:
+            sig = ("batched", mode, B, int(carry.shape[1]),
+                   int(np.shape(ids)[1]), int(kpad), int(blocked_m),
+                   bool(fallback))
+            if prof.block and w_stack.device.type == "cuda":
+                torch.cuda.synchronize(w_stack.device)
+            prof.record(sig, bool(fallback), prof.timer() - t0)
+        return out
+
+    # ---- one epoch ---------------------------------------------------------
+
+    def _train(self, w_flat, inputs, ids, seed):
+        """Every participant trained from ``w_flat``: ((C, N) stack, (C,)
+        losses)."""
+        stacked, losses = self.train_fn(self.spec.unflatten(w_flat), inputs,
+                                        ids, seed)
+        stack = (stacked if isinstance(stacked, torch.Tensor)
+                 else self.spec.flatten_stacked(stacked))
+        return stack, losses
+
     def _step(self, w_flat, carry, inputs, ids_np, seed, wv_bank, wv_carry,
               base_w, dw_row, dw_seg, kpad, blocked_m, dw_carry, ref):
+        stack, losses = self._train(w_flat, inputs, ids_np, seed)
+        return self._aggregate(w_flat, carry, stack, losses, wv_bank,
+                               wv_carry, base_w, dw_row, dw_seg, kpad,
+                               blocked_m, dw_carry, ref)
+
+    def _aggregate(self, w_flat, carry, stack, losses, wv_bank, wv_carry,
+                   base_w, dw_row, dw_seg, kpad, blocked_m, dw_carry, ref):
+        """Eq. 14 into ``w_flat`` (one ``fed_agg`` launch over the bank and
+        the carry) and the new-orbit distances over ``stack``."""
         dev = w_flat.device
 
         def host(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-        stacked, losses = self.train_fn(self.spec.unflatten(w_flat), inputs,
-                                        ids_np, seed)
-        stack = (stacked if isinstance(stacked, torch.Tensor)
-                 else self.spec.flatten_stacked(stacked))
         fed_agg(stack, host(wv_bank), w_flat, float(base_w), out=w_flat,
                 stack2=carry, gamma2=host(wv_carry))
         if kpad:
@@ -142,6 +227,18 @@ class EpochStepProgram:
         else:
             dists = torch.zeros((0,), dtype=torch.float32, device=dev)
         return w_flat, stack, dists, losses
+
+
+def _select(inputs, b: int):
+    """Scenario ``b``'s slice of batched step inputs: None, a tensor, or
+    tuples, lists and dicts of them."""
+    if inputs is None:
+        return None
+    if isinstance(inputs, dict):
+        return {k: _select(v, b) for k, v in inputs.items()}
+    if isinstance(inputs, (tuple, list)):
+        return type(inputs)(_select(x, b) for x in inputs)
+    return inputs[b]
 
 
 def make_epoch_program(trainer, params, mesh: Optional[object] = None

@@ -7,6 +7,12 @@ average of that orbit's received local models; its Euclidean distance to the
 sharpest differentiation) places the orbit on a 1-D axis; orbits with similar
 distances form a group.  Later epochs assign new orbits to the group whose
 members' mean distance is closest.
+
+Models come as a ``ModelBank`` (the stacked and fused paths: partial
+models and distances are tensor work on the bank's device) or as a list of
+parameter dicts (the legacy path: the partial model and its distance are
+host numpy, as in the reference, so group assignment is the exact host
+math).
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.aggregation import scatter_weights
-from repro_torch.core.modelbank import ModelBank
+from repro_torch.core.modelbank import ModelBank, flatten_tree
 from repro_torch.kernels.pairwise_dist import dist_to_ref
 
 
@@ -26,19 +32,35 @@ def flatten_model(model) -> torch.Tensor:
     float32 tensor, in the bank's sorted-key layout."""
     if isinstance(model, torch.Tensor) and model.dim() == 1:
         return model.detach().float().clone()
-    return torch.cat([model[k].detach().reshape(-1).float()
-                      for k in sorted(model)])
+    return flatten_tree(model).detach()
 
 
-def partial_global_model(bank: ModelBank,
-                         sizes: Sequence[float]) -> torch.Tensor:
-    """Data-size-weighted average of one orbit's local models (Fig. 5a):
-    one (1, C) x (C, N) contraction over the bank, the flat (N,) partial
-    model."""
+def _host(model) -> Dict[str, np.ndarray]:
+    """A parameter dict as float32 host arrays."""
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)).astype(np.float32, copy=False)
+            for k, v in model.items()}
+
+
+def model_distance(model, ref_flat: np.ndarray) -> float:
+    """|| flat(model) - flat(w0) ||_2, host numpy."""
+    flat = flatten_tree(model).detach().cpu().numpy()
+    return float(np.linalg.norm(flat - ref_flat))
+
+
+def partial_global_model(models, sizes: Sequence[float]):
+    """Data-size-weighted average of one orbit's local models (Fig. 5a).
+    With a ``ModelBank`` this is one (1, C) x (C, N) contraction on the
+    bank's device, the flat (N,) partial model; a list of parameter dicts
+    keeps the reference's host math and gives a dict of host arrays."""
     total = float(sum(sizes))
-    ws = torch.as_tensor(np.asarray(sizes, np.float32) / total,
-                         device=bank.stack.device)
-    return ws @ bank.stack
+    if isinstance(models, ModelBank):
+        ws = torch.as_tensor(np.asarray(sizes, np.float32) / total,
+                             device=models.stack.device)
+        return ws @ models.stack
+    ws = [s / total for s in sizes]
+    hosts = [_host(m) for m in models]
+    return {k: sum(w * h[k] for w, h in zip(ws, hosts)) for k in hosts[0]}
 
 
 def group_by_gaps(distances: Dict[int, float], num_groups: int = 3) -> List[List[int]]:
@@ -107,11 +129,14 @@ class GroupingState:
     num_groups: int = 3
     use_dist_kernel: bool = False      # route distances through pairwise_dist
     _ref: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    _ref_host: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                        repr=False)
 
     def set_reference(self, w0) -> None:
         """Record flat(w0), the initial global model every distance is
         measured to (a copy: the caller may update its model in place)."""
         self._ref = flatten_model(w0)
+        self._ref_host = None
 
     def ref_device(self) -> torch.Tensor:
         """flat(w0) on the model's device."""
@@ -119,31 +144,52 @@ class GroupingState:
             raise RuntimeError("GroupingState: set_reference(w0) first")
         return self._ref
 
+    def ref_host(self) -> np.ndarray:
+        """flat(w0) as a float32 host array (the legacy path's distances);
+        copied from the device once."""
+        if self._ref_host is None:
+            self._ref_host = self.ref_device().cpu().numpy()
+        return self._ref_host
+
     def group_of(self, orbit: int) -> Optional[int]:
         for gi, g in enumerate(self.groups):
             if orbit in g:
                 return gi
         return None
 
-    def observe_orbit(self, orbit: int, bank: ModelBank,
+    def observe_orbit(self, orbit: int, models,
                       sizes: Sequence[float]) -> int:
-        """Ingest an orbit's freshly received models (one row per model in
-        ``bank``); returns its group id.  First sighting computes the
-        partial-model distance to w0 — through the pairwise_dist kernel
-        when ``use_dist_kernel`` is set, else as a plain norm; known orbits
-        keep their stored group (paper: 'directly assigned to the
-        associated group')."""
+        """Ingest an orbit's freshly received models; returns its group id.
+        First sighting computes the partial-model distance to w0; known
+        orbits keep their stored group (paper: 'directly assigned to the
+        associated group').  ``models`` is a ``ModelBank`` (one row per
+        model: the distance through the pairwise_dist kernel when
+        ``use_dist_kernel`` is set, else a plain norm, on the bank's
+        device) or a list of parameter dicts (host numpy, the reference's
+        legacy math)."""
         gi = self.group_of(orbit)
         if gi is not None:
             return gi
-        pm = partial_global_model(bank, sizes)
-        if self.use_dist_kernel:
+        pm = partial_global_model(models, sizes)
+        if not isinstance(models, ModelBank):
+            d = model_distance(pm, self.ref_host())
+        elif self.use_dist_kernel:
             d = float(dist_to_ref(pm[None], self.ref_device())[0])
         else:
             d = float(torch.linalg.norm(pm - self.ref_device()))
         out: Dict[int, int] = {}
         self._assign_new([orbit], [d], out)
         return out[orbit]
+
+    def observe_orbits(self, orbit_indices: Dict[int, List[int]],
+                       bank: ModelBank,
+                       sizes: Sequence[float]) -> Dict[int, int]:
+        """Batched ``observe_orbit`` over a whole epoch's arrivals in one
+        bank (``orbit_indices``: orbit id -> row indices into ``bank``;
+        ``sizes``: per-row data sizes): ``observe_orbits_multi`` with the
+        bank as its one segment.  Returns orbit -> group id."""
+        return self.observe_orbits_multi(
+            orbit_indices, [(bank.stack, range(len(bank)))], sizes)
 
     def observe_orbits_multi(self, orbit_indices: Dict[int, List[int]],
                              segments, sizes: Sequence[float]) -> Dict[int, int]:
@@ -207,3 +253,12 @@ class GroupingState:
             gi = int(np.argmin([abs(float(d) - m) for m in means]))
             self.groups[gi].append(orbit)
             out[orbit] = gi
+
+    def regroup(self) -> None:
+        """Re-run the gap clustering over all seen orbits (end of an epoch
+        where new orbits appeared)."""
+        if self.distances:
+            self.groups = group_by_gaps(self.distances, self.num_groups)
+
+    def all_grouped(self, num_orbits: int) -> bool:
+        return sum(len(g) for g in self.groups) >= num_orbits

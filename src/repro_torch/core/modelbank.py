@@ -14,7 +14,7 @@ each raveled C-contiguously, concatenated.  For the CNN that order is
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +60,30 @@ class FlatSpec:
         return out
 
 
+def flatten_tree(model) -> torch.Tensor:
+    """A parameter dict (nested dicts allowed) -> new (N,) float32 tensor
+    in the §2 layout: sorted keys at every level, the order
+    ``jax.tree_util.tree_leaves`` gives the reference's dicts, each tensor
+    raveled C-contiguously."""
+    return torch.cat([leaf.reshape(-1).float() for leaf in _leaves(model)])
+
+
+def _leaves(model) -> List[torch.Tensor]:
+    if isinstance(model, dict):
+        return [leaf for k in sorted(model) for leaf in _leaves(model[k])]
+    return [torch.as_tensor(model)]
+
+
+def flat_base(spec: FlatSpec, base):
+    """Base model as a flat (N,) float32 tensor (None passes through): a
+    flat tensor as it is, a parameter dict through ``spec``."""
+    if base is None:
+        return None
+    if isinstance(base, torch.Tensor) and base.dim() == 1:
+        return base.float()
+    return spec.flatten(base)
+
+
 def gather_rows(stack: torch.Tensor, idx) -> torch.Tensor:
     """Row gather (a new tensor) with host indices."""
     return stack[torch.as_tensor(np.asarray(idx, np.int64),
@@ -88,12 +112,24 @@ class ModelBank:
     stack: torch.Tensor
 
     @classmethod
+    def from_pytrees(cls, models: Sequence[Dict[str, torch.Tensor]]
+                     ) -> "ModelBank":
+        """From per-client parameter dicts (one stacked copy)."""
+        spec = FlatSpec.of(models[0])
+        return cls(spec, torch.stack([spec.flatten(m) for m in models]))
+
+    @classmethod
     def from_stacked_tree(cls, stacked: Dict[str, torch.Tensor]
                           ) -> "ModelBank":
         """From a training output: a dict with a shared leading client
         axis."""
         spec = FlatSpec.of({k: v[0] for k, v in stacked.items()})
         return cls(spec, spec.flatten_stacked(stacked))
+
+    @classmethod
+    def from_rows(cls, spec: FlatSpec, rows: Sequence) -> "ModelBank":
+        """From per-client (N,) flat vectors (tensors or host arrays)."""
+        return cls(spec, torch.stack([torch.as_tensor(r) for r in rows]))
 
     def __len__(self) -> int:
         return int(self.stack.shape[0])
@@ -104,6 +140,13 @@ class ModelBank:
 
     def select(self, idx: Sequence[int]) -> "ModelBank":
         return ModelBank(self.spec, gather_rows(self.stack, list(idx)))
+
+    def to_pytrees(self) -> List[Dict[str, torch.Tensor]]:
+        """Materialise one parameter dict per client: each row copied out
+        of the stack, on the stack's device (the reference copies its rows
+        to the host in one transfer)."""
+        return [self.spec.unflatten(self.stack[c].clone())
+                for c in range(len(self))]
 
 
 def params_from_jax(np_params, *, device="cuda"):

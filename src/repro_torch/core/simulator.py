@@ -1,5 +1,4 @@
-"""Discrete-event FL simulation over LEO trajectories (paper §V): the epoch
-loop on the fused path.
+"""Discrete-event FL simulation over LEO trajectories (paper §V).
 
 The simulator advances *simulated* time (seconds over a 3-day horizon) while
 running real PyTorch training for every satellite's local model.  Per
@@ -15,12 +14,25 @@ global epoch beta:
      staleness discounting; FedAvg barrier; per-arrival; fixed interval);
   5. evaluate  — test accuracy of the new global model at the trigger time.
 
-Steps 2-4 run on the fused path (DESIGN.md §6): propagation timing and all
-per-model weight metadata math happen on the host *before* one
-``EpochStepProgram.step`` call, which trains, aggregates (eq. 14 through
-the fed_agg kernel) and computes the grouping distances on the device.
-Accuracy values stay device tensors until the history is finalized.
-Carried stragglers live in a small device matrix re-gathered per epoch.
+Three trainer paths, fastest first (DESIGN.md §2/§6):
+
+* **fused** — trainers exposing the fused-epoch protocol
+  (``epoch_train_fn`` + ``epoch_inputs``) run steps 2-4 as one
+  ``EpochStepProgram.step`` call per epoch (``core/epoch_step.py``):
+  propagation timing and all per-model weight metadata math happen on the
+  host *before* the call, which trains, aggregates (eq. 14 through the
+  fed_agg kernel) and computes the grouping distances on the device.
+  Accuracy values stay device tensors until the history is finalized.
+  Carried stragglers live in a small device matrix re-gathered per epoch.
+* **stacked** (``use_fused_step=False``, or a trainer with
+  ``train_many_stacked`` only) keeps the local models as one (C, N) device
+  stack through grouping and aggregation, with separate calls: training,
+  the grouping contractions, one ``combine_stacked`` over the epoch's
+  bank and carried stragglers.
+* **legacy** (``use_model_bank=False``, or a trainer with ``train_many``
+  only) takes the seed's per-model path: a parameter dict per satellite,
+  grouping distances as host numpy, aggregation through ``weighted_sum``
+  (one ``fed_agg`` call, chained per arrival for the per-arrival EMA).
 
 The output is a history of (sim_time_s, epoch, accuracy, ...) rows, from
 which convergence time (time to reach a target accuracy) is read — the
@@ -38,9 +50,10 @@ transfers, outage failover and energy budgets.
 segments instead of the dense grid, with the same answers.
 ``SimConfig.profiler`` attaches an ``obs/profile.DispatchProfiler`` to
 the run's epoch step (read-only: the same history and model bits).
+``SimConfig.dispatcher`` (a ``sweep/batch.DispatchBatcher``) routes the
+fused steps of one scenario of a sweep through the batcher.
 
-What the JAX package's simulator has beyond this (the stacked and legacy
-paths, scenario batching, a device mesh) raises
+A device mesh (``SimConfig.mesh``) is not ported: it raises
 ``NotImplementedError`` naming the slice of the port that brings it.
 """
 from __future__ import annotations
@@ -78,9 +91,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclasses.dataclass
 class SimConfig:
-    """The JAX package's ``SimConfig``, field for field.  Fields whose
-    feature is not ported yet must keep their default: ``FLSimulation``
-    raises ``NotImplementedError`` otherwise."""
+    """The JAX package's ``SimConfig``, field for field.  ``mesh`` is not
+    ported yet and must stay None: ``FLSimulation`` raises
+    ``NotImplementedError`` otherwise."""
     duration_s: float = 3 * 86400.0
     dt_s: float = 10.0
     train_time_s: float = 600.0        # on-board local-training wall time
@@ -90,8 +103,8 @@ class SimConfig:
     seed: int = 0
     sync_stall_s: float = 86400.0      # cap a sync round at this (stragglers)
     link: Optional[LinkModel] = None   # None -> paper Table I RF (16 Mb/s)
-    use_model_bank: bool = True        # False: the legacy path (not ported)
-    use_fused_step: bool = True        # False: the stacked path (not ported)
+    use_model_bank: bool = True        # stacked path when trainer supports it
+    use_fused_step: bool = True        # one epoch step a call (DESIGN §6)
     mesh: Optional[object] = None      # a device mesh (not ported)
     event_driven: bool = False         # run() delegates to sched.runtime
     # pluggable fault/heterogeneity layer (sched/faults.FaultModel,
@@ -100,7 +113,11 @@ class SimConfig:
     fault_model: Optional[object] = None
     tracer: Optional[object] = None        # obs/trace.Tracer (event runtime)
     profiler: Optional[object] = None      # obs/profile.DispatchProfiler
-    dispatcher: Optional[object] = None    # sweep/batch (not ported)
+    # scenario-batched sweeps (sweep/batch.DispatchBatcher, DESIGN.md
+    # §13): `_init_run` wraps the fused program in the batcher's proxy so
+    # this simulation's epoch steps multiplex with the sweep's other
+    # scenarios; None attaches nothing
+    dispatcher: Optional[object] = None
     # contact-plan geometry backend (DESIGN.md §14): "dense" precomputes
     # the (T, S, P) visibility grid; "sparse" compiles per-(sat, PS)
     # window segments and answers every query by bisect — the same
@@ -111,18 +128,10 @@ class SimConfig:
 
 
 def _check_ported(sim: SimConfig) -> None:
-    if not sim.use_model_bank:
-        raise _not_ported("the legacy (host pytree) simulator path",
-                          "8b (stacked and legacy simulator paths)")
-    if not sim.use_fused_step:
-        raise _not_ported("the stacked simulator path",
-                          "8b (stacked and legacy simulator paths)")
     if sim.mesh is not None:
         raise _not_ported("SimConfig.mesh", "15 (mesh- and pod-shaped code)")
     if sim.visibility not in ("dense", "sparse"):
         raise ValueError(f"visibility must be dense|sparse: {sim.visibility}")
-    if sim.dispatcher is not None:
-        raise _not_ported("SimConfig.dispatcher", "12 (the sweep engine)")
 
 
 @dataclasses.dataclass
@@ -157,11 +166,6 @@ class FLSimulation:
     def __init__(self, spec: StrategySpec, trainer, evaluator,
                  sim: SimConfig, constellation: Optional[WalkerDelta] = None):
         _check_ported(sim)
-        if not (hasattr(trainer, "epoch_train_fn")
-                and hasattr(trainer, "epoch_inputs")):
-            raise _not_ported("a trainer without the fused-epoch protocol "
-                              "(epoch_train_fn + epoch_inputs)",
-                              "8b (stacked and legacy simulator paths)")
         self.spec = spec
         self.trainer = trainer
         self.evaluator = evaluator
@@ -228,12 +232,15 @@ class FLSimulation:
         self.grouping = GroupingState(num_groups=spec.num_groups)
         self.orbit_ids = self.constellation.orbit_ids()
         self.last_epoch_included: Dict[int, int] = {}
-        # stragglers live in a small DEVICE matrix (O(late) rows, not O(S))
-        # and re-enter aggregation as one term
+        # legacy path: (arrival_t, sat, parameter dict, trained_from_epoch)
+        self.pending: List[tuple] = []
+        # stacked + fused paths: stragglers live in a small DEVICE matrix
+        # (O(late) rows, not O(S)) and re-enter aggregation as one term
         self._pend_dev: Optional[torch.Tensor] = None      # (L, N)
         self._pend_meta: List[tuple] = []      # (arrival_t, sat, epoch)
         self._spec: Optional[FlatSpec] = None
         self._w_flat: Optional[torch.Tensor] = None
+        self._fused_prog = None        # the run's epoch program (fused path)
         # distances of newly seen orbits are fetched lazily — (new_orbits,
         # device dists, block map, block size), resolved at the next
         # grouping read so the next epoch's host timing overlaps the
@@ -244,8 +251,8 @@ class FLSimulation:
         self.runtime = None
         # wall-time attribution per host-side section
         self.segment_seconds: Dict[str, float] = {
-            k: 0.0 for k in ("timing", "step", "agg", "group", "carry",
-                             "eval")}
+            k: 0.0 for k in ("timing", "train", "step", "agg", "group",
+                             "carry", "eval")}
 
     @contextlib.contextmanager
     def _seg(self, key: str):
@@ -254,6 +261,19 @@ class FLSimulation:
             yield
         finally:
             self.segment_seconds[key] += time.perf_counter() - t0
+
+    def _combine(self, segments, weights, base_flat, base_weight: float):
+        """Map metas-indexed ``weights`` onto per-segment weight vectors and
+        run one ``combine_stacked`` over the segments (host bookkeeping and
+        one ``fed_agg`` call for the bank and the carried stragglers)."""
+        terms = []
+        for stack, rows in segments:
+            if stack is None or stack.shape[0] == 0:
+                continue
+            terms.append((stack,
+                          agg.scatter_weights(rows, weights, stack.shape[0])))
+        out = agg.combine_stacked(terms, base_flat, base_weight)
+        return base_flat if out is None else out
 
     # ---- shared per-epoch host metadata ------------------------------
 
@@ -595,24 +615,207 @@ class FLSimulation:
         self._pend_dev, self._pend_meta = kept_dev, kept_meta
         return t_agg, metas, info, None
 
+    # ---- stacked path (device-resident bank, separate calls) ----------
+
+    def _stacked_epoch(self, beta, participants, recv, t, bits, sink,
+                       w_tree):
+        sim, spec = self.sim, self.spec
+        bank = None
+        arrivals = []
+        if participants:
+            with self._seg("train"):
+                bank, _losses = self.trainer.train_many_stacked(
+                    participants, w_tree, seed=sim.seed * 1000 + beta)
+                self._spec = bank.spec
+            with self._seg("timing"):
+                t_done = recv[participants] + self._train_times(participants)
+                t_arr_vec, _haps = self.plan.uplink_times(
+                    participants, t_done, bits, sink)
+            arrivals = [(float(t_arr_vec[k]), s, k)
+                        for k, s in enumerate(participants)
+                        if np.isfinite(t_arr_vec[k])]
+            arrivals.sort(key=lambda a: a[0])
+        if not arrivals and not self._pend_meta:
+            return None
+        t_agg, used, late = self._trigger(arrivals, t)
+        c_idx, k_idx = self._carried_split(t_agg)
+
+        metas = [SatelliteMeta(s, self.trainer.data_size(s),
+                               loc=(0.0, 0.0), ts=ta, epoch=beta)
+                 for (ta, s, _k) in used]
+        metas += [SatelliteMeta(s, self.trainer.data_size(s),
+                                loc=(0.0, 0.0), ts=ta, epoch=ep)
+                  for (ta, s, ep) in (self._pend_meta[i] for i in c_idx)]
+        # row bookkeeping instead of row gathers: metas index j maps to a
+        # row of the intact epoch bank or the carried matrix
+        bank_rows = [k for (_, _, k) in used] + [-1] * len(c_idx)
+        carry_rows = [-1] * len(used) + list(range(len(c_idx)))
+        with self._seg("carry"):
+            carry_seg = (gather_rows(self._pend_dev, c_idx)
+                         if c_idx else None)
+            # retire carried stragglers, enqueue this epoch's late rows
+            keep_dev = (gather_rows(self._pend_dev, k_idx)
+                        if k_idx else None)
+            keep_meta = [self._pend_meta[i] for i in k_idx]
+            if late:
+                late_dev = gather_rows(bank.stack, [k for (_, _, k) in late])
+                keep_dev = (late_dev if keep_dev is None
+                            else torch.cat([keep_dev, late_dev]))
+                keep_meta += [(ta, s, beta) for (ta, s, _k) in late]
+            self._pend_dev, self._pend_meta = keep_dev, keep_meta
+
+        keep = agg.dedup_indices(metas)
+        if len(keep) < len(metas):
+            metas = [metas[i] for i in keep]
+            bank_rows = [bank_rows[i] for i in keep]
+            carry_rows = [carry_rows[i] for i in keep]
+        carry_dev = (carry_seg
+                     if carry_seg is not None
+                     and any(r >= 0 for r in carry_rows) else None)
+        segments = [(bank.stack if bank is not None else None, bank_rows),
+                    (carry_dev, carry_rows)]
+
+        groups: Optional[Dict[int, List[int]]] = None
+        if spec.agg_mode == "asyncfleo":
+            if not spec.grouping:                    # ablation: one group
+                groups = {0: list(range(len(metas)))}
+            else:
+                with self._seg("group"):
+                    # all new-orbit partial models and distances in one
+                    # contraction per segment over the bank
+                    orbit_indices: Dict[int, List[int]] = {}
+                    for i, meta in enumerate(metas):
+                        orbit_indices.setdefault(
+                            int(self.orbit_ids[meta.sat_id]), []).append(i)
+                    orbit_group = self.grouping.observe_orbits_multi(
+                        orbit_indices, segments, [m.size for m in metas])
+                    groups = {}
+                    for i, meta in enumerate(metas):
+                        gi = orbit_group[int(self.orbit_ids[meta.sat_id])]
+                        groups.setdefault(gi, []).append(i)
+
+        with self._seg("agg"):
+            # per-model weights are host metadata math; the tensor update
+            # is one combine over the epoch bank and the carried
+            # stragglers, no row copies
+            ws, base_w, info = self._mode_weights(metas, beta, groups)
+            self._w_flat = self._combine(segments, ws, self._w_flat, base_w)
+        return t_agg, metas, info, None
+
+    # ---- legacy path (a parameter dict per model, the seed's semantics) -
+
+    def _legacy_epoch(self, beta, participants, recv, t, bits, sink,
+                      w_tree):
+        sim, spec = self.sim, self.spec
+        arrivals = []
+        if participants:
+            with self._seg("train"):
+                trained, _losses = self.trainer.train_many(
+                    participants, w_tree, seed=sim.seed * 1000 + beta)
+            with self._seg("timing"):
+                t_done = recv[participants] + self._train_times(participants)
+                t_arr_vec, _haps = self.plan.uplink_times(
+                    participants, t_done, bits, sink)
+            arrivals = [(float(t_arr_vec[k]), s, p)
+                        for k, (s, p)
+                        in enumerate(zip(participants, trained))
+                        if np.isfinite(t_arr_vec[k])]
+            arrivals.sort(key=lambda a: a[0])
+        if not arrivals and not self.pending:
+            return None
+        t_agg, used, late = self._trigger(arrivals, t)
+
+        metas = [SatelliteMeta(s, self.trainer.data_size(s),
+                               loc=(0.0, 0.0), ts=ta, epoch=beta)
+                 for (ta, s, _p) in used]
+        carried = [(ta, s, p, ep) for (ta, s, p, ep) in self.pending
+                   if ta <= t_agg]
+        self.pending = [x for x in self.pending if x[0] > t_agg]
+        self.pending.extend((ta, s, p, beta) for (ta, s, p) in late)
+        metas += [SatelliteMeta(s, self.trainer.data_size(s),
+                                loc=(0.0, 0.0), ts=ta, epoch=ep)
+                  for (ta, s, _p, ep) in carried]
+        models = ([p for (_, _, p) in used]
+                  + [p for (_, _, p, _) in carried])
+        models, metas = agg.dedup(models, metas)
+        base = w_tree
+
+        info = {"gamma": 1.0, "stale_groups": 0}
+        with self._seg("agg"):
+            if spec.agg_mode == "fedavg":
+                w_new = agg.fedavg(models, [m.size for m in metas])
+            elif spec.agg_mode == "per_arrival":
+                w_new = base
+                for m_i, meta in zip(models, metas):
+                    alpha = 0.5 / (1.0 + max(beta - meta.epoch, 0))
+                    w_new = agg.weighted_sum([m_i], [alpha], base=w_new,
+                                             base_weight=1.0 - alpha)
+            elif spec.agg_mode == "interval":
+                total = sum(m.size for m in metas)
+                raw = np.array([m.size / (1.0 + max(beta - m.epoch, 0))
+                                for m in metas])
+                gam = float(np.clip(raw.sum() / max(total, 1e-9), 0.2, 1.0))
+                w_new = agg.weighted_sum(models, gam * raw / raw.sum(),
+                                         base=base, base_weight=1.0 - gam)
+                info["gamma"] = gam
+            else:                                    # asyncfleo (Alg. 2)
+                groups: Dict[int, List[int]] = {}
+                if not spec.grouping:                # ablation: one group
+                    groups[0] = list(range(len(metas)))
+                else:
+                    for i, meta in enumerate(metas):
+                        orbit = int(self.orbit_ids[meta.sat_id])
+                        gi = self.grouping.group_of(orbit)
+                        if gi is None:     # first sighting: distance to w0
+                            same_orbit = [j for j, mm in enumerate(metas)
+                                          if int(self.orbit_ids[mm.sat_id])
+                                          == orbit]
+                            gi = self.grouping.observe_orbit(
+                                orbit, [models[j] for j in same_orbit],
+                                [metas[j].size for j in same_orbit])
+                        groups.setdefault(gi, [])
+                        if i not in groups[gi]:
+                            groups[gi].append(i)
+                w_new, info = agg.asyncfleo_aggregate(
+                    base, groups, models, metas, beta,
+                    strict_paper_eq14=spec.strict_paper_eq14,
+                    staleness_fn=spec.staleness_fn)
+        return t_agg, metas, info, w_new
+
     # ------------------------------------------------------------------
 
     def _init_run(self, w0):
         """Run-state reset, shared by the epoch loop and the event-driven
-        runtime.  Returns (model bits, the epoch program)."""
+        runtime.  Returns (model bits, the fused epoch program or None,
+        stacked?)."""
         bits = model_bits(w0)
         self.grouping.set_reference(w0)
         if self.plan.contention is not None:
             self.plan.contention.reset()   # channel pools are per-run state
-        prog = make_epoch_program(self.trainer, w0)
-        # dispatch profiling hook (obs/profile.py); programs are cached on
-        # the trainer, so (re)set it every run: None detaches a previous
-        # run's profiler
-        prog.profiler = self.sim.profiler
-        self._spec = prog.spec
-        self._w_flat = self._spec.flatten(w0)      # a new tensor, never w0
+        stacked = self.sim.use_model_bank and hasattr(self.trainer,
+                                                      "train_many_stacked")
+        fused = None
+        if stacked and self.sim.use_fused_step:
+            fused = make_epoch_program(self.trainer, w0)
+            if fused is not None:
+                # dispatch profiling hook (obs/profile.py); programs are
+                # cached on the trainer, so (re)set it every run: None
+                # detaches a previous run's profiler
+                fused.profiler = self.sim.profiler
+                if self.sim.dispatcher is not None:
+                    # scenario-batched sweep (DESIGN.md §13): route this
+                    # run's steps through the shared batcher; the proxy
+                    # keeps step()'s surface and counters
+                    fused = self.sim.dispatcher.wrap(
+                        fused, key=getattr(self.trainer,
+                                           "scenario_batch_key", None))
+        self._fused_prog = fused
+        self._w_flat = None               # flat device view (stacked/fused)
         self._dist_pending = None
-        return bits, prog
+        if stacked:
+            self._spec = self._spec or FlatSpec.of(w0)
+            self._w_flat = self._spec.flatten(w0)  # a new tensor, never w0
+        return bits, fused, stacked
 
     def _record_epoch(self, history: List[EpochRecord], beta: int,
                       t_agg: float, metas, info, lazy_eval: bool, w_tree):
@@ -656,8 +859,8 @@ class FLSimulation:
                 "event-driven runtime (SimConfig.event_driven=True): the "
                 "epoch loop cannot express ring failover or deferred "
                 "uplinks (DESIGN.md §11)")
-        bits, prog = self._init_run(w0)
-        w_tree = w0                       # parameter view for the evaluator
+        bits, fused, stacked = self._init_run(w0)
+        w_tree = w0                       # parameter view (trainer/evaluator)
         t = 0.0
         source = 0
         history: List[EpochRecord] = []
@@ -673,15 +876,29 @@ class FLSimulation:
                 recv = self.plan.downlink_times(t, bits, source)
             participants = [s for s in range(S) if np.isfinite(recv[s])]
 
-            out = self._fused_epoch(prog, beta, participants, recv, t, bits,
-                                    sink)
+            if fused is not None:
+                out = self._fused_epoch(fused, beta, participants, recv, t,
+                                        bits, sink)
+            elif stacked:
+                out = self._stacked_epoch(beta, participants, recv, t, bits,
+                                          sink, w_tree)
+            else:
+                out = self._legacy_epoch(beta, participants, recv, t, bits,
+                                         sink, w_tree)
             if out is None:
                 break
-            t_agg, metas, info, _losses = out
-            if self.evaluator is not None:
-                # views into w_flat: stream order runs the evaluation
-                # before the next epoch updates w_flat in place
+            t_agg, metas, info, extra = out
+            if fused is not None:
+                # the fused path trains from w_flat directly: the parameter
+                # view only feeds the evaluator.  Views into w_flat: stream
+                # order runs the evaluation before the next epoch updates
+                # w_flat in place
+                if self.evaluator is not None:
+                    w_tree = self._spec.unflatten(self._w_flat)
+            elif stacked:
                 w_tree = self._spec.unflatten(self._w_flat)
+            else:
+                w_tree = extra
             if spec.agg_mode == "interval":
                 t_agg = max(t_agg, t + spec.interval_s)
 

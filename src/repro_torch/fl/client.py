@@ -11,18 +11,22 @@ Here the participant axis is a batch dimension written out: the stacked
 (C, ...) parameters train together, and one gradient of the sum of the
 per-participant mean losses gives every participant its own gradient
 (no parameter is shared between participants).  The J local steps are a
-Python loop.  ``LMPool`` comes with the LM slice.
+Python loop.  ``train_many_stacked`` (a ``ModelBank``), ``train_many``
+(one parameter dict per satellite) and ``train`` serve the stacked and
+legacy simulator paths with the same training and the same
+``batch_indices`` hook.  ``LMPool`` comes with the LM slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.paper_models import SmallNetConfig
+from repro_torch.core.modelbank import FlatSpec, ModelBank, pad_bucket_ids
 from repro_torch.models import cnn
 from repro_torch.optim import apply_updates, sgd
 
@@ -119,6 +123,32 @@ class ImageClassifierPool:
         """(params, inputs, ids_np, seed) -> (stacked params, losses), the
         training function of the fused epoch program."""
         return self.train_stacked
+
+    def train_many_stacked(self, sat_ids: Sequence[int], params, seed: int):
+        """Train the given satellites from the same global model in one
+        call, as the fused program does (participants padded to a
+        power-of-two bucket, padded rows dropped).  Returns (ModelBank of
+        the per-satellite models, (C,) losses), both on the device."""
+        ids_np, n = pad_bucket_ids(sat_ids)
+        if n == 0:
+            spec = FlatSpec.of(params)
+            return (ModelBank(spec, torch.zeros((0, spec.num_params),
+                                                device=self.device)),
+                    torch.zeros(0, device=self.device))
+        stacked, losses = self.train_stacked(params,
+                                             self.epoch_inputs(ids_np),
+                                             ids_np, seed)
+        bank = ModelBank.from_stacked_tree(stacked)
+        return ModelBank(bank.spec, bank.stack[:n]), losses[:n]
+
+    def train_many(self, sat_ids: Sequence[int], params, seed: int):
+        """Legacy form: (one parameter dict per satellite, losses)."""
+        bank, losses = self.train_many_stacked(sat_ids, params, seed)
+        return bank.to_pytrees(), losses
+
+    def train(self, sat: int, params, seed: int):
+        outs, losses = self.train_many([sat], params, seed)
+        return outs[0], float(losses[0])
 
 
 @dataclasses.dataclass

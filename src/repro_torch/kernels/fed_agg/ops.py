@@ -1,18 +1,22 @@
 """The fed_agg wrapper: eq. 14's contraction over a (C, N) model stack and,
-in the same launch, an optional second (C2, N) stack.
+in the same launch, an optional second (C2, N) stack; and its bank and
+pytree forms, which flatten and stack on the device, then make one
+``fed_agg`` call.
 
 A tensor on the CPU takes the plain version (``ref.py``); a CUDA tensor
 launches the CUDA kernel (``csrc/fed_agg.cu``) or raises.  ``fed_agg.launches``
-counts kernel launches.
+counts kernel launches: a bare counter, exact where one thread launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import kernels
+from repro_torch.core.modelbank import FlatSpec, flat_base
 from repro_torch.kernels.fed_agg.ref import fed_agg_ref
 
 _PTR = ctypes.c_void_p
@@ -21,6 +25,13 @@ _SIGNATURES = {
                         _PTR, ctypes.c_float, _PTR, ctypes.c_longlong, _PTR],
                        ctypes.c_int),
 }
+
+
+def load() -> None:
+    """Load the kernel's library (building it if needed) without a launch:
+    code that launches from several threads loads it first, since the
+    library table has no lock."""
+    kernels.library("fed_agg", _SIGNATURES)
 
 
 def _check_vector(name: str, t: torch.Tensor, n: int,
@@ -121,3 +132,37 @@ def fed_agg(stack: torch.Tensor, gamma: torch.Tensor,
 
 
 fed_agg.launches = 0
+
+
+def _weights(gamma, device: torch.device) -> torch.Tensor:
+    """A host vector or a tensor of weights as contiguous float32 on
+    ``device``."""
+    if not isinstance(gamma, torch.Tensor):
+        gamma = np.asarray(gamma, np.float32)
+    return torch.as_tensor(gamma, dtype=torch.float32,
+                           device=device).contiguous()
+
+
+def fed_agg_bank(bank, gamma, base=None,
+                 base_weight: float = 0.0) -> torch.Tensor:
+    """Aggregate a ``ModelBank`` in one ``fed_agg`` call: ``bank.stack`` is
+    already the kernel's (C, N) layout.  ``gamma`` is a host vector or a
+    tensor; ``base`` a flat (N,) tensor or a parameter dict (flattened
+    through the bank's spec).  Returns the flat (N,) model."""
+    dev = bank.stack.device
+    return fed_agg(bank.stack, _weights(gamma, dev),
+                   flat_base(bank.spec, base), base_weight)
+
+
+def fed_agg_pytree(models: Sequence[Dict[str, torch.Tensor]], gamma,
+                   base: Optional[Dict[str, torch.Tensor]] = None,
+                   base_weight: float = 0.0) -> Dict[str, torch.Tensor]:
+    """Aggregate a list of parameter dicts into one (paper eq. 14): every
+    model flattened once and stacked on the device, one ``fed_agg`` call
+    over the stack, the result unflattened to the models' keys and shapes
+    (views into one new flat tensor)."""
+    spec = FlatSpec.of(models[0])
+    stack = torch.stack([spec.flatten(m) for m in models])
+    out = fed_agg(stack, _weights(gamma, stack.device),
+                  None if base is None else spec.flatten(base), base_weight)
+    return spec.unflatten(out)

@@ -51,10 +51,10 @@ class DispatchProfiler:
         self.dispatch_s = 0.0              # host seconds in warm calls
         self.triggers = 0                  # runtime commits observed
         self._seen: Set[Tuple] = set()
-        # a sweep engine shares one profiler across worker threads whose
-        # commits race on trigger() (the reference's does; the port's
-        # comes with ROADMAP queue A item 12); record() stays on the
-        # driving thread so the timing path is uncontended
+        # scenario-batched sweeps share one profiler across worker
+        # threads (sweep/batch.py): commits race on trigger(); record()
+        # stays on the batcher's driver thread so the timing path is
+        # uncontended
         self._trigger_lock = threading.Lock()
 
     # ---- hooks (called by EpochStepProgram.step / the runtime) -------------

@@ -102,9 +102,9 @@ state and is bit-identical to the §10 runtime.
 
 Each commit calls the attached ``DispatchProfiler``'s ``trigger()``
 (``SimConfig.profiler``, through the epoch program), so its summary
-reports dispatches per trigger.  Not ported yet: the reference's
-scenario-batching hook comes with ROADMAP queue A item 12;
-``FLSimulation`` refuses ``SimConfig.dispatcher``.  The stats keep the
+reports dispatches per trigger; in a scenario-batched sweep
+(``SimConfig.dispatcher``) it also calls the batcher's profiler, which
+counts the sweep's physical steps.  The stats keep the
 reference's whole key set, so ``dict(runtime.stats)`` equals the
 reference's.
 
@@ -256,7 +256,14 @@ class EventDrivenRuntime:
         """Run from the global model ``w0`` (a parameter dict; the device
         of its tensors is the device of the run)."""
         fls = self.fls
-        self.bits, self.prog = fls._init_run(w0)
+        self.bits, prog, _stacked = fls._init_run(w0)
+        if prog is None:
+            raise ValueError(
+                "the event-driven runtime reuses the fused epoch step as "
+                "its compute engine; the trainer must expose the fused-epoch "
+                "protocol (epoch_train_fn + epoch_inputs) and SimConfig must "
+                "keep use_model_bank/use_fused_step enabled")
+        self.prog = prog
         self.max_epochs = max_epochs
         self.target = target_accuracy
         self.lazy_eval = (target_accuracy is None
@@ -1003,6 +1010,13 @@ class EventDrivenRuntime:
             # fused commit below runs one step for this trigger (none when
             # the commit has nothing to train)
             prof.trigger()
+        # scenario-batched sweeps (DESIGN.md §13): this runtime is one of
+        # several whose steps multiplex through a shared DispatchBatcher;
+        # its profiler counts *physical* steps, so every scenario's
+        # trigger feeds the shared denominator
+        bprof = getattr(self.sim.dispatcher, "profiler", None)
+        if bprof is not None:
+            bprof.trigger()
         t_trigger = t_agg
         # the round trains here, from the global model as it stands at
         # commit time; its models are stamped with the round's own epoch

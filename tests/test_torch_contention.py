@@ -183,7 +183,7 @@ def test_aborted_speculative_open_rolls_back_grants(setup):
                                  event_driven=True,
                                  link=LinkModel(rate_bps=RATE_BPS)))
     rt = EventDrivenRuntime(fls)
-    rt.bits, rt.prog = fls._init_run(work.w0)
+    rt.bits, rt.prog, _stacked = fls._init_run(work.w0)
     rt.max_epochs = 5
     ctn = fls.plan.contention
     assert rt._start_round(0.0, 0) is not None          # a real open

@@ -133,7 +133,8 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert {"repro_torch.core.simulator", "repro_torch.obs.export",
-            "repro_torch.obs.profile"} <= set(mods) and len(mods) >= 30
+            "repro_torch.obs.profile", "repro_torch.sweep.batch",
+            "repro_torch.sweep.driver"} <= set(mods) and len(mods) >= 30
 
 
 def test_ast_scan_finds_no_jax_import():
@@ -166,18 +167,9 @@ def test_cuda_without_a_card_raises(setup):
                 torch.zeros(2, device="meta"))
 
 
-@pytest.mark.parametrize("change", [
-    dict(use_model_bank=False), dict(use_fused_step=False),
-    dict(mesh=object()), dict(dispatcher=object())])
+@pytest.mark.parametrize("change", [dict(mesh=object())])
 def test_unported_options_raise(setup, change):
     *_, work = setup
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
         FLSimulation(get_strategy("asyncfleo-hap"), work.pool, work.evaluator,
                      SimConfig(duration_s=3600.0, **change))
-
-
-def test_unported_strategy_and_trainer_raise(setup):
-    *_, work = setup
-    with pytest.raises(NotImplementedError, match="fused-epoch protocol"):
-        FLSimulation(get_strategy("asyncfleo-gs"), object(), work.evaluator,
-                     SimConfig(duration_s=3600.0))
