@@ -52,7 +52,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      48 and non-causal; f32 and bf16), a strided-view case, the serving
      path's prefill shape (B 4, S 2048, H 32, KV 8, hd 128, bf16, causal
      and window 512), hubert-xlarge's (B 4, S 2048, H = KV = 16, hd 80,
-     bf16, non-causal), hd 80 under window 48, and S = 1000 at hd 64, 80
+     bf16, non-causal), zamba2-2.7b's shared attention (B 4, S 2048, H =
+     KV = 32, hd 80, bf16, causal), hd 80 under window 48, and S = 1000 at hd 64, 80
      and 128 (a ragged last K/V tile after the TMA rings wrap).  At the
      sweep's input spread the max abs error is within 1e-5 (f32) and 2e-2
      (bf16); every bf16 case, also at a spread of 2 that makes the softmax
@@ -65,11 +66,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``--full-width`` qwen3-4b (36 layers), B 4, a 2048-token prefill
      through the kernel, 32 greedy decode steps over a 2048-slot cache.
      ``flash_attention`` must launch exactly 36 times per prefill and the
-     other kernels never; the logits must be finite.  Prefill wall, decode
+     other kernels never, in the entry point's run and in the warm one;
+     the logits must be finite.  Prefill wall, decode
      ms/token (warm), the device busy share and the top device ops of one
      prefill plus decode; the qwen3-4b weights are freed after it;
  10. ``flash_attention`` timed at the prefill shape (causal, window
-     512) and at hubert-xlarge's, beside its plain version,
+     512), at hubert-xlarge's and at zamba2-2.7b's, beside its plain
+     version,
      ``scaled_dot_product_attention`` (the library yardstick, never called
      by the port; with a boolean band mask for window 512) and its bound;
  11. ``chunk_scan`` against its plain version (the sequential recurrence)
@@ -80,7 +83,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      log-decay at the clamp (-1) at chunk 128 in both modes, where the TPU
      kernel's factorisation overflows, many chunks (T 2048, chunk 16: 128
      steps of the state pass), one chunk (T = chunk = 128) and V 192
-     (three V tiles) in Mamba2 mode.  f32: max abs error <= 5e-5 on y and
+     (three V tiles) in Mamba2 mode; then Mamba2 in zamba2's own call
+     form (``models/mamba.block``'s: r the conv output's C columns
+     broadcast over the heads, head stride 0; v its x columns, row stride
+     5248; k = B dt; a scalar decay per head), at B 2 x 256 steps in f32
+     and at the serving shape (B 4, T 2048, H 40, K 64, V 128, chunk 128)
+     in bf16, each on the kernel's 16-byte load path and, with the conv
+     output shifted by one element, on its element loads.  f32: max abs
+     error <= 5e-5 on y and
      the final state; bf16: every y element within 2^-7 |want| + 2^-8
      rms(want's row), the state within 5e-5; all of it finite.  The
      distance to the plain version of the kernel's own decomposition
@@ -103,9 +113,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      as phase 9, and the lowest in-chunk cumulative log-decay of the
      prefill's 32 layers (how close the JAX package's factorisation came
      to overflowing on this input);
- 14. ``chunk_scan`` timed at the serving shape: the kernel (one launch a
-     call) and the wrapper (every kernel of a call: the zeroing of its
-     sync buffer too), beside its plain version and its bound both ways —
+ 14. ``chunk_scan`` timed at rwkv6-7b's serving shape and at zamba2's
+     (Mamba2, in the model's call form): the kernel (one launch a call)
+     and the wrapper (every kernel of a call: the zeroing of its sync
+     buffer too), beside its plain version and its bound both ways —
      bytes, which bound the tensor-core route, and operations at the f32
      FMA peak of the earlier design (no single PyTorch call computes the
      recurrence);
@@ -194,12 +205,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``run_scenarios(trainer_factory=...)``: no batch key, so every step
      runs solo; batched bit-identical to sequential.  Walls and
      ``batcher.summary()`` printed;
- 22. one JSON line of per-kernel numbers.
+ 22. model-level route parity: zamba2-2.7b at full width with 2 groups
+     (12 Mamba2 layers, the shared block twice) in f32, B 2 x 256 tokens
+     (two chunks): kernel-route logits against the plain route (2e-4),
+     and 16 decode steps against the full forward through both routes
+     (1e-4), with the float64 figure printed beside them;
+ 23. the serving path of phase 9 at ``--full-width`` zamba2-2.7b (54
+     Mamba2 layers, the shared attention block before every 6), B 4, a
+     2048-token prefill, 32 decode steps over the Mamba2 states and a
+     2048-slot KV cache a group: ``chunk_scan`` must launch exactly 54
+     times a prefill, ``flash_attention`` exactly 9, the other kernels
+     never; the same numbers as phase 9;
+ 24. one JSON line of per-kernel numbers (the two LM kernels also at
+     zamba2's shapes, as ``flash_attention:zamba2`` and
+     ``chunk_scan:zamba2``, with phase 23's launches).
 
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository beside it, it exits non-zero and prints no result.  A run
-takes 10 to 14 minutes on an H100.
+takes 11 to 14 minutes on an H100.
 ``--report PATH`` also writes every number of the run there as JSON,
 with the seconds at which each phase started.
 """
@@ -244,11 +268,16 @@ DECODE_TOL = 1e-4                   # decode vs full forward, model logits
 PREFILL = dict(B=4, S=2048, H=32, KV=8, hd=128)   # the serving prefill
 # hubert-xlarge's attention at its published width, over B 4 x 2048 frames
 HUBERT_ATTN = dict(B=4, S=2048, H=16, KV=16, hd=80)
+# zamba2-2.7b's shared attention block over the serving prefill
+ZAMBA_ATTN = dict(B=4, S=2048, H=32, KV=32, hd=80)
 # chunk_scan, max abs error of y and the final state in f32 (the JAX
 # package's sweep atol, without its rtol = 0.1 slack), and of the f32 final
 # state in every case (both sides widen the same bf16 inputs to f32)
 SCAN_TOL = 5e-5
 SCAN_SERVE = dict(B=4, T=2048, H=64, K=64, V=64, chunk=128)  # rwkv6-7b
+# zamba2-2.7b's Mamba2 layers over the serving prefill (K = ssm_state, V =
+# ssm_head_dim); the conv output's row holds x (H V), B (K) and C (K)
+SCAN_ZAMBA = dict(B=4, T=2048, H=40, K=64, V=128, chunk=128)
 F32_EXP_MAX = 88.72                 # log of the largest finite f32
 
 
@@ -741,24 +770,29 @@ def main() -> None:
                              busy_share=share, top=top)
 
     # ---- 7-10. LM serving, dense family ----------------------------------
+    from repro_torch.configs import get_config
     from repro_torch.kernels.chunk_scan import chunk_scan
     from repro_torch.kernels.flash_attention import flash_attention
-    fa_err = flash_vs_plain(torch, dev, gen, report)
+    fa_err, fa_err_zamba = flash_vs_plain(torch, dev, gen, report)
     route_parity(torch, dev, report)
     fa_launches = serving_path(
         torch, dev, report, arch="qwen3-4b", phase_no=9,
-        kernel=flash_attention, others=(fed_agg, pairwise_dist_sq, chunk_scan),
-        extra_argv=["--cache-len", str(PREFILL["S"])])
-    fa = flash_timings(torch, dev, gen, report)
+        expected={flash_attention: get_config("qwen3-4b").num_layers,
+                  fed_agg: 0, pairwise_dist_sq: 0, chunk_scan: 0},
+        extra_argv=["--cache-len", str(PREFILL["S"])])["flash_attention"]
+    fa_all = flash_timings(torch, dev, gen, report)
+    fa = fa_all["prefill"]
 
     # ---- 11-14. LM serving, RWKV6 -----------------------------------------
-    cs_err = scan_vs_plain(torch, dev, gen, report)
+    cs_err, cs_err_zamba = scan_vs_plain(torch, dev, gen, report)
     rwkv_route_parity(torch, dev, report)
     cs_launches = serving_path(
-        torch, dev, report, arch="rwkv6-7b", phase_no=13, kernel=chunk_scan,
-        others=(fed_agg, pairwise_dist_sq, flash_attention), extra_argv=[],
-        after=lowest_in_chunk_decay)
-    cs = scan_timings(torch, dev, gen, report)
+        torch, dev, report, arch="rwkv6-7b", phase_no=13,
+        expected={chunk_scan: get_config("rwkv6-7b").num_layers,
+                  fed_agg: 0, pairwise_dist_sq: 0, flash_attention: 0},
+        extra_argv=[], after=lowest_in_chunk_decay)["chunk_scan"]
+    cs_all = scan_timings(torch, dev, gen, report)
+    cs = cs_all["rwkv6"]
 
     # ---- 15. hubert-xlarge, head dim 80 ----------------------------------
     hubert_path(torch, dev, report,
@@ -789,8 +823,19 @@ def main() -> None:
     sweep_path(torch, report,
                others=(pairwise_dist_sq, flash_attention, chunk_scan))
 
-    # ---- 22. the kernel line ----------------------------------------------
+    # ---- 22-23. LM serving, the hybrid family (zamba2-2.7b) ---------------
+    zamba_route_parity(torch, dev, report)
+    zcfg = get_config("zamba2-2.7b")
+    z_launches = serving_path(
+        torch, dev, report, arch="zamba2-2.7b", phase_no=23,
+        expected={chunk_scan: zcfg.num_layers,
+                  flash_attention: zcfg.num_layers // zcfg.attn_every,
+                  fed_agg: 0, pairwise_dist_sq: 0},
+        extra_argv=["--cache-len", str(PREFILL["S"])])
+
+    # ---- 24. the kernel line ----------------------------------------------
     fb, pg = timings["eq14_bank_carry"], timings["pairwise_dist_grouping"]
+    fz, cz = fa_all["zamba2"], cs_all["zamba2"]
     kernel_line = {"kernels": [
         dict(name="fed_agg", route="cuda",
              source="src/repro_torch/csrc/fed_agg.cu",
@@ -816,6 +861,21 @@ def main() -> None:
              launches=cs_launches, max_abs_err=cs_err, ms=cs["ms"],
              plain_ms=cs["plain_ms"], bound_ms=cs["bound_ms"],
              bound_by=cs["bound_by"], library_ms=None),
+        # the same two kernels on zamba2-2.7b's serving path (phase 23),
+        # at its shapes
+        dict(name="flash_attention:zamba2", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:29",
+             launches=z_launches["flash_attention"],
+             max_abs_err=fa_err_zamba, ms=fz["ms"], plain_ms=fz["plain_ms"],
+             bound_ms=fz["bound_ms"], bound_by=fz["bound_by"],
+             library_ms=fz["library_ms"]),
+        dict(name="chunk_scan:zamba2", route="cuda",
+             source="src/repro_torch/csrc/chunk_scan.cu",
+             replaces="src/repro/kernels/chunk_scan/kernel.py:20",
+             launches=z_launches["chunk_scan"], max_abs_err=cs_err_zamba,
+             ms=cz["ms"], plain_ms=cz["plain_ms"], bound_ms=cz["bound_ms"],
+             bound_by=cz["bound_by"], library_ms=None),
     ]}
     report["kernels"] = kernel_line["kernels"]
     report["phase_starts_s"] = PHASE_STARTS + [(round(
@@ -2201,9 +2261,10 @@ def sim_workload(sim):
     return Workload(sim.trainer, sim.evaluator, results_w0(sim))
 
 
-def flash_vs_plain(torch, dev, gen, report) -> float:
+def flash_vs_plain(torch, dev, gen, report) -> tuple:
     """Phase 7: the kernel against its plain version; the largest abs
-    error at the sweep's input spread (where its tolerances hold)."""
+    error at the sweep's input spread (where its tolerances hold), over
+    all cases and over zamba2's shape."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
     phase("phase 7: flash_attention kernel vs plain (max abs error; bf16 "
@@ -2236,7 +2297,8 @@ def flash_vs_plain(torch, dev, gen, report) -> float:
             fail(f"flash_attention {name}: scaled error {scaled} > 1 (max "
                  f"abs error {err}, rms |want| {rms})")
         return dict(name=name, spread=spread, max_abs_err=err,
-                    rms_want=rms, scaled_err=scaled)
+                    rms_want=rms, scaled_err=scaled,
+                    shape=[*q.shape[:3], k.shape[2], q.shape[3]])
 
     def randn(shape, dtype, spread):
         return (torch.randn(*shape, generator=gen, device=dev)
@@ -2256,10 +2318,14 @@ def flash_vs_plain(torch, dev, gen, report) -> float:
         for spread in FLASH_SPREADS:
             cases.append((P["B"], P["S"], P["H"], P["KV"], P["hd"], True,
                           window, "bfloat16", spread))
-    # hd 80: hubert-xlarge's shape (non-causal), and a window
+    # hd 80: hubert-xlarge's shape (non-causal), zamba2's shared attention
+    # (causal), and a window
+    Z = ZAMBA_ATTN
     for spread in FLASH_SPREADS:
         cases.append((Hu["B"], Hu["S"], Hu["H"], Hu["KV"], Hu["hd"], False,
                       0, "bfloat16", spread))
+        cases.append((Z["B"], Z["S"], Z["H"], Z["KV"], Z["hd"], True, 0,
+                      "bfloat16", spread))
     # S = 1000: eight K/V tiles of 128 keys, the last one ragged (104
     # keys), after the two-stage rings have wrapped three times
     for B, S, H, KV, hd, causal, window in ((1, 200, 4, 2, 80, True, 48),
@@ -2299,11 +2365,15 @@ def flash_vs_plain(torch, dev, gen, report) -> float:
                 if r["spread"] == FLASH_SPREADS[0])
     scaled = max(r["scaled_err"] for r in results
                  if r["scaled_err"] is not None)
+    zamba = max(r["max_abs_err"] for r in results
+                if r["spread"] == FLASH_SPREADS[0]
+                and r["shape"] == [Z[x] for x in ("B", "S", "H", "KV", "hd")])
     print(f"flash_attention: {len(results)} cases pass; max abs error at "
           f"spread {FLASH_SPREADS[0]} {worst:.3e} (tolerances "
-          f"{FLASH_TOL}), largest bf16 scaled error {scaled:.3f} (limit 1)")
+          f"{FLASH_TOL}; at zamba2's shape {zamba:.3e}), largest bf16 scaled "
+          f"error {scaled:.3f} (limit 1)")
     report["flash_errors"] = results
-    return worst
+    return worst, zamba
 
 
 def route_parity(torch, dev, report) -> None:
@@ -2346,42 +2416,41 @@ def route_parity(torch, dev, report) -> None:
     torch.cuda.empty_cache()
 
 
-def serving_path(torch, dev, report, *, arch, phase_no, kernel, others,
-                 extra_argv, after=None) -> int:
-    """Phases 9 and 13: the serving entry point at full width of ``arch``;
-    ``kernel`` (a wrapper) must launch once a layer per prefill and
-    ``others`` never.  ``after(torch, params, cfg, out)`` runs on the model
-    before its weights are freed, with the phase's numbers ``out``.
-    Returns the kernel's launches in the entry point's run."""
+def serving_path(torch, dev, report, *, arch, phase_no, expected,
+                 extra_argv, after=None) -> dict:
+    """Phases 9, 13 and 23: the serving entry point at full width of
+    ``arch``.  ``expected`` maps each kernel wrapper to the launches one
+    prefill must make (0 for a kernel the path must not reach); the
+    entry point's run and the warm run must each make exactly those.
+    ``after(torch, params, cfg, out)`` runs on the model before its
+    weights are freed, with the phase's numbers ``out``.  Returns each
+    wrapper's launches in the entry point's run, by name."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve_decode import main as serve_main, serve
     B, P, T = PREFILL["B"], PREFILL["S"], 32
-    name = kernel.__name__
+    want = {w.__name__: n for w, n in expected.items()}
     phase(f"phase {phase_no}: serving path — repro_torch.serve_decode.main "
           f"--full-width {arch}, B={B}, prefill {P}, {T} decode tokens "
-          + " ".join(extra_argv))
+          + " ".join(extra_argv) + f"; launches a prefill {want}")
     argv = ["--full-width", "--arch", arch, "--batch", str(B),
             "--prefill-len", str(P), "--tokens", str(T), "--device", "cuda",
             *extra_argv]
     torch.cuda.reset_peak_memory_stats(dev)
-    for w in (kernel, *others):
+    for w in expected:
         w.launches = 0
     t0 = time.perf_counter()
     res = serve_main(argv)
     first_s = time.perf_counter() - t0
-    launches = kernel.launches
-    other = {w.__name__: w.launches for w in others}
+    launches = {w.__name__: w.launches for w in expected}
     cfg, params = res["cfg"], res["params"]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"first run (with init): {first_s:.2f} s; prefill "
-          f"{res['prefill_s'] * 1e3:.1f} ms; {name} launches {launches}; "
-          f"other kernels {other}; peak memory {peak_gb:.1f} GB")
-    if launches != cfg.num_layers:
-        fail(f"{name} launched {launches} times in one prefill of "
-             f"{cfg.num_layers} layers")
-    if any(other.values()):
-        fail(f"the {arch} serving path launched other kernels: {other}")
+          f"{res['prefill_s'] * 1e3:.1f} ms; launches {launches}; peak "
+          f"memory {peak_gb:.1f} GB")
+    if launches != want:
+        fail(f"the {arch} serving path launched {launches} in one prefill, "
+             f"not {want}")
     if res["prefill_logits_shape"] != (B, P, cfg.vocab_size):
         fail(f"prefill logits {res['prefill_logits_shape']}")
     if res["tokens"].shape != (B, T) or not bool(
@@ -2389,12 +2458,14 @@ def serving_path(torch, dev, report, *, arch, phase_no, kernel, others,
         fail("decode gave no finite logits")
 
     kw = dict(batch=B, tokens=T, cache_len=P, prefill_len=P, device=dev)
-    before = kernel.launches
+    before = {w.__name__: w.launches for w in expected}
     t0 = time.perf_counter()
     warm = serve(params, cfg, **kw)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    if kernel.launches - before != cfg.num_layers:
-        fail(f"the warm prefill did not launch {name} once a layer")
+    warm_launches = {w.__name__: w.launches - before[w.__name__]
+                     for w in expected}
+    if warm_launches != want:
+        fail(f"the warm {arch} run launched {warm_launches}, not {want}")
     steps_ms = sorted(x * 1e3 for x in warm["step_s"][1:])
     decode_ms = steps_ms[len(steps_ms) // 2]
     with profile(activities=[ProfilerActivity.CPU,
@@ -2431,23 +2502,25 @@ def serving_path(torch, dev, report, *, arch, phase_no, kernel, others,
 
 
 def flash_timings(torch, dev, gen, report) -> dict:
-    """Phase 10: the kernel at the prefill shape (causal, and window 512)
-    and at hubert-xlarge's (non-causal, hd 80), beside its plain version,
-    the library yardstick and its bound.  Returns the prefill's."""
+    """Phase 10: the kernel at the prefill shape (causal, and window 512),
+    at hubert-xlarge's (non-causal, hd 80) and at zamba2's shared
+    attention (causal, hd 80, H = KV = 32), beside its plain version, the
+    library yardstick and its bound.  Returns every shape's numbers."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
     F = torch.nn.functional
-    phase("phase 10: flash_attention timings at the prefill shape and at "
-          "hubert-xlarge's (device time from the profiler trace; inputs "
-          "cycled through > 2x L2)")
-    P, Hu = PREFILL, HUBERT_ATTN
+    phase("phase 10: flash_attention timings at the prefill shape, at "
+          "hubert-xlarge's and at zamba2's (device time from the profiler "
+          "trace; inputs cycled through > 2x L2)")
+    P, Hu, Z = PREFILL, HUBERT_ATTN, ZAMBA_ATTN
     out = {}
     for key, (B, S, H, KV, hd), causal, window in (
             ("prefill", (P["B"], P["S"], P["H"], P["KV"], P["hd"]), True, 0),
             ("prefill_w512", (P["B"], P["S"], P["H"], P["KV"], P["hd"]),
              True, 512),
             ("hubert", (Hu["B"], Hu["S"], Hu["H"], Hu["KV"], Hu["hd"]),
-             False, 0)):
+             False, 0),
+            ("zamba2", (Z["B"], Z["S"], Z["H"], Z["KV"], Z["hd"]), True, 0)):
         elt = 2
         nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * elt
 
@@ -2496,7 +2569,7 @@ def flash_timings(torch, dev, gen, report) -> dict:
               + (", boolean band mask" if window else "")
               + f"; {lib_err:.2e} from the kernel)")
     report["flash_timings"] = out
-    return out["prefill"]
+    return out
 
 
 def hubert_path(torch, dev, report, *, others) -> None:
@@ -2566,10 +2639,10 @@ def hubert_path(torch, dev, report, *, others) -> None:
     torch.cuda.empty_cache()
 
 
-def scan_vs_plain(torch, dev, gen, report) -> float:
+def scan_vs_plain(torch, dev, gen, report) -> tuple:
     """Phase 11: the chunk_scan kernel against its plain version (the
     sequential recurrence); returns the largest abs error of the f32 cases
-    (y and the final state)."""
+    (y and the final state), over all and over zamba2's call form."""
     from repro_torch.kernels.chunk_scan import chunk_scan
     from repro_torch.kernels.chunk_scan.ref import (chunk_scan_blocked_ref,
                                                     chunk_scan_ref)
@@ -2596,16 +2669,48 @@ def scan_vs_plain(torch, dev, gen, report) -> float:
         ld = (-torch.rand(*shape, generator=gen, device=dev) * ld_scale
               if ld_const is None else torch.full(shape, ld_const,
                                                   device=dev))
+        name = (f"B={B} T={T:4d} H={H:2d} K={K:2d} V={V:3d} chunk={chunk:3d} "
+                f"{mode:5s} {dt:8s}" + (" strided" if strided else "")
+                + (f" ld={ld_const}" if ld_const is not None else ""))
         u = randn(H, K) * 0.2 if rwkv else None
-        kw = dict(include_current=not rwkv, bonus=u)
+        return compare(name, dt, r, k, v, ld, s0, chunk, u)
+
+    def check_model_form(B, T, H, K, V, chunk, dt, aligned=True):
+        """Mamba2 in ``models/mamba.block``'s call form: one conv output
+        (B, T, H V + 2 K) holds x | B | C; v is its x columns viewed
+        (B, T, H, V) (row stride H V + 2 K), r its C columns broadcast
+        over the heads (head stride 0), k = B * dt materialised, the
+        decay a scalar per head (B, T, H) in f32.  ``aligned=False``
+        shifts the conv output by one element: its rows are no longer 16
+        bytes apart, so the kernel takes its element loads."""
+        dtype = getattr(torch, dt)
+        width = H * V + 2 * K
+        buf = (randn(B, T, width + (0 if aligned else 1)) * 0.3).to(dtype)
+        xc = buf if aligned else buf[..., 1:]
+        v = xc[..., :H * V].view(B, T, H, V)
+        Bm, Cm = xc[..., H * V:H * V + K], xc[..., H * V + K:]
+        dt_h = torch.nn.functional.softplus(randn(B, T, H) - 2.0)
+        k = Bm.view(B, T, 1, K) * dt_h[..., None].to(dtype)
+        r = Cm.view(B, T, 1, K).expand(B, T, H, K)
+        ld = -dt_h * torch.exp(randn(H) * 0.5)
+        if r.stride(2) != 0 or v.stride(1) != width + (0 if aligned else 1):
+            fail(f"chunk_scan model form: strides r {r.stride()}, v "
+                 f"{v.stride()}")
+        name = (f"B={B} T={T:4d} H={H:2d} K={K:2d} V={V:3d} chunk={chunk:3d} "
+                f"mamba {dt:8s} model form, r head stride 0, v row stride "
+                f"{v.stride(1)}" + ("" if aligned else " (element loads)"))
+        s0 = randn(B, H, K, V) * 0.1
+        return compare(name, dt, r, k, v, ld, s0, chunk, None,
+                       model_form=True)
+
+    def compare(name, dt, r, k, v, ld, s0, chunk, u, model_form=False):
+        dtype = getattr(torch, dt)
+        kw = dict(include_current=u is None, bonus=u)
         y, s_fin = chunk_scan(r, k, v, ld, s0, chunk=chunk, **kw)
         y_want, s_want = chunk_scan_ref(r, k, v, ld, s0, **kw)
         y_blk, s_blk = chunk_scan_blocked_ref(r, k, v, ld, s0, chunk=chunk,
                                               tf32_passes=3, **kw)
         torch.cuda.synchronize()
-        name = (f"B={B} T={T:4d} H={H:2d} K={K:2d} V={V:3d} chunk={chunk:3d} "
-                f"{mode:5s} {dt:8s}" + (" strided" if strided else "")
-                + (f" ld={ld_const}" if ld_const is not None else ""))
         if y.dtype != dtype or s_fin.dtype != torch.float32:
             fail(f"chunk_scan {name}: output dtypes {y.dtype}, {s_fin.dtype}")
         if not (bool(torch.isfinite(y).all())
@@ -2632,7 +2737,8 @@ def scan_vs_plain(torch, dev, gen, report) -> float:
         if scaled is not None and not scaled <= 1.0:
             fail(f"chunk_scan {name}: scaled error {scaled} > 1")
         return dict(name=name, dtype=dt, y_err=y_err, s_err=s_err,
-                    scaled_err=scaled, blocked_err=blk_err)
+                    scaled_err=scaled, blocked_err=blk_err,
+                    model_form=model_form)
 
     results = []
     for B, T, H, K, V, chunk in ((1, 64, 2, 8, 16, 16),
@@ -2662,15 +2768,49 @@ def scan_vs_plain(torch, dev, gen, report) -> float:
     results.append(check(2, 2048, 4, 64, 64, 16, "rwkv", "float32"))
     results.append(check(2, 128, 4, 64, 64, 128, "rwkv", "float32"))
     results.append(check(2, 256, 4, 64, 192, 128, "mamba", "float32"))
+    # zamba2's Mamba2 layers in the model's call form: f32 at 256 steps,
+    # bf16 at the serving shape, both load paths
+    z = SCAN_ZAMBA
+    for aligned in (True, False):
+        results.append(check_model_form(2, 256, z["H"], z["K"], z["V"],
+                                         z["chunk"], "float32", aligned))
+        results.append(check_model_form(z["B"], z["T"], z["H"], z["K"],
+                                        z["V"], z["chunk"], "bfloat16",
+                                        aligned))
     worst = max(max(r["y_err"], r["s_err"]) for r in results
                 if r["dtype"] == "float32")
+    zamba = max(max(r["y_err"], r["s_err"]) for r in results
+                if r["dtype"] == "float32" and r["model_form"])
     scaled = max(r["scaled_err"] for r in results
                  if r["scaled_err"] is not None)
     print(f"chunk_scan: {len(results)} cases pass; max abs error in f32 "
-          f"{worst:.3e} (tolerance {SCAN_TOL}), largest bf16 scaled error "
-          f"{scaled:.3f} (limit 1), every output finite")
+          f"{worst:.3e} (tolerance {SCAN_TOL}; in zamba2's call form "
+          f"{zamba:.3e}), largest bf16 scaled error {scaled:.3f} (limit 1), "
+          f"every output finite")
     report["chunk_scan_errors"] = results
-    return worst
+    return worst, zamba
+
+
+def decode_vs_full(torch, cfg, params, toks, impl) -> list:
+    """Decode ``toks`` (B, T) one token a step from an empty cache and
+    hold each step's logits against the full forward over ``toks``
+    through ``impl``: the largest |difference| at each position."""
+    from repro_torch.models import registry as R
+    B, T = toks.shape
+    full, _ = R.apply(params, cfg, {"tokens": toks}, impl=impl)
+    cache = R.init_cache(cfg, B, T, getattr(torch, cfg.dtype),
+                         device=toks.device)
+    outs = []
+    for t in range(T):
+        lg, cache = R.decode_step(params, cfg, cache, toks[:, t:t + 1])
+        outs.append(lg[:, 0])
+    return (torch.stack(outs, 1) - full).abs().amax(dim=(0, 2)).tolist()
+
+
+def to_double(tree):
+    """A param tree in float64."""
+    return ({k: to_double(v) for k, v in tree.items()}
+            if isinstance(tree, dict) else tree.double())
 
 
 def rwkv_route_parity(torch, dev, report) -> None:
@@ -2694,24 +2834,10 @@ def rwkv_route_parity(torch, dev, report) -> None:
     scale = float(plain.abs().max())
     del plain, kern
     T = 16
-
-    def decode_vs_full(cfg, params, impl):
-        full, _ = R.apply(params, cfg, {"tokens": toks[:, :T]}, impl=impl)
-        cache = R.init_cache(cfg, B, T, getattr(torch, cfg.dtype),
-                             device=dev)
-        outs = []
-        for t in range(T):
-            lg, cache = R.decode_step(params, cfg, cache, toks[:, t:t + 1])
-            outs.append(lg[:, 0])
-        return (torch.stack(outs, 1) - full).abs().amax(dim=(0, 2)).tolist()
-
-    dec_f32 = decode_vs_full(cfg, params, "kernel")
-    dec_f32_plain = decode_vs_full(cfg, params, "plain")
-    cfg64 = cfg.replace(dtype="float64")
-    params = {k: ({n: t.double() for n, t in v.items()}
-                  if isinstance(v, dict) else v.double())
-              for k, v in params.items()}
-    dec_f64 = decode_vs_full(cfg64, params, "plain")
+    dec_f32 = decode_vs_full(torch, cfg, params, toks[:, :T], "kernel")
+    dec_f32_plain = decode_vs_full(torch, cfg, params, toks[:, :T], "plain")
+    dec_f64 = decode_vs_full(torch, cfg.replace(dtype="float64"),
+                             to_double(params), toks[:, :T], "plain")
     dec_err = max(dec_f64)
     print(f"kernel vs plain route (f32): logits ({B}, {S}, {cfg.vocab_size}) "
           f"max abs difference {route_err:.3e} (tolerance {ROUTE_TOL}; max "
@@ -2777,68 +2903,148 @@ def lowest_in_chunk_decay(torch, params, cfg, out) -> None:
 
 
 def scan_timings(torch, dev, gen, report) -> dict:
-    """Phase 14: the kernel at the serving shape, beside its plain version
-    and its bound."""
+    """Phase 14: the kernel at rwkv6-7b's serving shape (RWKV6 mode) and
+    at zamba2's (Mamba2 mode, in the model's call form: r with a head
+    stride of 0, v a view of the conv output), beside its plain version
+    and its bound.  Returns both shapes' numbers."""
     from repro_torch.kernels.chunk_scan import chunk_scan
     from repro_torch.kernels.chunk_scan.ref import chunk_scan_ref
-    c = SCAN_SERVE
-    B, T, H, K, V, Lc = (c[x] for x in ("B", "T", "H", "K", "V", "chunk"))
-    phase(f"phase 14: chunk_scan timings at the serving shape [{B}, {T}, {H}, "
-          f"{K}, {V}] chunk {Lc} bf16 RWKV6 (device time from the profiler "
-          f"trace; inputs cycled through > 2x L2)")
-    # r, k, v and y in bf16, ld in f32, s0 and s_fin in f32, u
-    nbytes = (B * T * H * (3 * K + V) * 2 + B * T * H * K * 4
-              + 2 * B * H * K * V * 4 + H * K * 4)
+    c, z = SCAN_SERVE, SCAN_ZAMBA
+    phase(f"phase 14: chunk_scan timings at rwkv6-7b's serving shape "
+          f"[{c['B']}, {c['T']}, {c['H']}, {c['K']}, {c['V']}] chunk "
+          f"{c['chunk']} bf16 RWKV6 and at zamba2's [{z['B']}, {z['T']}, "
+          f"{z['H']}, {z['K']}, {z['V']}] Mamba2 (device time from the "
+          f"profiler trace; inputs cycled through > 2x L2)")
 
-    def make():
-        return ((torch.randn(B, T, H, K, generator=gen, device=dev) * 0.3)
-                .bfloat16(),
-                (torch.randn(B, T, H, K, generator=gen, device=dev) * 0.3)
-                .bfloat16(),
-                (torch.randn(B, T, H, V, generator=gen, device=dev) * 0.3)
-                .bfloat16(),
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def rwkv_inputs():
+        B, T, H, K, V = (c[x] for x in ("B", "T", "H", "K", "V"))
+        return ((randn(B, T, H, K) * 0.3).bfloat16(),
+                (randn(B, T, H, K) * 0.3).bfloat16(),
+                (randn(B, T, H, V) * 0.3).bfloat16(),
                 -torch.rand(B, T, H, K, generator=gen, device=dev) * 1.2,
-                torch.randn(B, H, K, V, generator=gen, device=dev) * 0.1,
-                torch.randn(H, K, generator=gen, device=dev) * 0.2)
+                randn(B, H, K, V) * 0.1, randn(H, K) * 0.2)
 
-    def kernel(r, k, v, ld, s0, u):
-        return chunk_scan(r, k, v, ld, s0, include_current=False, bonus=u,
-                          chunk=Lc)
+    def zamba_inputs():
+        """As ``models/mamba.block`` passes them: v and r views of one
+        conv output, k = B * dt, the decay (B, T, H) f32."""
+        B, T, H, K, V = (z[x] for x in ("B", "T", "H", "K", "V"))
+        xc = (randn(B, T, H * V + 2 * K) * 0.3).bfloat16()
+        dt_h = torch.nn.functional.softplus(randn(B, T, H) - 2.0)
+        return (xc[..., H * V + K:].view(B, T, 1, K).expand(B, T, H, K),
+                xc[..., H * V:H * V + K].view(B, T, 1, K)
+                * dt_h[..., None].bfloat16(),
+                xc[..., :H * V].view(B, T, H, V),
+                -dt_h * torch.exp(randn(H) * 0.5),
+                randn(B, H, K, V) * 0.1, None)
 
-    def plain(r, k, v, ld, s0, u):
-        return chunk_scan_ref(r, k, v, ld, s0, include_current=False,
-                              bonus=u)
+    out = {}
+    for key, cfg, make, plain_reps in (("rwkv6", c, rwkv_inputs, 3),
+                                       ("zamba2", z, zamba_inputs, 1)):
+        B, T, H, K, V, Lc = (cfg[x] for x in ("B", "T", "H", "K", "V",
+                                              "chunk"))
+        rwkv = key == "rwkv6"
+        # bytes each input is read and each output written once: r, k, v
+        # and y in bf16 (zamba2's r is one (B, T, K) row block read by
+        # every head), the decay in f32 (a channel each for RWKV6, a scalar
+        # a head for Mamba2), s0 and s_fin in f32, the bonus u
+        nbytes = (B * T * (H if rwkv else 1) * K * 2 + B * T * H * K * 2
+                  + 2 * B * T * H * V * 2 + B * T * H * (K if rwkv else 1)
+                  * 4 + 2 * B * H * K * V * 4 + (H * K * 4 if rwkv else 0))
+        kw = dict(include_current=not rwkv)
 
-    sets = cycled_inputs(make, nbytes)
-    k_ms, q_ms, host_ms, _ = time_device(torch, kernel, sets,
-                                      only="chunk_scan_kernel")
-    w_ms, *_ = time_device(torch, kernel, sets)
-    p_ms, *_ = time_device(torch, plain, sets, reps=3)
-    pairs = Lc * (Lc - 1) // 2
-    flops = B * H * (T // Lc) * 2.0 * (Lc * K * V + pairs * K + pairs * V
-                                       + K * Lc * V)
-    # the products run on the tensor cores (TF32 operands): the bound is
-    # the bytes; the earlier design's products on the f32 FMA units
-    b_ms, by = bound_ms(nbytes, flops, peak=H100_TF32_FLOP_PER_S)
-    fma_ms = flops / H100_F32_FLOP_PER_S * 1e3
-    tf32_ms = flops / H100_TF32_FLOP_PER_S * 1e3
-    t = dict(shape=[B, T, H, K, V], chunk=Lc, ms=k_ms, wrapper_ms=w_ms,
-             queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms, library_ms=None,
-             bound_ms=b_ms, bound_by=by, bound_fma_ms=fma_ms,
-             bound_tf32_ms=tf32_ms, flops=flops, nbytes=nbytes,
-             tflops=flops / k_ms / 1e9)
-    print(f"chunk_scan [{B}, {T}, {H}, {K}, {V}] chunk {Lc} bf16 RWKV6: "
-          f"kernel {k_ms:.4f} ms ({t['tflops']:.1f} TFLOP/s; the wrapper "
-          f"{w_ms:.4f} ms; queued {q_ms:.4f} ms/call, host enqueue "
-          f"{host_ms * 1e3:.1f} us/call), bound {b_ms:.4f} ms ({by}, "
-          f"{nbytes / 1e6:.1f} MB; "
-          f"the {flops:.3e} flops take {tf32_ms:.4f} ms at the TF32 "
-          f"tensor-core peak, {fma_ms:.4f} ms at the f32 FMA peak of the "
-          f"earlier design), plain {p_ms:.2f} ms, library none (no single "
-          f"PyTorch call computes the recurrence)")
-    report["chunk_scan_timings"] = t
-    return t
+        def kernel(r, k, v, ld, s0, u):
+            return chunk_scan(r, k, v, ld, s0, bonus=u, chunk=Lc, **kw)
 
+        def plain(r, k, v, ld, s0, u):
+            return chunk_scan_ref(r, k, v, ld, s0, bonus=u, **kw)
+
+        sets = cycled_inputs(make, nbytes)
+        k_ms, q_ms, host_ms, _ = time_device(torch, kernel, sets,
+                                             only="chunk_scan_kernel")
+        w_ms, *_ = time_device(torch, kernel, sets)
+        p_ms, *_ = time_device(torch, plain, sets, reps=plain_reps)
+        # query-key pairs a chunk: s < t (RWKV6, the bonus apart) or
+        # s <= t (Mamba2)
+        pairs = Lc * (Lc - 1) // 2 if rwkv else Lc * (Lc + 1) // 2
+        flops = B * H * (T // Lc) * 2.0 * (Lc * K * V + pairs * K
+                                           + pairs * V + K * Lc * V)
+        # the products run on the tensor cores (TF32 operands): the bound
+        # is the bytes; the earlier design's products on the f32 FMA units
+        b_ms, by = bound_ms(nbytes, flops, peak=H100_TF32_FLOP_PER_S)
+        fma_ms = flops / H100_F32_FLOP_PER_S * 1e3
+        tf32_ms = flops / H100_TF32_FLOP_PER_S * 1e3
+        t = dict(shape=[B, T, H, K, V], chunk=Lc, ms=k_ms, wrapper_ms=w_ms,
+                 queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms,
+                 library_ms=None, bound_ms=b_ms, bound_by=by,
+                 bound_fma_ms=fma_ms, bound_tf32_ms=tf32_ms, flops=flops,
+                 nbytes=nbytes, tflops=flops / k_ms / 1e9)
+        out[key] = t
+        print(f"chunk_scan [{B}, {T}, {H}, {K}, {V}] chunk {Lc} bf16 "
+              f"{'RWKV6' if rwkv else 'Mamba2, model call form'}: kernel "
+              f"{k_ms:.4f} ms ({t['tflops']:.1f} TFLOP/s; the wrapper "
+              f"{w_ms:.4f} ms; queued {q_ms:.4f} ms/call, host enqueue "
+              f"{host_ms * 1e3:.1f} us/call), bound {b_ms:.4f} ms ({by}, "
+              f"{nbytes / 1e6:.1f} MB; the {flops:.3e} flops take "
+              f"{tf32_ms:.4f} ms at the TF32 tensor-core peak, {fma_ms:.4f} "
+              f"ms at the f32 FMA peak of the earlier design), plain "
+              f"{p_ms:.2f} ms, library none (no single PyTorch call "
+              f"computes the recurrence)")
+    report["chunk_scan_timings"] = out
+    return out
+
+
+def zamba_route_parity(torch, dev, report) -> None:
+    """Phase 22: zamba2-2.7b at full width with 2 groups (12 Mamba2
+    layers, the shared block twice), f32: the kernel route against the
+    plain route, and 16 decode steps against the full forward through both
+    routes (as ``tests/test_torch_mamba.py`` holds them on the CPU), with
+    the same comparison in float64 (the plain route) printed beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import registry as R
+    base = get_config("zamba2-2.7b")
+    cfg = base.replace(num_layers=2 * base.attn_every, dtype="float32",
+                       remat=False)
+    phase(f"phase 22: model-level route parity — zamba2-2.7b full width, "
+          f"{cfg.num_layers} Mamba2 layers in 2 groups, f32")
+    params = R.init_params(1, cfg, device=dev)
+    B, S = 2, 2 * cfg.chunk_size
+    toks = torch.tensor(token_stream(1, B * S, cfg.vocab_size)
+                        .reshape(B, S), dtype=torch.long, device=dev)
+    plain, _ = R.apply(params, cfg, {"tokens": toks}, impl="plain")
+    kern, _ = R.apply(params, cfg, {"tokens": toks}, impl="kernel")
+    route_err = float((kern - plain).abs().max())
+    scale = float(plain.abs().max())
+    del plain, kern
+    T = 16
+    dec_kernel = decode_vs_full(torch, cfg, params, toks[:, :T], "kernel")
+    dec_plain = decode_vs_full(torch, cfg, params, toks[:, :T], "plain")
+    params = to_double(params)
+    dec_f64 = decode_vs_full(torch, cfg.replace(dtype="float64"), params,
+                             toks[:, :T], "plain")
+    dec_err = max(max(dec_kernel), max(dec_plain))
+    print(f"kernel vs plain route (f32): logits ({B}, {S}, {cfg.vocab_size}) "
+          f"max abs difference {route_err:.3e} (tolerance {ROUTE_TOL}; max "
+          f"|logit| {scale:.2f}); {T} decode steps vs the full forward in "
+          f"f32 {dec_err:.3e} (tolerance {DECODE_TOL}; kernel route "
+          f"{max(dec_kernel):.3e}, plain route {max(dec_plain):.3e}; in "
+          f"float64, not gated, {max(dec_f64):.3e}); by position, kernel "
+          f"route: " + " ".join(f"{x:.1e}" for x in dec_kernel))
+    if not (math.isfinite(scale) and route_err <= ROUTE_TOL):
+        fail(f"zamba2-2.7b kernel and plain routes differ by {route_err}")
+    if not dec_err < DECODE_TOL:
+        fail(f"zamba2-2.7b decode differs from the full forward by "
+             f"{dec_err}")
+    report["zamba_route_parity"] = dict(
+        route_err=route_err, decode_err=dec_err, max_logit=scale,
+        decode_err_kernel_by_position=dec_kernel,
+        decode_err_plain_by_position=dec_plain,
+        decode_err_f64_by_position=dec_f64)
+    del params
+    torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()

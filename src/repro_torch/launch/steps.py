@@ -30,8 +30,8 @@ def cache_len_for(cfg: ModelConfig, shape: ShapeConfig) -> int:
 def make_prefill_step(cfg: ModelConfig, window: int = 0,
                       impl: str = "kernel", q_chunks: int = 1):
     """``impl``: "kernel" (the JAX package's "pallas"), the family's CUDA
-    kernel (flash_attention, or chunk_scan for RWKV6), or "plain" (its
-    "xla"), which only comparisons ask for."""
+    kernels (flash_attention; chunk_scan for RWKV6; both for the hybrid),
+    or "plain" (its "xla"), which only comparisons ask for."""
     def prefill_step(params, batch):
         logits, _aux = R.apply(params, cfg, batch, window=window, impl=impl,
                                q_chunks=q_chunks)
@@ -40,11 +40,12 @@ def make_prefill_step(cfg: ModelConfig, window: int = 0,
 
 
 def check_prefill_len(cfg: ModelConfig, prefill_len: int) -> None:
-    """The RWKV6 prefill runs in chunks of ``min(cfg.chunk_size, S)``
-    steps, which must divide S (the JAX package asserts): raise
-    ``ValueError`` for a length they do not divide."""
+    """The RWKV6 and Mamba2 prefills run in chunks of
+    ``min(cfg.chunk_size, S)`` steps, which must divide S (the JAX package
+    asserts): raise ``ValueError`` for a length they do not divide."""
     c = cfg.chunk_size
-    if (cfg.family == "ssm" and prefill_len > c and prefill_len % c):
+    if (cfg.family in ("ssm", "hybrid") and prefill_len > c
+            and prefill_len % c):
         raise ValueError(f"{cfg.name}: a prefill of {prefill_len} tokens is "
                          f"not a multiple of the chunk length {c}")
 

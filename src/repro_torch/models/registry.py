@@ -1,5 +1,6 @@
 """Unified model API over the ported architecture families (dense, vlm,
-audio, ssm), one for one with the JAX package's ``models/registry.py``.
+audio, ssm, hybrid), one for one with the JAX package's
+``models/registry.py``.
 
     init_params(seed, cfg, device)               -> params tree
     apply(params, cfg, batch, ...)               -> (logits, aux)  # prefill
@@ -9,10 +10,11 @@ audio, ssm), one for one with the JAX package's ``models/registry.py``.
     analytic_param_count(cfg)                    -> int
 
 The kernel route is ``impl="kernel"`` (the JAX package's ``"pallas"``):
-flash_attention for the transformer families, chunk_scan for RWKV6;
-``impl="plain"`` (its ``"xla"``) is the plain PyTorch route, which only
-comparisons ask for.  The hybrid family (Mamba2) raises
-``NotImplementedError`` until its slice is ported; so do MoE and MLA
+flash_attention for the transformer families, chunk_scan for RWKV6,
+both for the hybrid family (chunk_scan in each Mamba2 layer,
+flash_attention in the shared block once a group); ``impl="plain"`` (its
+``"xla"``) is the plain PyTorch route, which only comparisons ask for.
+MoE and MLA raise ``NotImplementedError`` until their slice is ported
 (``models/transformer.py``).
 """
 from __future__ import annotations
@@ -24,19 +26,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models import rwkv as RW
 from repro_torch.models import transformer as TF
 
 
-_UNPORTED = {"hybrid": "its Mamba2 layers (models/mamba.py), ROADMAP queue A "
-             "item 14c"}
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet: it "
-            f"waits for {_UNPORTED[cfg.family]}")
+def _groups(cfg: ModelConfig):
+    """The hybrid stack's (groups, Mamba2 layers a group)."""
+    return cfg.num_layers // cfg.attn_every, cfg.attn_every
 
 
 # --------------------------------------------------------------------------
@@ -48,7 +45,6 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda"):
     ``device`` (the JAX package's key gives other numbers: tests carry
     weights across with ``core.modelbank.params_from_jax``).
     ``device="meta"`` gives shapes only."""
-    _check_family(cfg)
     dev = torch.device(device)
     if dev.type != "meta":
         dev = resolve_device(dev)
@@ -59,6 +55,12 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda"):
                 "final_norm": torch.ones((cfg.d_model,), device=dev),
                 "layers": RW.init_layer(gen, cfg, device=dev,
                                         lead=(cfg.num_layers,))}
+    if cfg.family == "hybrid":
+        return {"embed": L.init_embedding(gen, cfg, device=dev),
+                "final_norm": torch.ones((cfg.d_model,), device=dev),
+                "mamba": MB.init_layer(gen, cfg, device=dev,
+                                       lead=_groups(cfg)),
+                "shared": MB.init_shared_attn(gen, cfg, device=dev)}
     return TF.init_params(gen, cfg, device=dev)
 
 
@@ -69,8 +71,7 @@ def init_params(seed: int, cfg: ModelConfig, *, device="cuda"):
 def apply(params, cfg: ModelConfig, batch, *, window: int = 0,
           impl: str = "kernel", q_chunks: int = 1):
     """``impl``: "kernel" (the JAX package's "pallas"), the family's CUDA
-    kernel, or "plain" (its "xla"), which only comparisons ask for."""
-    _check_family(cfg)
+    kernels, or "plain" (its "xla"), which only comparisons ask for."""
     if cfg.family == "ssm":
         dtype = getattr(torch, cfg.dtype)
         x, _ = TF._embed_inputs(params, cfg, batch, dtype)
@@ -82,6 +83,23 @@ def apply(params, cfg: ModelConfig, batch, *, window: int = 0,
         x = L.rms_norm(x, params["final_norm"])
         return (L.unembed(params["embed"], cfg, x),
                 torch.zeros((), dtype=torch.float32, device=x.device))
+    if cfg.family == "hybrid":
+        dtype = getattr(torch, cfg.dtype)
+        x, positions = TF._embed_inputs(params, cfg, batch, dtype)
+        G, A = _groups(cfg)
+        state = MB.init_state(cfg, x.shape[0], dtype, device=x.device,
+                              lead=(G, A))
+        shared, mamba = params["shared"], params["mamba"]
+        for g in range(G):
+            x, _ = MB.shared_attn_block(shared, cfg, x, positions, None,
+                                        window=window, impl=impl)
+            mp_g, st_g = TF.layer_view(mamba, g), TF.layer_view(state, g)
+            for j in range(A):
+                x, _ = MB.block(TF.layer_view(mp_g, j), cfg, x,
+                                TF.layer_view(st_g, j), impl=impl)
+        x = L.rms_norm(x, params["final_norm"])
+        return (L.unembed(params["embed"], cfg, x),
+                torch.zeros((), dtype=torch.float32, device=x.device))
     return TF.forward(params, cfg, batch, window=window, impl=impl,
                       q_chunks=q_chunks)
 
@@ -89,18 +107,28 @@ def apply(params, cfg: ModelConfig, batch, *, window: int = 0,
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
                device="cuda"):
     """The decode cache: the ring-buffer KV cache of the transformer
-    families, or the RWKV state (``cache_len`` unused)."""
-    _check_family(cfg)
+    families, the RWKV state (``cache_len`` unused), or the hybrid's
+    Mamba2 states stacked (groups, layers a group, ...) beside one
+    ring-buffer KV cache a group for the shared block."""
     dev = resolve_device(device)
     if cfg.family == "ssm":
         return RW.init_state(cfg, batch, dtype, device=dev)
+    if cfg.family == "hybrid":
+        G, A = _groups(cfg)
+        shape = (G, batch, cache_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"mamba": MB.init_state(cfg, batch, dtype, device=dev,
+                                       lead=(G, A)),
+                "attn_k": torch.zeros(shape, dtype=dtype, device=dev),
+                "attn_v": torch.zeros(shape, dtype=dtype, device=dev),
+                "index": 0}
     return TF.init_cache(cfg, batch, cache_len, dtype, device=dev)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, *, window: int = 0):
-    """One decode step.  The RWKV state is updated in place (the returned
-    cache holds the same tensors); the JAX package returns new arrays."""
-    _check_family(cfg)
+    """One decode step.  The RWKV state, the hybrid's Mamba2 states and
+    every KV cache are updated in place (the returned cache holds the same
+    tensors); the JAX package returns new arrays."""
     if cfg.family == "ssm":
         x = L.embed(params["embed"], cfg, tokens, getattr(torch, cfg.dtype))
         layers = params["layers"]
@@ -111,6 +139,28 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, *, window: int = 0):
                 cache[k][l].copy_(v)
         x = L.rms_norm(x, params["final_norm"])
         return L.unembed(params["embed"], cfg, x), cache
+    if cfg.family == "hybrid":
+        x = L.embed(params["embed"], cfg, tokens, getattr(torch, cfg.dtype))
+        idx = cache["index"]
+        k_pos = L.ring_positions(idx, cache["attn_k"].shape[2], x.device)
+        G, A = _groups(cfg)
+        shared, mamba = params["shared"], params["mamba"]
+        states = cache["mamba"]
+        for g in range(G):
+            attn_cache = {"k": cache["attn_k"][g], "v": cache["attn_v"][g],
+                          "index": idx, "k_pos": k_pos}
+            x, _ = MB.shared_attn_block(shared, cfg, x, None, attn_cache,
+                                        window=window, impl="plain")
+            mp_g, st_g = TF.layer_view(mamba, g), TF.layer_view(states, g)
+            for j in range(A):
+                x, st = MB.block(TF.layer_view(mp_g, j), cfg, x,
+                                 TF.layer_view(st_g, j))
+                for k, v in st.items():
+                    st_g[k][j].copy_(v)
+        x = L.rms_norm(x, params["final_norm"])
+        return L.unembed(params["embed"], cfg, x), {
+            "mamba": states, "attn_k": cache["attn_k"],
+            "attn_v": cache["attn_v"], "index": idx + 1}
     return TF.decode_step(params, cfg, cache, tokens, window=window)
 
 

@@ -1,7 +1,9 @@
 """Serving entry point: batched greedy decoding over the ring-buffer KV
-cache (transformer families) or the O(1) recurrent state (RWKV6), after
-an optional prefill through the family's kernel — flash_attention or
-chunk_scan (the port of ``examples/serve_decode.py``).
+cache (transformer families), the O(1) recurrent state (RWKV6) or both
+(the hybrid zamba2: Mamba2 states and one KV cache a shared-attention
+group), after an optional prefill through the family's kernels —
+flash_attention, chunk_scan, or both (the port of
+``examples/serve_decode.py``).
 
     PYTHONPATH=src python -m repro_torch.serve_decode --arch qwen3-4b \\
         --tokens 32 --device cuda
@@ -9,16 +11,19 @@ chunk_scan (the port of ``examples/serve_decode.py``).
         --batch 4 --prefill-len 2048 --tokens 32 --cache-len 2048
     PYTHONPATH=src python -m repro_torch.serve_decode --full-width \\
         --arch rwkv6-7b --batch 4 --prefill-len 2048 --tokens 32
+    PYTHONPATH=src python -m repro_torch.serve_decode --full-width \
+        --arch zamba2-2.7b --batch 4 --prefill-len 2048 --tokens 32
 
 The model is the example's: the arch's ``reduced()`` config in float32,
 with random weights from seed 0; ``--full-width`` takes the published
 config as it is (bf16 compute over f32 master weights).  ``--prefill-len
 P`` first runs ``make_prefill_step(impl="kernel")`` on a (batch, P) prompt
-of ``data.synthetic.token_stream``; for RWKV6 a P above the arch's
-``chunk_size`` must be a multiple of it (``ValueError`` otherwise, before
-any weight is drawn).  Decode then starts from an empty cache, as in the
+of ``data.synthetic.token_stream``; for RWKV6 and zamba2 a P above the
+arch's ``chunk_size`` must be a multiple of it (``ValueError`` otherwise,
+before any weight is drawn).  Decode then starts from an empty cache, as in the
 example: the JAX package has no prefill that fills the cache.
-``--cache-len`` does nothing for RWKV6, whose state has no length.
+``--cache-len`` does nothing for RWKV6, whose state has no length; for
+zamba2 it is the length of each group's KV cache.
 ``--device`` defaults to ``cuda``; asking for it without a card raises.
 """
 from __future__ import annotations

@@ -251,12 +251,3 @@ def test_serve_decode_refuses_a_ragged_prefill(prefill_len, monkeypatch):
     with pytest.raises(ValueError):
         steps.check_prefill_len(ARCHS[ARCH], 2000)   # full width: 128
 
-
-def test_hybrid_family_names_what_it_waits_for():
-    cfg = ARCHS["zamba2-2.7b"].reduced().replace(remat=False,
-                                                 dtype="float32")
-    with pytest.raises(NotImplementedError,
-                       match="models/mamba.py.*item 14c") as err:
-        R.init_params(0, cfg, device="cpu")
-    # its shared attention's head dim 80 is no longer a reason
-    assert "80" not in str(err.value)

@@ -134,7 +134,8 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
     assert {"repro_torch.core.simulator", "repro_torch.obs.export",
             "repro_torch.obs.profile", "repro_torch.sweep.batch",
-            "repro_torch.sweep.driver"} <= set(mods) and len(mods) >= 30
+            "repro_torch.sweep.driver", "repro_torch.models.mamba"} \
+        <= set(mods) and len(mods) >= 30
 
 
 def test_ast_scan_finds_no_jax_import():
