@@ -216,7 +216,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      2048-slot KV cache a group: ``chunk_scan`` must launch exactly 54
      times a prefill, ``flash_attention`` exactly 9, the other kernels
      never; the same numbers as phase 9;
- 24. one JSON line of per-kernel numbers (the two LM kernels also at
+ 24. model-level parity of the moe family in f32: (a) deepseek-v2-236b
+     at full width cut to 2 layers (the dense MLA layer and one MoE
+     layer; MLA's query low-rank branch), MoE capacity factor 64 (no
+     token drops), B 2 x 256: 16 decode steps (the absorbed MLA over the
+     latent cache) against the full forward (the expanded MLA) within
+     1e-4, and the forward with ``q_chunks=4`` against one chunk within
+     1e-5, the float64 figures printed beside both; (b) kimi-k2-1t-a32b at
+     its reduced config (GQA attention over MoE layers): kernel-route
+     logits against the plain route (2e-4), ``flash_attention`` launching
+     exactly once a layer a prefill, 16 decode steps against the full
+     forward (1e-4);
+ 25. serving deepseek-v2-236b at full width cut to 3 layers (1 dense, 2
+     MoE; the published capacity factor 1.25) through
+     ``repro_torch.serve_decode.serve``, B 4, a 2048-token prefill, 32
+     decode steps over a 2048-slot latent cache: none of the four kernels
+     may launch (MLA attends in plain PyTorch, as the JAX package does in
+     XLA); the same numbers as phase 9, and the share of the prefill's
+     token-to-expert assignments that each MoE layer drops;
+ 26. one JSON line of per-kernel numbers (the two LM kernels also at
      zamba2's shapes, as ``flash_attention:zamba2`` and
      ``chunk_scan:zamba2``, with phase 23's launches).
 
@@ -265,6 +283,9 @@ FLASH_BF16_REL, FLASH_BF16_ROW = 2.0 ** -7, 2.0 ** -8
 FLASH_SPREADS = (0.5, 2.0)
 ROUTE_TOL = 2e-4                    # kernel vs plain route, model logits
 DECODE_TOL = 1e-4                   # decode vs full forward, model logits
+# MLA's q_chunks=4 vs one chunk, model logits in f32: the same products
+# over fewer keys for the early chunks (the masked keys add exact zeros)
+MLA_CHUNKS_TOL = 1e-5
 PREFILL = dict(B=4, S=2048, H=32, KV=8, hd=128)   # the serving prefill
 # hubert-xlarge's attention at its published width, over B 4 x 2048 frames
 HUBERT_ATTN = dict(B=4, S=2048, H=16, KV=16, hd=80)
@@ -833,7 +854,16 @@ def main() -> None:
                   fed_agg: 0, pairwise_dist_sq: 0},
         extra_argv=["--cache-len", str(PREFILL["S"])])
 
-    # ---- 24. the kernel line ----------------------------------------------
+    # ---- 24-25. LM serving, the moe family (deepseek-v2, kimi-k2) --------
+    moe_route_parity(torch, dev, report, flash_attention)
+    serving_path(
+        torch, dev, report, arch="deepseek-v2-236b", phase_no=25,
+        expected={flash_attention: 0, chunk_scan: 0, fed_agg: 0,
+                  pairwise_dist_sq: 0},
+        cfg=get_config("deepseek-v2-236b").replace(num_layers=3),
+        after=moe_drop_share)
+
+    # ---- 26. the kernel line ----------------------------------------------
     fb, pg = timings["eq14_bank_carry"], timings["pairwise_dist_grouping"]
     fz, cz = fa_all["zamba2"], cs_all["zamba2"]
     kernel_line = {"kernels": [
@@ -2417,33 +2447,46 @@ def route_parity(torch, dev, report) -> None:
 
 
 def serving_path(torch, dev, report, *, arch, phase_no, expected,
-                 extra_argv, after=None) -> dict:
-    """Phases 9, 13 and 23: the serving entry point at full width of
-    ``arch``.  ``expected`` maps each kernel wrapper to the launches one
-    prefill must make (0 for a kernel the path must not reach); the
-    entry point's run and the warm run must each make exactly those.
-    ``after(torch, params, cfg, out)`` runs on the model before its
-    weights are freed, with the phase's numbers ``out``.  Returns each
-    wrapper's launches in the entry point's run, by name."""
+                 extra_argv=(), cfg=None, after=None) -> dict:
+    """Phases 9, 13, 23 and 25: the serving entry point at full width of
+    ``arch``: ``serve_decode.main --full-width``, or, given ``cfg`` (the
+    published config cut in depth), ``serve_decode.serve`` on it over a
+    cache of the prefill's length.  ``expected`` maps each kernel wrapper
+    to the launches one prefill must make (0 for a kernel the path must
+    not reach); the entry point's run and the warm run must each make
+    exactly those.  ``after(torch, params, cfg, out)`` runs on the model
+    before its weights are freed, with the phase's numbers ``out``.
+    Returns each wrapper's launches in the entry point's run, by name."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve_decode import main as serve_main, serve
+    from repro_torch.models import registry as R
+    from repro_torch.serve_decode import SEED, main as serve_main, serve
     B, P, T = PREFILL["B"], PREFILL["S"], 32
+    kw = dict(batch=B, tokens=T, cache_len=P, prefill_len=P, device=dev)
     want = {w.__name__: n for w, n in expected.items()}
-    phase(f"phase {phase_no}: serving path — repro_torch.serve_decode.main "
-          f"--full-width {arch}, B={B}, prefill {P}, {T} decode tokens "
-          + " ".join(extra_argv) + f"; launches a prefill {want}")
-    argv = ["--full-width", "--arch", arch, "--batch", str(B),
-            "--prefill-len", str(P), "--tokens", str(T), "--device", "cuda",
-            *extra_argv]
+    if cfg is None:
+        what = (f"repro_torch.serve_decode.main --full-width {arch}, B={B}, "
+                f"prefill {P}, {T} decode tokens " + " ".join(extra_argv))
+    else:
+        what = (f"repro_torch.serve_decode.serve on {arch} at full width cut "
+                f"to {cfg.num_layers} layers, B={B}, prefill {P}, {T} "
+                f"decode tokens over a {P}-slot cache")
+    phase(f"phase {phase_no}: serving path — {what}; launches a prefill "
+          f"{want}")
     torch.cuda.reset_peak_memory_stats(dev)
     for w in expected:
         w.launches = 0
     t0 = time.perf_counter()
-    res = serve_main(argv)
+    if cfg is None:
+        res = serve_main(["--full-width", "--arch", arch, "--batch", str(B),
+                          "--prefill-len", str(P), "--tokens", str(T),
+                          "--device", "cuda", *extra_argv])
+        cfg, params = res["cfg"], res["params"]
+    else:
+        params = R.init_params(SEED, cfg, device=dev)
+        res = serve(params, cfg, **kw)
     first_s = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in expected}
-    cfg, params = res["cfg"], res["params"]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"first run (with init): {first_s:.2f} s; prefill "
           f"{res['prefill_s'] * 1e3:.1f} ms; launches {launches}; peak "
@@ -2457,7 +2500,6 @@ def serving_path(torch, dev, report, *, arch, phase_no, expected,
             torch.isfinite(res["logits"]).all()):
         fail("decode gave no finite logits")
 
-    kw = dict(batch=B, tokens=T, cache_len=P, prefill_len=P, device=dev)
     before = {w.__name__: w.launches for w in expected}
     t0 = time.perf_counter()
     warm = serve(params, cfg, **kw)
@@ -2808,9 +2850,14 @@ def decode_vs_full(torch, cfg, params, toks, impl) -> list:
 
 
 def to_double(tree):
-    """A param tree in float64."""
-    return ({k: to_double(v) for k, v in tree.items()}
-            if isinstance(tree, dict) else tree.double())
+    """A param tree in float64, converted in place leaf by leaf (so the
+    whole tree never lies on the card in both dtypes at once)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            to_double(v)
+        else:
+            tree[k] = v.double()
+    return tree
 
 
 def rwkv_route_parity(torch, dev, report) -> None:
@@ -3045,6 +3092,138 @@ def zamba_route_parity(torch, dev, report) -> None:
         decode_err_f64_by_position=dec_f64)
     del params
     torch.cuda.empty_cache()
+
+
+MOE_PARITY_FACTOR = 64.0    # capacity factor under which nothing drops
+
+
+def moe_route_parity(torch, dev, report, flash_attention) -> None:
+    """Phase 24: the moe family in f32, as ``tests/test_torch_moe.py``
+    holds it on the CPU.  (a) deepseek-v2-236b at full width, 2 layers
+    (the dense MLA layer, one MoE layer): decode against the full forward,
+    ``q_chunks=4`` against one chunk, and both again in float64 (printed,
+    not gated).  (b) kimi-k2-1t-a32b reduced: the kernel route against
+    the plain route with ``flash_attention`` launching once a layer, and
+    decode against the full forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import registry as R
+    cfg = get_config("deepseek-v2-236b").replace(
+        num_layers=2, dtype="float32", remat=False,
+        moe_capacity_factor=MOE_PARITY_FACTOR)
+    phase(f"phase 24: model-level parity — deepseek-v2-236b full width, "
+          f"{cfg.num_layers} layers (MLA; q_lora_rank {cfg.q_lora_rank}; "
+          f"{cfg.num_experts} experts top-{cfg.top_k}, capacity factor "
+          f"{MOE_PARITY_FACTOR:g}), f32; kimi-k2-1t-a32b reduced")
+    params = R.init_params(1, cfg, device=dev)
+    B, S, T = 2, 256, 16
+    toks = torch.tensor(token_stream(1, B * S, cfg.vocab_size)
+                        .reshape(B, S), dtype=torch.long, device=dev)
+
+    def chunks_err(cfg, params):
+        one, _ = R.apply(params, cfg, {"tokens": toks})
+        four, _ = R.apply(params, cfg, {"tokens": toks}, q_chunks=4)
+        return float((four - one).abs().max()), float(one.abs().max())
+
+    chunk_err, scale = chunks_err(cfg, params)
+    dec = decode_vs_full(torch, cfg, params, toks[:, :T], "plain")
+    cfg64 = cfg.replace(dtype="float64")
+    params = to_double(params)
+    chunk_err64, _ = chunks_err(cfg64, params)
+    dec64 = decode_vs_full(torch, cfg64, params, toks[:, :T], "plain")
+    del params
+    torch.cuda.empty_cache()
+    print(f"deepseek-v2-236b, 2 layers: {T} decode steps (absorbed MLA over "
+          f"the latent cache) vs the full forward (expanded MLA) "
+          f"{max(dec):.3e} (tolerance {DECODE_TOL}; float64, not gated, "
+          f"{max(dec64):.3e}); q_chunks=4 vs 1 over ({B}, {S}) "
+          f"{chunk_err:.3e} (tolerance {MLA_CHUNKS_TOL}; float64 "
+          f"{chunk_err64:.3e}); max |logit| {scale:.2f}; by position: "
+          + " ".join(f"{x:.1e}" for x in dec))
+    if not (math.isfinite(scale) and max(dec) < DECODE_TOL):
+        fail(f"deepseek-v2-236b decode differs from the full forward by "
+             f"{max(dec)}")
+    if not chunk_err <= MLA_CHUNKS_TOL:
+        fail(f"deepseek-v2-236b q_chunks=4 differs from one chunk by "
+             f"{chunk_err}")
+
+    kcfg = get_config("kimi-k2-1t-a32b").reduced().replace(
+        remat=False, dtype="float32", moe_capacity_factor=MOE_PARITY_FACTOR)
+    kparams = R.init_params(1, kcfg, device=dev)
+    ktoks = torch.tensor(token_stream(2, B * S, kcfg.vocab_size)
+                         .reshape(B, S), dtype=torch.long, device=dev)
+    plain, _ = R.apply(kparams, kcfg, {"tokens": ktoks}, impl="plain")
+    flash_attention.launches = 0
+    kern, aux = R.apply(kparams, kcfg, {"tokens": ktoks}, impl="kernel")
+    launches = flash_attention.launches
+    route_err = float((kern - plain).abs().max())
+    kscale = float(plain.abs().max())
+    del plain, kern
+    kdec = decode_vs_full(torch, kcfg, kparams, ktoks[:, :T], "kernel")
+    print(f"kimi-k2-1t-a32b reduced ({kcfg.num_layers} layers, "
+          f"{kcfg.num_experts} experts top-{kcfg.top_k}): kernel vs plain "
+          f"route ({B}, {S}) {route_err:.3e} (tolerance {ROUTE_TOL}; max "
+          f"|logit| {kscale:.2f}; aux {float(aux):.4f}); flash_attention "
+          f"launches in one prefill {launches}; {T} decode steps vs the "
+          f"full forward {max(kdec):.3e} (tolerance {DECODE_TOL})")
+    if launches != kcfg.num_layers:
+        fail(f"kimi-k2's kernel route launched flash_attention {launches} "
+             f"times in a {kcfg.num_layers}-layer prefill")
+    if not (math.isfinite(kscale) and route_err <= ROUTE_TOL):
+        fail(f"kimi-k2 kernel and plain routes differ by {route_err}")
+    if not max(kdec) < DECODE_TOL:
+        fail(f"kimi-k2 decode differs from the full forward by {max(kdec)}")
+    report["moe_route_parity"] = dict(
+        deepseek_decode_err=max(dec), deepseek_decode_err_f64=max(dec64),
+        deepseek_chunks_err=chunk_err, deepseek_chunks_err_f64=chunk_err64,
+        deepseek_max_logit=scale, deepseek_decode_err_by_position=dec,
+        kimi_route_err=route_err, kimi_decode_err=max(kdec),
+        kimi_flash_launches=launches, kimi_max_logit=kscale)
+    del kparams
+    torch.cuda.empty_cache()
+
+
+def moe_drop_share(torch, params, cfg, out) -> None:
+    """Phase 25's ``after``: one more prefill of the serving prompt, with
+    ``moe_ffn`` wrapped to count from the router's own top-k how many
+    token-to-expert assignments each MoE layer's capacity drops."""
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve_decode import SEED
+    B, P = PREFILL["B"], PREFILL["S"]
+    dev = params["final_norm"].device
+    prompt = torch.tensor(token_stream(SEED, B * P, cfg.vocab_size)
+                          .reshape(B, P), dtype=torch.long, device=dev)
+    layers = []
+    moe_ffn = MOE.moe_ffn
+
+    def counting(p, cfg, x, **kw):
+        T, E, k = x.shape[0] * x.shape[1], cfg.num_experts, cfg.top_k
+        ids = MOE.route(p, cfg, x.reshape(T, -1))[2]
+        C = MOE.moe_capacity(T, E, k, cfg.moe_capacity_factor)
+        load = torch.bincount(ids.flatten(), minlength=E)
+        layers.append(dict(capacity=C, max_load=int(load.max()),
+                           assignments=T * k,
+                           dropped=int((load - C).clamp(min=0).sum())))
+        return moe_ffn(p, cfg, x, **kw)
+
+    MOE.moe_ffn = counting
+    try:
+        make_prefill_step(cfg)(params, {"tokens": prompt})
+    finally:
+        MOE.moe_ffn = moe_ffn
+    if len(layers) != cfg.num_layers - cfg.first_dense_layers:
+        fail(f"the prefill ran {len(layers)} MoE layers")
+    share = (sum(l["dropped"] for l in layers)
+             / sum(l["assignments"] for l in layers))
+    print(f"MoE capacity factor {cfg.moe_capacity_factor}: dropped share "
+          f"of the prefill's assignments {share:.4f}; by layer "
+          + "; ".join(f"{l['dropped']} of {l['assignments']} (capacity "
+                      f"{l['capacity']}, busiest expert {l['max_load']})"
+                      for l in layers))
+    out.update(moe_layers=layers, dropped_share=share)
+
 
 if __name__ == "__main__":
     main()

@@ -14,9 +14,10 @@ from repro_torch.models import registry as R
 
 
 def window_for(cfg: ModelConfig, shape: ShapeConfig) -> int:
-    """Sliding-window size: full-attention archs get a window only for
-    long_500k (the sub-quadratic carve-out); SSM/hybrid run native — the
-    hybrid's shared-attention cache is itself windowed at long context."""
+    """Sliding-window size: full-attention archs (GQA or MLA) get a window
+    only for long_500k (the sub-quadratic carve-out); SSM/hybrid run
+    native — the hybrid's shared-attention cache is itself windowed at
+    long context."""
     if shape.name == "long_500k" and (cfg.num_heads > 0 or cfg.use_mla):
         return LONG_CONTEXT_WINDOW
     return 0
@@ -30,8 +31,10 @@ def cache_len_for(cfg: ModelConfig, shape: ShapeConfig) -> int:
 def make_prefill_step(cfg: ModelConfig, window: int = 0,
                       impl: str = "kernel", q_chunks: int = 1):
     """``impl``: "kernel" (the JAX package's "pallas"), the family's CUDA
-    kernels (flash_attention; chunk_scan for RWKV6; both for the hybrid),
-    or "plain" (its "xla"), which only comparisons ask for."""
+    kernels (flash_attention, kimi-k2's MoE layers included; chunk_scan
+    for RWKV6; both for the hybrid; none for deepseek-v2, whose MLA
+    attends in plain PyTorch on both routes), or "plain" (its "xla"),
+    which only comparisons ask for."""
     def prefill_step(params, batch):
         logits, _aux = R.apply(params, cfg, batch, window=window, impl=impl,
                                q_chunks=q_chunks)

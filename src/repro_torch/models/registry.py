@@ -1,5 +1,5 @@
-"""Unified model API over the ported architecture families (dense, vlm,
-audio, ssm, hybrid), one for one with the JAX package's
+"""Unified model API over every architecture family (dense, vlm, audio,
+moe, ssm, hybrid), one for one with the JAX package's
 ``models/registry.py``.
 
     init_params(seed, cfg, device)               -> params tree
@@ -7,15 +7,16 @@ audio, ssm, hybrid), one for one with the JAX package's
     init_cache(cfg, batch, cache_len, dtype)     -> cache          # decode
     decode_step(params, cfg, cache, tokens, ...) -> (logits, cache)
     train_loss(params, cfg, batch, ...)          -> (loss, metrics)  # forward
-    analytic_param_count(cfg)                    -> int
+    analytic_param_count(cfg, active_only)       -> int
 
 The kernel route is ``impl="kernel"`` (the JAX package's ``"pallas"``):
-flash_attention for the transformer families, chunk_scan for RWKV6,
-both for the hybrid family (chunk_scan in each Mamba2 layer,
-flash_attention in the shared block once a group); ``impl="plain"`` (its
-``"xla"``) is the plain PyTorch route, which only comparisons ask for.
-MoE and MLA raise ``NotImplementedError`` until their slice is ported
-(``models/transformer.py``).
+flash_attention for the transformer families with GQA attention (the
+moe family's kimi-k2 too), chunk_scan for RWKV6, both for the hybrid
+family (chunk_scan in each Mamba2 layer, flash_attention in the shared
+block once a group); ``impl="plain"`` (its ``"xla"``) is the plain
+PyTorch route, which only comparisons ask for.  MLA (deepseek-v2)
+attends in plain PyTorch on both routes, as the JAX package attends in
+XLA: no kernel is on its path.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models import rwkv as RW
 from repro_torch.models import transformer as TF
+
+MOE_AUX_WEIGHT = 0.01
 
 
 def _groups(cfg: ModelConfig):
@@ -191,7 +194,8 @@ def train_loss(params, cfg: ModelConfig, batch, *, window: int = 0,
         loss = _ce(text_logits[:, :-1], batch["tokens"][:, 1:])
     else:
         loss = _ce(logits[:, :-1], batch["tokens"][:, 1:])
-    return loss, {"ce": loss, "aux": aux}
+    total = loss + MOE_AUX_WEIGHT * aux
+    return total, {"ce": loss, "aux": aux}
 
 
 # --------------------------------------------------------------------------
@@ -206,6 +210,10 @@ def _leaves(tree):
         yield tree
 
 
-def analytic_param_count(cfg: ModelConfig) -> int:
+def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of ``cfg``; ``active_only``: those one token uses (an
+    MoE model counted with ``top_k`` experts a layer)."""
+    if active_only and cfg.is_moe:
+        cfg = cfg.replace(num_experts=cfg.top_k)
     return sum(math.prod(t.shape)
                for t in _leaves(init_params(0, cfg, device="meta")))

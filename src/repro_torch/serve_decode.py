@@ -1,9 +1,10 @@
 """Serving entry point: batched greedy decoding over the ring-buffer KV
-cache (transformer families), the O(1) recurrent state (RWKV6) or both
-(the hybrid zamba2: Mamba2 states and one KV cache a shared-attention
-group), after an optional prefill through the family's kernels —
-flash_attention, chunk_scan, or both (the port of
-``examples/serve_decode.py``).
+cache (transformer families; MLA's latent cache for deepseek-v2), the
+O(1) recurrent state (RWKV6) or both (the hybrid zamba2: Mamba2 states
+and one KV cache a shared-attention group), after an optional prefill
+through the family's kernels — flash_attention, chunk_scan, or both;
+deepseek-v2's MLA attends in plain PyTorch, as the JAX package does in
+XLA (the port of ``examples/serve_decode.py``).
 
     PYTHONPATH=src python -m repro_torch.serve_decode --arch qwen3-4b \\
         --tokens 32 --device cuda
@@ -11,12 +12,16 @@ flash_attention, chunk_scan, or both (the port of
         --batch 4 --prefill-len 2048 --tokens 32 --cache-len 2048
     PYTHONPATH=src python -m repro_torch.serve_decode --full-width \\
         --arch rwkv6-7b --batch 4 --prefill-len 2048 --tokens 32
-    PYTHONPATH=src python -m repro_torch.serve_decode --full-width \
+    PYTHONPATH=src python -m repro_torch.serve_decode --full-width \\
         --arch zamba2-2.7b --batch 4 --prefill-len 2048 --tokens 32
+    PYTHONPATH=src python -m repro_torch.serve_decode \\
+        --arch deepseek-v2-236b --device cpu
 
 The model is the example's: the arch's ``reduced()`` config in float32,
 with random weights from seed 0; ``--full-width`` takes the published
-config as it is (bf16 compute over f32 master weights).  ``--prefill-len
+config as it is (bf16 compute over f32 master weights; at full depth
+deepseek-v2-236b and kimi-k2-1t-a32b need more than one card, so
+``serve()`` takes a config cut in depth instead).  ``--prefill-len
 P`` first runs ``make_prefill_step(impl="kernel")`` on a (batch, P) prompt
 of ``data.synthetic.token_stream``; for RWKV6 and zamba2 a P above the
 arch's ``chunk_size`` must be a multiple of it (``ValueError`` otherwise,

@@ -77,7 +77,8 @@ def test_window_and_cache_len_for_every_arch_and_shape():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "granite-8b", "internvl2-1b",
-                                  "hubert-xlarge"])
+                                  "hubert-xlarge", "deepseek-v2-236b",
+                                  "kimi-k2-1t-a32b"])
 def test_param_count_and_tree_equal_jax(arch):
     assert (R.analytic_param_count(ARCHS[arch])
             == JR.analytic_param_count(JARCHS[arch]))
@@ -285,18 +286,6 @@ def test_kernel_route_is_the_default(monkeypatch):
     assert len(calls) == 3 * n
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
-def test_unported_families_raise(arch):
-    cfg = _reduced(arch)
-    match = "ROADMAP queue A item 14c"
-    with pytest.raises(NotImplementedError, match=match):
-        R.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        R.init_cache(cfg, 1, 8, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        R.apply({}, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
-
-
 # --------------------------------------------------------------------------
 # the serving entry point
 # --------------------------------------------------------------------------
@@ -312,6 +301,20 @@ def test_serve_decode_runs_on_the_cpu(capsys):
     assert len(res["step_s"]) == 5 and torch.isfinite(res["logits"]).all()
     assert serve_main(["--device", "cpu", "--arch", "hubert-xlarge"]) is None
     assert "encoder-only" in capsys.readouterr().out
+
+
+def test_serve_decode_deepseek_v2_runs_on_the_cpu(capsys):
+    """MLA and MoE: the prefill in the expanded form, decode in the
+    absorbed form over a 4-slot latent ring that wraps."""
+    res = serve_main(["--device", "cpu", "--arch", "deepseek-v2-236b",
+                      "--batch", "2", "--tokens", "6", "--cache-len", "4",
+                      "--prefill-len", "16"])
+    out = capsys.readouterr().out
+    assert "tok/s on CPU" in out and "prefill 2x16" in out
+    assert res["cfg"].use_mla and res["cfg"].is_moe
+    assert res["tokens"].shape == (2, 6)
+    assert res["prefill_logits_shape"] == (2, 16, res["cfg"].vocab_size)
+    assert torch.isfinite(res["logits"]).all()
 
 
 def test_serve_decode_cuda_without_a_card_raises():
