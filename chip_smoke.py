@@ -234,14 +234,46 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      may launch (MLA attends in plain PyTorch, as the JAX package does in
      XLA); the same numbers as phase 9, and the share of the prefill's
      token-to-expert assignments that each MoE layer drops;
- 26. one JSON line of per-kernel numbers (the two LM kernels also at
+ 27. LM training: ``repro_torch.launch.train.train`` on qwen3-4b at full
+     width cut to 2 layers in f32, 5 AdamW steps of B 4 x 2048 with remat
+     off and on.  None of the four kernels may launch; the losses must be
+     finite and the two runs equal (bit for bit, or within the stated
+     bound); step walls and peak memory printed.  Then one step's f32
+     gradient against the same step in float64 on the card at B 2 x 128,
+     per leaf within 1e-3 of its max (set before the first run), a limit
+     that the known-bad control (the attention output detached, what a
+     kernel without a backward would give) must fail; and
+     ``flash_attention`` and ``chunk_scan`` must refuse CUDA inputs that
+     require grad, before launching;
+ 28. LM FL at the example's width: ``repro_torch.llm_federated_pretrain.
+     run`` at its defaults (qwen3-4b reduced, 4 layers, d_model 256; 8
+     satellites, seq 128, 32 sequences a satellite, J = 4, 3 epochs) on the
+     card and in a CPU process of the port started before phase 24.  The
+     host history fields must be equal; the final model (L2 distance over
+     its norm) and every eval loss within limits set from sound and
+     known-bad readings, which a lost-update control (the card's run with
+     one selected model replaced by the global it trained from, at the
+     last commit) must fail; ``fed_agg`` once a fused epoch,
+     ``flash_attention`` once a layer an evaluation;
+ 29. LM FL at full width: the same ``run`` on qwen3-4b cut to 1 layer in
+     f32 (N = 878,845,696), 4 satellites, 2 epochs: one ``fed_agg`` launch
+     a fused epoch, each commit within 1e-5 of ``fed_agg_ref`` on the same
+     bank and carry, ``flash_attention`` once an evaluation, no other
+     kernel; the eval loss by epoch, wall, peak memory and the CUDA-event
+     spans of training, aggregation and evaluation.  Then, in a process of
+     their own, ``fed_agg`` timed over that bank and carry ([4 + 4, N])
+     and over the bank alone, and ``flash_attention`` in f32 at the
+     evaluator's shape ([16, 128, 32, 8, 128], causal), beside their plain
+     versions, library calls and bounds;
+ 30. one JSON line of per-kernel numbers (the two LM kernels also at
      zamba2's shapes, as ``flash_attention:zamba2`` and
-     ``chunk_scan:zamba2``, with phase 23's launches).
+     ``chunk_scan:zamba2``, with phase 23's launches; ``fed_agg:lm`` and
+     ``flash_attention:lm_eval`` at phase 29's shapes and launches).
 
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository beside it, it exits non-zero and prints no result.  A run
-takes 11 to 14 minutes on an H100.
+takes 13 to 15 minutes on an H100.
 ``--report PATH`` also writes every number of the run there as JSON,
 with the seconds at which each phase started.
 """
@@ -855,6 +887,9 @@ def main() -> None:
         extra_argv=["--cache-len", str(PREFILL["S"])])
 
     # ---- 24-25. LM serving, the moe family (deepseek-v2, kimi-k2) --------
+    # phase 28's CPU run goes on meanwhile: phases 24-27 keep the host's
+    # cores mostly free
+    lm_cpu = lm_fl_cpu_start()
     moe_route_parity(torch, dev, report, flash_attention)
     serving_path(
         torch, dev, report, arch="deepseek-v2-236b", phase_no=25,
@@ -863,8 +898,18 @@ def main() -> None:
         cfg=get_config("deepseek-v2-236b").replace(num_layers=3),
         after=moe_drop_share)
 
-    # ---- 26. the kernel line ----------------------------------------------
+    # ---- 27-29. LM training ----------------------------------------------
+    lm_wrappers = (fed_agg, pairwise_dist_sq, flash_attention, chunk_scan)
+    train_path(torch, dev, report, lm_wrappers)
+    lm_fl_path(torch, dev, report, lm_cpu, lm_wrappers)
+    lm_full = lm_fl_full_width(torch, dev, report, lm_wrappers)
+    lm_t = report["lm_kernel_timings"] = lm_timings_process(
+        lm_full["params"])
+
+    # ---- 30. the kernel line ----------------------------------------------
+    phase("phase 30: the kernel line")
     fb, pg = timings["eq14_bank_carry"], timings["pairwise_dist_grouping"]
+    fl, fe = lm_t["fed_agg_lm"], lm_t["flash_lm_eval"]
     fz, cz = fa_all["zamba2"], cs_all["zamba2"]
     kernel_line = {"kernels": [
         dict(name="fed_agg", route="cuda",
@@ -906,6 +951,23 @@ def main() -> None:
              launches=z_launches["chunk_scan"], max_abs_err=cs_err_zamba,
              ms=cz["ms"], plain_ms=cz["plain_ms"], bound_ms=cz["bound_ms"],
              bound_by=cz["bound_by"], library_ms=None),
+        # LM FL at full width (phase 29): eq. 14 over the (4, N) bank and
+        # the (4, N) carry at qwen3-4b's N for one layer, and the
+        # evaluator's f32 attention
+        dict(name="fed_agg:lm", route="cuda",
+             source="src/repro_torch/csrc/fed_agg.cu",
+             replaces="src/repro/kernels/fed_agg/kernel.py:22",
+             launches=lm_full["launches"]["fed_agg"],
+             max_abs_err=max(lm_full["fed_agg_err"]), ms=fl["ms"],
+             plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"],
+             bound_by=fl["bound_by"], library_ms=fl["library_ms"]),
+        dict(name="flash_attention:lm_eval", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:29",
+             launches=lm_full["launches"]["flash_attention"],
+             max_abs_err=fe["max_abs_err"], ms=fe["ms"],
+             plain_ms=fe["plain_ms"], bound_ms=fe["bound_ms"],
+             bound_by=fe["bound_by"], library_ms=fe["library_ms"]),
     ]}
     report["kernels"] = kernel_line["kernels"]
     report["phase_starts_s"] = PHASE_STARTS + [(round(
@@ -3223,6 +3285,581 @@ def moe_drop_share(torch, params, cfg, out) -> None:
                       f"{l['capacity']}, busiest expert {l['max_load']})"
                       for l in layers))
     out.update(moe_layers=layers, dropped_share=share)
+
+
+# ---- LM training: phases 27-29 ---------------------------------------------
+
+TRAIN_ARCH = "qwen3-4b"
+# phase 27: the train step at full width, 2 layers in f32, 5 AdamW steps of
+# B 4 x 2048 (launch.train's lr), with remat off and on
+TRAIN = dict(layers=2, B=4, S=2048, steps=5, lr=1e-3)
+# remat on and off run the same kernels on the same inputs, so they should
+# agree bit for bit; the stated bound where they do not: each loss within
+# 1e-6 of the other, relatively, and the updated weights within 1e-6 but
+# for AdamW's sign flips (an element whose gradient rounding sets moves by
+# +-lr either way), at most 1e-4 of the weights
+REMAT_LOSS_REL, REMAT_W_TOL, FLIP_SHARE = 1e-6, 1e-6, 1e-4
+# the f32 gradient against the float64 one on the card, per leaf, |g32 -
+# g64| over the leaf's max |g64|, at B 2 x 128.  Set before the first run:
+# f32 GEMMs over K <= 9728 err by ~sqrt(K) 2^-24 of their scale, so sound
+# readings should lie near 1e-6-1e-4; a gradient that a forward-only kernel
+# dropped (the attention output detached: q, k, v get none) errs by 1.0 on
+# wq, wk, wv and the q/k norms
+GRAD64 = dict(B=2, S=128)
+GRAD64_LIMIT = 1e-3
+# phase 28: llm_federated_pretrain.run at the example's defaults
+LM_FL = dict(sats=8, seq=128, seqs_per_sat=32, local_iters=4, epochs=3)
+# phase 28's limits on card - CPU: the final model's L2 distance over its
+# norm and the largest eval-loss difference.  Set from an H100's readings
+# (PERF.md §6): the sound card run read 4.50e-5 and 2.86e-6 (AdamW flips
+# ~500 of 2.9M elements by more than 1e-4), the lost-update control
+# 4.39e-3 and 1.93e-2; each limit lies near the geometric mean of the two
+LM_FL_MODEL_REL = 4e-4
+LM_FL_EVAL_TOL = 2e-4
+# phase 29: the same run at full width, qwen3-4b cut to 1 layer, f32
+LM_FL_FULL = dict(sats=4, seq=128, seqs_per_sat=32, local_iters=4, epochs=2)
+# the kernel line's LM shapes: fed_agg over phase 29's bank and carry, and
+# flash_attention at the evaluator's call (16 sequences of 128 tokens)
+LM_EVAL_ATTN = dict(B=16, S=128, H=32, KV=8, hd=128)
+
+
+def flips(torch, a, b, tol):
+    """(max |a - b|, elements of |a - b| beyond ``tol``, ||a - b|| /
+    ||b||) of two flat tensors, in float64."""
+    d = (a.double() - b.double()).abs()
+    return (float(d.max()), int((d > tol).sum()),
+            float(torch.linalg.norm(d) / torch.linalg.norm(b.double())))
+
+
+def leaf_errors(torch, got, want):
+    """Per leaf, max |got - want| over max |want| ('/'-joined paths)."""
+    from repro_torch.tree import tree_leaves, tree_paths
+    out = {}
+    for (path, g), w in zip(tree_paths(got), tree_leaves(want)):
+        w = w.double()
+        scale = float(w.abs().max())
+        err = float((g.double() - w).abs().max())
+        out["/".join(path)] = err / scale if scale else err
+    return out
+
+
+class EpochFedAgg:
+    """``core.epoch_step.fed_agg`` wrapped for one simulator run (a context
+    manager): ``hook(real, i, stack, gamma, base, base_weight, **kw)``
+    makes the ``i``-th call of the run."""
+
+    def __init__(self, hook):
+        self.hook, self.calls = hook, 0
+
+    def __enter__(self):
+        from repro_torch.core import epoch_step
+        self.real = epoch_step.fed_agg
+
+        def wrapped(stack, gamma, base=None, base_weight=0.0, **kw):
+            i, self.calls = self.calls, self.calls + 1
+            return self.hook(self.real, i, stack, gamma, base, base_weight,
+                             **kw)
+        epoch_step.fed_agg = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import epoch_step
+        epoch_step.fed_agg = self.real
+
+
+def train_path(torch, dev, report, wrappers) -> None:
+    """Phase 27: ``launch.train.train`` on qwen3-4b at full width cut to
+    2 layers in f32, remat off then on (no kernel may launch; equal
+    results); the f32 gradient against float64 on the card, with the
+    attention output detached as the known-bad control; the forward-only
+    kernels' refusals on CUDA tensors."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.modelbank import flatten_tree
+    from repro_torch.kernels.chunk_scan import chunk_scan
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import make_batch, train
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as R
+    T = TRAIN
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=T["layers"],
+                                         dtype="float32")
+    n = R.analytic_param_count(cfg)
+    phase(f"phase 27: LM training — repro_torch.launch.train.train on "
+          f"{TRAIN_ARCH} at full width cut to {T['layers']} layers, f32 "
+          f"({n:,} parameters), {T['steps']} AdamW steps of B "
+          f"{T['B']} x {T['S']}, remat off and on; f32 gradients against "
+          f"float64")
+    for w in wrappers:
+        w.launches = 0
+    runs = {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = train(cfg.replace(remat=remat), steps=T["steps"],
+                    batch=T["B"], seq=T["S"], lr=T["lr"], device=dev,
+                    log=None)
+        wall = time.perf_counter() - t0
+        runs[remat] = dict(
+            losses=out["losses"], step_s=out["step_s"], wall_s=wall,
+            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+            flat=flatten_tree(out["params"]))
+        del out
+        r = runs[remat]
+        print(f"remat={remat}: losses {[round(x, 5) for x in r['losses']]}; "
+              f"step wall (s) {[round(x, 3) for x in r['step_s']]} (the "
+              f"first with the allocator's warm-up); peak memory "
+              f"{r['peak_gb']:.1f} GB; {wall:.1f} s with init")
+    launches = {w.__name__: w.launches for w in wrappers}
+    if any(launches.values()):
+        fail(f"phase 27's training launched kernels: {launches}")
+    if not all(math.isfinite(x) for r in runs.values() for x in r["losses"]):
+        fail("phase 27: a non-finite training loss")
+    a, b = runs[False], runs[True]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                        b["losses"]))
+    w_max, w_beyond, _ = flips(torch, a["flat"], b["flat"], REMAT_W_TOL)
+    bit_equal = a["losses"] == b["losses"] and torch.equal(a["flat"],
+                                                           b["flat"])
+    same = "bit-equal" if bit_equal else "not bit-equal"
+    print(f"remat against no remat: {same}; losses {loss_rel:.3e} apart "
+          f"(relative, bound "
+          f"{REMAT_LOSS_REL}), weights max {w_max:.3e}, {w_beyond} of {n:,} "
+          f"beyond {REMAT_W_TOL} (bound {FLIP_SHARE} of them)")
+    if not bit_equal and not (loss_rel <= REMAT_LOSS_REL
+                              and w_beyond <= FLIP_SHARE * n):
+        fail("phase 27: remat changed the training beyond its bound")
+    for r in runs.values():
+        del r["flat"]
+    torch.cuda.empty_cache()
+
+    # f32 gradients against float64, and the detached-attention control
+    B2, S2 = GRAD64["B"], GRAD64["S"]
+    params = R.init_params(0, cfg, device=dev)
+    batch = make_batch(cfg, B2, S2, seed=0, device=dev)
+    _, _, g32 = loss_and_grads(params, cfg, batch)
+    plain = L.attention_scores
+    L.attention_scores = lambda *a, **k: plain(*a, **k).detach()
+    try:
+        _, _, g_bad = loss_and_grads(params, cfg, batch)
+    finally:
+        L.attention_scores = plain
+    cfg64 = cfg.replace(dtype="float64")
+    _, _, g64 = loss_and_grads(to_double(params), cfg64,
+                               make_batch(cfg64, B2, S2, seed=0, device=dev))
+    del params
+    sound = leaf_errors(torch, g32, g64)
+    bad = leaf_errors(torch, g_bad, g64)
+    del g32, g_bad, g64
+    torch.cuda.empty_cache()
+    worst = max(sound, key=sound.get)
+    worst_bad = max(bad, key=bad.get)
+    print(f"gradients at B {B2} x {S2}, f32 against float64, per leaf "
+          f"max|g32 - g64| / max|g64|: worst {sound[worst]:.3e} ({worst}; "
+          f"limit {GRAD64_LIMIT}, set before the run); the control with "
+          f"the attention output detached: worst {bad[worst_bad]:.3e} "
+          f"({worst_bad}), {sum(v > GRAD64_LIMIT for v in bad.values())} "
+          f"of {len(bad)} leaves beyond the limit")
+    if not sound[worst] <= GRAD64_LIMIT:
+        fail(f"phase 27: the f32 gradient of {worst} is {sound[worst]} from "
+             f"float64")
+    if not bad[worst_bad] > GRAD64_LIMIT:
+        fail("phase 27: the limit does not reject the detached attention")
+
+    # the forward-only kernels refuse grad on CUDA tensors, before a launch
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    before = (flash_attention.launches, chunk_scan.launches)
+    refused = []
+    for name, call in (
+            ("flash_attention", lambda: flash_attention(
+                rnd(1, 16, 2, 64).requires_grad_(True), rnd(1, 16, 2, 64),
+                rnd(1, 16, 2, 64))),
+            ("chunk_scan", lambda: chunk_scan(
+                rnd(1, 16, 2, 16), rnd(1, 16, 2, 16), rnd(1, 16, 2, 16),
+                (-rnd(1, 16, 2, 16).abs()).requires_grad_(True),
+                chunk=16))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "forward-only" in str(e):
+                refused.append(name)
+    if refused != ["flash_attention", "chunk_scan"] or before != (
+            flash_attention.launches, chunk_scan.launches):
+        fail(f"phase 27: under grad on the card the kernels refused "
+             f"{refused} and launched "
+             f"{flash_attention.launches - before[0]}, "
+             f"{chunk_scan.launches - before[1]} times")
+    print(f"under grad on CUDA tensors {refused} raise before launching")
+    report["lm_train"] = dict(
+        params=n, runs={str(k): v for k, v in runs.items()},
+        launches=launches, remat_bit_equal=bit_equal,
+        remat_loss_rel=loss_rel, remat_w_max=w_max,
+        remat_w_beyond=w_beyond, grad64_limit=GRAD64_LIMIT,
+        grad64_errors=sound, grad64_control_errors=bad,
+        refusals=refused)
+
+
+def lm_fl_cpu_start():
+    """Phase 28's CPU run of the port, started in a process of its own
+    (stopped at exit): (process, output path)."""
+    import atexit
+    import tempfile
+    path = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_fl_")) / "cpu.pt"
+    code = (f"import sys, torch\n"
+            f"sys.path[:0] = [{str(ROOT)!r}, {str(SRC)!r}]\n"
+            "torch.set_num_threads(6)\n"
+            "from repro_torch.llm_federated_pretrain import example_config, "
+            "run\n"
+            f"res = run(example_config({TRAIN_ARCH!r}), device='cpu', "
+            f"log=None, **{LM_FL!r})\n"
+            "torch.save(dict(history=[vars(r) for r in res['history']], "
+            f"w=res['sim']._w_flat, wall_s=res['wall_s']), {str(path)!r})\n")
+    proc = subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc, path
+
+
+def lm_fl_path(torch, dev, report, cpu_job, wrappers) -> None:
+    """Phase 28: ``llm_federated_pretrain.run`` at the example's defaults on
+    the card, against the same run on the CPU (``cpu_job``), with a
+    known-bad control: the card's run with one selected model replaced by
+    the global it trained from at the last commit."""
+    import shutil
+    from repro_torch.llm_federated_pretrain import SEED, example_config, run
+    from repro_torch.models import registry as R
+    from repro_torch.tree import tree_map
+    cfg = example_config(TRAIN_ARCH)
+    # the CPU run's weights: a torch.Generator on the card draws others
+    host = R.init_params(SEED, cfg, device="cpu")
+    phase(f"phase 28: LM FL — repro_torch.llm_federated_pretrain.run at "
+          f"the example's defaults ({TRAIN_ARCH} reduced, {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}; {LM_FL}), card against CPU")
+    for w in wrappers:
+        w.launches = 0
+    positive = []
+
+    def record(real, i, stack, gamma, base, bw, **kw):
+        positive.append(bool((gamma > 0).any()))
+        return real(stack, gamma, base, bw, **kw)
+
+    t0 = time.perf_counter()
+    with EpochFedAgg(record):
+        res = run(cfg, device=dev, log=None,
+                  params=tree_map(lambda t: t.to(dev), host), **LM_FL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sim, hist = res["sim"], res["history"]
+    prog = sim.trainer._epoch_programs[sim._spec]
+    steps = (prog.dispatches, prog.fallback_dispatches)
+    launches = {w.__name__: w.launches for w in wrappers}
+    print(f"card: {len(hist)} records in {wall:.2f} s, {sum(steps)} epoch "
+          f"steps ({steps[1]} fallback), launches {launches}")
+    check_launches("phase 28", hist, launches["fed_agg"], steps,
+                   LM_FL["epochs"])
+    if steps[1] == 0 and launches["fed_agg"] != steps[0]:
+        fail(f"phase 28: fed_agg launched {launches['fed_agg']} times for "
+             f"{steps[0]} fused epochs")
+    want = {"fed_agg": launches["fed_agg"], "pairwise_dist_sq": 0,
+            "chunk_scan": 0,
+            "flash_attention": len(hist) * cfg.num_layers}
+    if launches != want:
+        fail(f"phase 28 launched {launches}, not {want}")
+    w_card = sim._w_flat.clone()
+    del res, sim
+
+    # the known-bad control: at the last commit with a selected model, the
+    # heaviest bank row replaced by the global it trained from
+    last = max(i for i, p in enumerate(positive) if p)
+
+    def lose(real, i, stack, gamma, base, bw, **kw):
+        if i == last:
+            stack[int(torch.argmax(gamma))].copy_(base)
+        return real(stack, gamma, base, bw, **kw)
+
+    with EpochFedAgg(lose):
+        bad = run(cfg, device=dev, log=None,
+                  params=tree_map(lambda t: t.to(dev), host), **LM_FL)
+    bad_hist, w_bad = bad["history"], bad["sim"]._w_flat.clone()
+    del bad
+
+    proc, path = cpu_job
+    t0 = time.perf_counter()
+    err = proc.communicate(timeout=900)[1]
+    waited = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 28's CPU run failed:\n{err[-3000:]}")
+    cpu = torch.load(path)
+    shutil.rmtree(path.parent, ignore_errors=True)
+    cpu_hist = [types.SimpleNamespace(**r) for r in cpu["history"]]
+    w_cpu = cpu["w"].to(dev)
+    if len(cpu_hist) != len(hist):
+        fail(f"phase 28: the CPU run recorded {len(cpu_hist)} epochs")
+    for a, b in zip(hist, cpu_hist):
+        ka = (a.epoch, a.time_s, a.num_models, a.gamma, a.stale_groups)
+        kb = (b.epoch, b.time_s, b.num_models, b.gamma, b.stale_groups)
+        if ka != kb:
+            fail(f"phase 28: card and CPU histories differ: {ka} vs {kb}")
+        print(f"  epoch {a.epoch}: t={a.time_s / 3600:.3f} h eval_loss "
+              f"{-a.accuracy:.6f} (CPU {-b.accuracy:.6f}, control "
+              f"{-bad_hist[a.epoch].accuracy:.6f}) models={a.num_models}")
+    readings = {}
+    for label, h, w in (("card", hist, w_card), ("control", bad_hist, w_bad)):
+        w_max, beyond, rel = flips(torch, w, w_cpu, 1e-4)
+        ev = max(abs(x.accuracy - y.accuracy) for x, y in zip(h, cpu_hist))
+        readings[label] = dict(w_max=w_max, w_beyond_1e4=beyond, w_rel=rel,
+                               eval_max_diff=ev)
+        print(f"{label} - CPU: final model max {w_max:.3e}, {beyond} of "
+              f"{w.numel():,} beyond 1e-4, L2 over the norm {rel:.3e} (limit "
+              f"{LM_FL_MODEL_REL}); eval loss max {ev:.3e} (limit "
+              f"{LM_FL_EVAL_TOL})")
+    s, c = readings["card"], readings["control"]
+    if not (s["w_rel"] <= LM_FL_MODEL_REL and s["eval_max_diff"]
+            <= LM_FL_EVAL_TOL):
+        fail("phase 28: the card's run is outside its limits of the CPU's")
+    if not (c["w_rel"] > LM_FL_MODEL_REL and c["eval_max_diff"]
+            > LM_FL_EVAL_TOL):
+        fail("phase 28: the limits do not reject the lost-update control")
+    print(f"the CPU run took {cpu['wall_s']:.1f} s (waited {waited:.1f} s "
+          f"for it); host fields equal; the control fails both limits")
+    report["lm_fl"] = dict(
+        config=LM_FL, wall_s=wall, cpu_wall_s=cpu["wall_s"],
+        epoch_steps=steps, launches=launches, readings=readings,
+        model_rel_limit=LM_FL_MODEL_REL, eval_limit=LM_FL_EVAL_TOL,
+        history=[vars(r) for r in hist],
+        history_cpu=[vars(r) for r in cpu_hist])
+
+
+def lm_fl_full_width(torch, dev, report, wrappers) -> dict:
+    """Phase 29: ``llm_federated_pretrain.run`` on qwen3-4b at full width
+    cut to 1 layer in f32: one fed_agg launch a fused epoch, each commit
+    held against ``fed_agg_ref`` on the same bank, flash_attention once an
+    evaluation; CUDA-event spans of the training, the aggregation and the
+    evaluation; peak memory."""
+    from repro_torch import llm_federated_pretrain as LFP
+    from repro_torch.configs import get_config
+    from repro_torch.fl.client import LMPool
+    from repro_torch.kernels.fed_agg.ref import fed_agg_ref
+    from repro_torch.models import registry as R
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=1, dtype="float32",
+                                         remat=False)
+    N = R.analytic_param_count(cfg)
+    phase(f"phase 29: LM FL at full width — llm_federated_pretrain.run on "
+          f"{TRAIN_ARCH} cut to 1 layer, f32 (N = {N:,}); {LM_FL_FULL}")
+    for w in wrappers:
+        w.launches = 0
+    spans = {"train": [], "fed_agg": [], "eval": []}
+    errs = []
+
+    def span(key):
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        spans[key].append(pair)
+        return pair
+
+    def check(real, i, stack, gamma, base, bw, **kw):
+        base0 = base.clone()
+        e0, e1 = span("fed_agg")
+        e0.record()
+        out = real(stack, gamma, base, bw, **kw)
+        e1.record()
+        s2, g2 = kw.get("stack2"), kw.get("gamma2")
+        err, step = 0.0, 1 << 26
+        for a in range(0, N, step):
+            want = fed_agg_ref(stack[:, a:a + step], gamma,
+                               base0[a:a + step], bw,
+                               None if s2 is None else s2[:, a:a + step], g2)
+            err = max(err, float((out[a:a + step] - want).abs().max()))
+        errs.append(err)
+        del base0
+        return out
+
+    train_stacked = LMPool.train_stacked
+    make_evaluator = LFP.make_evaluator
+
+    def timed_train(self, *a, **k):
+        e0, e1 = span("train")
+        e0.record()
+        out = train_stacked(self, *a, **k)
+        e1.record()
+        return out
+
+    def timed_evaluator(*a, **k):
+        ev = make_evaluator(*a, **k)
+
+        def evaluator(p):
+            e0, e1 = span("eval")
+            e0.record()
+            v = ev(p)
+            e1.record()
+            return v
+        return evaluator
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    LMPool.train_stacked, LFP.make_evaluator = timed_train, timed_evaluator
+    try:
+        t0 = time.perf_counter()
+        with EpochFedAgg(check):
+            res = LFP.run(cfg, device=dev, log=None, **LM_FL_FULL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        LMPool.train_stacked, LFP.make_evaluator = train_stacked, \
+            make_evaluator
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    sim, hist = res["sim"], res["history"]
+    prog = sim.trainer._epoch_programs[sim._spec]
+    steps = (prog.dispatches, prog.fallback_dispatches)
+    launches = {w.__name__: w.launches for w in wrappers}
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
+    print(f"{len(hist)} records, wall {wall:.2f} s, peak memory {peak:.1f} "
+          f"GB, {sum(steps)} epoch steps ({steps[1]} fallback), launches "
+          f"{launches}")
+    for r in hist:
+        print(f"  epoch {r.epoch}: t={r.time_s / 3600:.3f} h eval_loss "
+              f"{-r.accuracy:.5f} models={r.num_models}")
+    print(f"CUDA-event spans (ms): training {[round(x, 1) for x in ms['train']]}"
+          f", fed_agg {[round(x, 3) for x in ms['fed_agg']]} (bound "
+          f"{(10 * N * 4) / H100_BYTES_PER_S * 1e3:.2f} ms over the bank "
+          f"and the carry, 6.30 over the bank alone), evaluation "
+          f"{[round(x, 1) for x in ms['eval']]}; fed_agg against fed_agg_ref "
+          f"by commit {[f'{e:.2e}' for e in errs]} (tolerance "
+          f"{FED_AGG_TOL})")
+    if sim._spec.num_params != N:
+        fail(f"phase 29's bank has {sim._spec.num_params} columns, not {N}")
+    check_launches("phase 29", hist, launches["fed_agg"], steps,
+                   LM_FL_FULL["epochs"])
+    want = {"fed_agg": sum(steps), "pairwise_dist_sq": 0, "chunk_scan": 0,
+            "flash_attention": len(hist) * cfg.num_layers}
+    if steps[1] or launches != want:
+        fail(f"phase 29 launched {launches}, not {want} ({steps[1]} "
+             f"fallback steps)")
+    if not errs or not max(errs) <= FED_AGG_TOL:
+        fail(f"phase 29's aggregates are {errs} from fed_agg_ref")
+    if not all(math.isfinite(r.accuracy) for r in hist):
+        fail("phase 29: a non-finite eval loss")
+    out = dict(params=N, config=LM_FL_FULL, wall_s=wall, peak_gb=peak,
+               epoch_steps=steps, launches=launches, fed_agg_err=errs,
+               spans_ms=ms, eval_loss=[-r.accuracy for r in hist],
+               history=[vars(r) for r in hist])
+    report["lm_fl_full"] = out
+    del res, sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_timings_process(N: int) -> dict:
+    """``lm_kernel_timings`` in a process of its own: in the smoke's
+    process, after phases 1-29, an H100's profiler traces of ``fed_agg``
+    at phase 29's shape held no device operation three times, where a
+    fresh process's traces held every launch (PERF.md §7), as phase 6
+    found for its own timings."""
+    code = (f"import json, sys\n"
+            f"sys.path[:0] = [{str(ROOT)!r}, {str(SRC)!r}]\n"
+            "import torch, chip_smoke as cs\n"
+            "dev = torch.device('cuda')\n"
+            "gen = torch.Generator(device=dev).manual_seed(0)\n"
+            f"print(json.dumps(cs.lm_kernel_timings(torch, dev, gen, {N})))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode != 0:
+        fail(f"phase 29's timing process failed:\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key in ("fed_agg_lm", "fed_agg_lm_bank"):
+        t = out[key]
+        print(f"fed_agg {t['shape']} (bank, carry, N): kernel {t['ms']:.3f} "
+              f"ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), plain "
+              f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms "
+              f"({'two' if t['shape'][1] else 'one'} torch.addmv)")
+    t = out["flash_lm_eval"]
+    print(f"flash_attention {t['shape']} f32 causal: kernel {t['ms']:.4f} "
+          f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, f32 peak), "
+          f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms "
+          f"(SDPA f32, {t['library_err']:.2e} from the kernel); kernel - "
+          f"plain {t['max_abs_err']:.2e}")
+    return out
+
+
+def lm_kernel_timings(torch, dev, gen, N: int) -> dict:
+    """The kernel line's LM shapes: ``fed_agg`` over phase 29's bank (4
+    rows) and carry (4 rows) of N columns, and over the bank alone; and
+    ``flash_attention`` in f32 at the evaluator's call, beside their plain
+    versions, library calls and bounds."""
+    from repro_torch.kernels.fed_agg import fed_agg
+    from repro_torch.kernels.fed_agg.ref import fed_agg_ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
+    F = torch.nn.functional
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    C = LM_FL_FULL["sats"]
+    s, s2, b = randn(C, N), randn(C, N), randn(N)
+    g = torch.rand(C, generator=gen, device=dev) / C
+    g2 = torch.rand(C, generator=gen, device=dev) / C
+    for key, two in (("fed_agg_lm", True), ("fed_agg_lm_bank", False)):
+        kw = dict(stack2=s2, gamma2=g2) if two else {}
+        rows = 2 * C if two else C
+        nbytes = (rows * N + 2 * N + rows) * 4
+        k_ms, q_ms, host_ms, n = time_device(
+            torch, lambda: fed_agg(s, g, b, 0.35, out=b, **kw), [()],
+            reps=10, per_call=1)
+        p_ms = time_device(torch, lambda: fed_agg_ref(
+            s, g, b, 0.35, *((s2, g2) if two else ())), [()], reps=3)[0]
+        lib = ((lambda: torch.addmv(torch.addmv(b, s.t(), g, beta=0.35),
+                                    s2.t(), g2)) if two else
+               (lambda: torch.addmv(b, s.t(), g, beta=0.35)))
+        l_ms = time_device(torch, lib, [()], reps=3)[0]
+        bm, by = bound_ms(nbytes, 2.0 * rows * N)
+        out[key] = dict(shape=[C, C if two else 0, N], ms=k_ms,
+                        queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms,
+                        library_ms=l_ms, bound_ms=bm, bound_by=by,
+                        launches=n)
+    del s, s2, b
+    torch.cuda.empty_cache()
+
+    A = LM_EVAL_ATTN
+    B, S, H, KV, hd = A["B"], A["S"], A["H"], A["KV"], A["hd"]
+    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * 4
+    sets = cycled_inputs(lambda: tuple(randn(*shape) * 0.5 for shape in (
+        (B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))), nbytes)
+    got = flash_attention(*sets[0], causal=True)
+    err = float((got - attention_ref_bshd(*sets[0], causal=True))
+                .abs().max())
+    if not err <= FLASH_TOL["float32"]:
+        fail(f"flash_attention f32 at the evaluator's shape is {err} from "
+             f"its plain version")
+    k_ms, q_ms, host_ms, _ = time_device(
+        torch, lambda q, k, v: flash_attention(q, k, v, causal=True), sets)
+    p_ms = time_device(torch, lambda q, k, v: attention_ref_bshd(
+        q, k, v, causal=True), sets, reps=20)[0]
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+    lib_err = float((library(*sets[0]) - got).abs().max())
+    l_ms = time_device(torch, library, sets)[0]
+    flops = 4.0 * hd * B * H * attention_pairs(S, S, True, 0)
+    bm, by = bound_ms(nbytes, flops)
+    out["flash_lm_eval"] = dict(
+        shape=[B, S, H, KV, hd], dtype="float32", ms=k_ms, queue_ms=q_ms,
+        host_ms=host_ms, plain_ms=p_ms, library_ms=l_ms, library_err=lib_err,
+        bound_ms=bm, bound_by=by, max_abs_err=err)
+    return out
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.aggregation import scatter_weights
 from repro_torch.core.modelbank import ModelBank, flatten_tree
 from repro_torch.kernels.pairwise_dist import dist_to_ref
+from repro_torch.tree import tree_map
 
 
 def flatten_model(model) -> torch.Tensor:
@@ -35,11 +36,13 @@ def flatten_model(model) -> torch.Tensor:
     return flatten_tree(model).detach()
 
 
-def _host(model) -> Dict[str, np.ndarray]:
-    """A parameter dict as float32 host arrays."""
-    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                else np.asarray(v)).astype(np.float32, copy=False)
-            for k, v in model.items()}
+def _host(model):
+    """A parameter tree as float32 host arrays."""
+    return tree_map(lambda v: (v.detach().cpu().numpy()
+                               if isinstance(v, torch.Tensor)
+                               else np.asarray(v)).astype(np.float32,
+                                                          copy=False),
+                    model)
 
 
 def model_distance(model, ref_flat: np.ndarray) -> float:
@@ -59,8 +62,8 @@ def partial_global_model(models, sizes: Sequence[float]):
                              device=models.stack.device)
         return ws @ models.stack
     ws = [s / total for s in sizes]
-    hosts = [_host(m) for m in models]
-    return {k: sum(w * h[k] for w, h in zip(ws, hosts)) for k in hosts[0]}
+    return tree_map(lambda *leaves: sum(w * h for w, h in zip(ws, leaves)),
+                    *[_host(m) for m in models])
 
 
 def group_by_gaps(distances: Dict[int, float], num_groups: int = 3) -> List[List[int]]:

@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.constellation import C_LIGHT
+from repro_torch.tree import tree_leaves
 
 K_BOLTZMANN = 1.380649e-23
 
@@ -88,6 +89,6 @@ def fso_link(rate_bps: float = 1e11, proc_delay_s: float = 0.1) -> LinkModel:
 
 
 def model_bits(params) -> float:
-    """Size in bits of a parameter dict of tensors at fp32 (paper transmits
+    """Size in bits of a parameter tree of tensors at fp32 (paper transmits
     fp32 weights)."""
-    return float(sum(int(t.numel()) for t in params.values()) * 32)
+    return float(sum(int(t.numel()) for t in tree_leaves(params)) * 32)

@@ -3,29 +3,34 @@
 The server path (grouping and staleness-discounted aggregation, paper
 §IV-C) only needs models as vectors, so the client population lives as one
 ``(C, N)`` float32 tensor from training through grouping and aggregation.
-A ``FlatSpec`` records how a parameter dict flattens into the ``N`` axis.
+A ``FlatSpec`` records how a parameter tree (a dict of tensors, or the LM
+families' nested dicts) flattens into the ``N`` axis.
 
 Layout (DESIGN.md §2): row ``c`` is client ``c``'s model; columns are the
-parameters in sorted-key order — the order ``jax.tree_util.tree_leaves``
-gives a dict, so a bank here compares row for row with the JAX package's —
-each raveled C-contiguously, concatenated.  For the CNN that order is
+parameters in sorted-key order at every level of the tree — the order
+``jax.tree_util.tree_leaves`` gives a dict, so a bank here compares row
+for row with the JAX package's — each raveled C-contiguously,
+concatenated.  For the CNN that order is
 ``b1, b2, bc1, bc2, conv1, conv2, w1, w2``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.tree import (Path, tree_leaves, tree_map, tree_paths,
+                               tree_unflatten)
 
 
 @dataclasses.dataclass(frozen=True)
 class FlatSpec:
-    """Flatten/unflatten recipe for one parameter-dict structure."""
-    keys: Tuple[str, ...]
+    """Flatten/unflatten recipe for one parameter-tree structure: a dict of
+    tensors, or nested dicts of them (the LM parameter trees)."""
+    paths: Tuple[Path, ...]
     shapes: Tuple[Tuple[int, ...], ...]
     sizes: Tuple[int, ...]
 
@@ -33,45 +38,45 @@ class FlatSpec:
     def num_params(self) -> int:
         return int(sum(self.sizes))
 
+    @property
+    def keys(self) -> Tuple[str, ...]:
+        """Each leaf's key path, '/'-joined (a flat dict's keys)."""
+        return tuple("/".join(p) for p in self.paths)
+
     @staticmethod
-    def of(model: Dict[str, torch.Tensor]) -> "FlatSpec":
-        keys = tuple(sorted(model))
-        shapes = tuple(tuple(model[k].shape) for k in keys)
-        return FlatSpec(keys, shapes,
+    def of(model) -> "FlatSpec":
+        pairs = tree_paths(model)
+        shapes = tuple(tuple(leaf.shape) for _, leaf in pairs)
+        return FlatSpec(tuple(p for p, _ in pairs), shapes,
                         tuple(int(np.prod(s)) if s else 1 for s in shapes))
 
-    def flatten(self, model: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Parameter dict -> new (N,) float32 tensor."""
-        return torch.cat([model[k].reshape(-1).float() for k in self.keys])
+    def flatten(self, model) -> torch.Tensor:
+        """Parameter tree -> new (N,) float32 tensor."""
+        return flatten_tree(model)
 
-    def flatten_stacked(self, stacked: Dict[str, torch.Tensor]
-                        ) -> torch.Tensor:
-        """Dict whose tensors share a leading axis C -> (C, N)."""
-        c = stacked[self.keys[0]].shape[0]
-        return torch.cat([stacked[k].reshape(c, -1).float()
-                          for k in self.keys], dim=1)
+    def flatten_stacked(self, stacked) -> torch.Tensor:
+        """Tree whose tensors share a leading axis C -> (C, N)."""
+        leaves = tree_leaves(stacked)
+        c = leaves[0].shape[0]
+        return torch.cat([leaf.reshape(c, -1).float() for leaf in leaves],
+                         dim=1)
 
-    def unflatten(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(N,) -> parameter dict of views into ``flat`` (no copy)."""
-        out, off = {}, 0
-        for k, size, shape in zip(self.keys, self.sizes, self.shapes):
-            out[k] = flat[off:off + size].view(shape)
+    def unflatten(self, flat: torch.Tensor):
+        """(N,) -> parameter tree of views into ``flat`` (no copy)."""
+        views, off = [], 0
+        for size, shape in zip(self.sizes, self.shapes):
+            views.append(flat[off:off + size].view(shape))
             off += size
-        return out
+        return tree_unflatten(self.paths, views)
 
 
 def flatten_tree(model) -> torch.Tensor:
-    """A parameter dict (nested dicts allowed) -> new (N,) float32 tensor
-    in the §2 layout: sorted keys at every level, the order
+    """A parameter tree (a dict, nested dicts allowed) -> new (N,) float32
+    tensor in the §2 layout: sorted keys at every level, the order
     ``jax.tree_util.tree_leaves`` gives the reference's dicts, each tensor
     raveled C-contiguously."""
-    return torch.cat([leaf.reshape(-1).float() for leaf in _leaves(model)])
-
-
-def _leaves(model) -> List[torch.Tensor]:
-    if isinstance(model, dict):
-        return [leaf for k in sorted(model) for leaf in _leaves(model[k])]
-    return [torch.as_tensor(model)]
+    return torch.cat([torch.as_tensor(leaf).reshape(-1).float()
+                      for leaf in tree_leaves(model)])
 
 
 def flat_base(spec: FlatSpec, base):
@@ -112,18 +117,16 @@ class ModelBank:
     stack: torch.Tensor
 
     @classmethod
-    def from_pytrees(cls, models: Sequence[Dict[str, torch.Tensor]]
-                     ) -> "ModelBank":
-        """From per-client parameter dicts (one stacked copy)."""
+    def from_pytrees(cls, models: Sequence) -> "ModelBank":
+        """From per-client parameter trees (one stacked copy)."""
         spec = FlatSpec.of(models[0])
         return cls(spec, torch.stack([spec.flatten(m) for m in models]))
 
     @classmethod
-    def from_stacked_tree(cls, stacked: Dict[str, torch.Tensor]
-                          ) -> "ModelBank":
-        """From a training output: a dict with a shared leading client
-        axis."""
-        spec = FlatSpec.of({k: v[0] for k, v in stacked.items()})
+    def from_stacked_tree(cls, stacked) -> "ModelBank":
+        """From a training output: a tree whose tensors share a leading
+        client axis."""
+        spec = FlatSpec.of(tree_map(lambda v: v[0], stacked))
         return cls(spec, spec.flatten_stacked(stacked))
 
     @classmethod
@@ -141,8 +144,8 @@ class ModelBank:
     def select(self, idx: Sequence[int]) -> "ModelBank":
         return ModelBank(self.spec, gather_rows(self.stack, list(idx)))
 
-    def to_pytrees(self) -> List[Dict[str, torch.Tensor]]:
-        """Materialise one parameter dict per client: each row copied out
+    def to_pytrees(self) -> List:
+        """Materialise one parameter tree per client: each row copied out
         of the stack, on the stack's device (the reference copies its rows
         to the host in one transfer)."""
         return [self.spec.unflatten(self.stack[c].clone())
@@ -155,18 +158,12 @@ def params_from_jax(np_params, *, device="cuda"):
     ``device`` with the same keys and shapes.  Nested dicts (the LM
     parameter tree, with its layer-stacked leaves) keep their nesting."""
     dev = resolve_device(device)
-
-    def conv(v):
-        if isinstance(v, dict):
-            return {k: conv(x) for k, x in v.items()}
-        return torch.tensor(np.asarray(v, np.float32), device=dev)
-
-    return conv(np_params)
+    return tree_map(lambda v: torch.tensor(np.asarray(v, np.float32),
+                                           device=dev), np_params)
 
 
 def params_to_jax(params):
     """Inverse of :func:`params_from_jax`: float32 numpy arrays, nested as
     ``params`` is, that the JAX package takes as parameters."""
-    if isinstance(params, dict):
-        return {k: params_to_jax(v) for k, v in params.items()}
-    return params.detach().cpu().numpy().astype(np.float32, copy=True)
+    return tree_map(lambda t: t.detach().cpu().numpy().astype(
+        np.float32, copy=True), params)

@@ -15,7 +15,9 @@ all at once, and waits for every one of them.
 
 Each kernel's wrapper (``kernels/<name>/ops.py``) takes its plain PyTorch
 version (``kernels/<name>/ref.py``) only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises.  The LM kernels
+(flash_attention, chunk_scan) are forward-only: under autograd their
+wrappers raise (``refuse_grad``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
@@ -118,3 +122,18 @@ def launch_error(lib: ctypes.CDLL, name: str, code: int) -> RuntimeError:
     ``code``."""
     msg = getattr(lib, f"{name}_error_string")(code).decode()
     return RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and any of ``tensors``
+    requires grad: the LM kernels are forward-only (the JAX package has no
+    backward Pallas kernel and differentiates its XLA route), and their
+    output, written through a raw pointer, would carry no gradient.  The
+    check is the same on every device, so a CPU run refuses what the card
+    would."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel is forward-only and an input requires "
+            f"grad; differentiate the plain route (impl=\"plain\") or call "
+            f"it under torch.no_grad()")

@@ -75,8 +75,11 @@ def chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log_decay (B, T, H, K) or (B, T, H); state0 (B, H, K, V); bonus (H, K)
     (RWKV6 mode, ``include_current=False``).  Chunks of ``min(chunk, T)``
     steps, which must divide T.  Returns (y (B, T, H, V) in v's dtype,
-    final state (B, H, K, V) f32)."""
+    final state (B, H, K, V) f32).  Forward only: with grad mode on and an
+    operand that requires grad it raises ``RuntimeError`` on every device
+    (the kernel has no backward; training takes ``impl="plain"``)."""
     _check(r, k, v, log_decay, state0, bonus, include_current, chunk)
+    kernels.refuse_grad("chunk_scan", r, k, v, log_decay, state0, bonus)
     dev = r.device
     if dev.type == "cpu":
         return chunk_scan_ref(r, k, v, log_decay, state0,

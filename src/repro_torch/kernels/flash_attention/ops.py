@@ -100,8 +100,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     float32 or all bfloat16, hd in ``HEAD_DIMS``, the head dim contiguous.
     Returns (B, Sq, H, hd) in q's dtype: softmax(q k^T / sqrt(hd)) v under
     the causal (kpos <= qpos) and window (qpos - kpos < window) masks, by
-    row and column index."""
+    row and column index.  Forward only: with grad mode on and an input
+    that requires grad it raises ``RuntimeError`` on every device (the
+    kernel has no backward; training takes ``impl="plain"``)."""
     _check(q, k, v, window)
+    kernels.refuse_grad("flash_attention", q, k, v)
     dev = q.device
     if dev.type == "cpu":
         return attention_ref_bshd(q, k, v, causal=causal, window=window)

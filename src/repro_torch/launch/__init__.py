@@ -1,2 +1,3 @@
-"""Step functions for serving (the JAX package's ``launch/`` minus its
-mesh, sharding and dry-run tooling, which are not ported yet)."""
+"""Step functions and the training drivers (``train``: AdamW on one
+arch; ``fl_train``: the FL launcher with checkpoints).  The JAX package's
+mesh, sharding and dry-run tooling is not ported yet."""

@@ -30,6 +30,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models import rwkv as RW
 from repro_torch.models import transformer as TF
+from repro_torch.tree import tree_leaves
 
 MOE_AUX_WEIGHT = 0.01
 
@@ -81,8 +82,8 @@ def apply(params, cfg: ModelConfig, batch, *, window: int = 0,
         state = RW.init_state(cfg, x.shape[0], dtype, device=x.device)
         layers = params["layers"]
         for l in range(cfg.num_layers):
-            x, _ = RW.block(TF.layer_view(layers, l), cfg, x,
-                            TF.layer_view(state, l), impl=impl)
+            x, _ = TF.remat_call(cfg, RW.block, TF.layer_view(layers, l), cfg,
+                                 x, TF.layer_view(state, l), impl=impl)
         x = L.rms_norm(x, params["final_norm"])
         return (L.unembed(params["embed"], cfg, x),
                 torch.zeros((), dtype=torch.float32, device=x.device))
@@ -94,17 +95,27 @@ def apply(params, cfg: ModelConfig, batch, *, window: int = 0,
                               lead=(G, A))
         shared, mamba = params["shared"], params["mamba"]
         for g in range(G):
-            x, _ = MB.shared_attn_block(shared, cfg, x, positions, None,
-                                        window=window, impl=impl)
-            mp_g, st_g = TF.layer_view(mamba, g), TF.layer_view(state, g)
-            for j in range(A):
-                x, _ = MB.block(TF.layer_view(mp_g, j), cfg, x,
-                                TF.layer_view(st_g, j), impl=impl)
+            x = TF.remat_call(cfg, _hybrid_group, shared,
+                              TF.layer_view(mamba, g),
+                              TF.layer_view(state, g), cfg, x, positions,
+                              window=window, impl=impl)
         x = L.rms_norm(x, params["final_norm"])
         return (L.unembed(params["embed"], cfg, x),
                 torch.zeros((), dtype=torch.float32, device=x.device))
     return TF.forward(params, cfg, batch, window=window, impl=impl,
                       q_chunks=q_chunks)
+
+
+def _hybrid_group(shared, mp_g, st_g, cfg: ModelConfig, x, positions, *,
+                  window: int, impl: str):
+    """One hybrid group of the prefill: the shared attention block, then
+    the group's Mamba2 layers."""
+    x, _ = MB.shared_attn_block(shared, cfg, x, positions, None,
+                                window=window, impl=impl)
+    for j in range(cfg.attn_every):
+        x, _ = MB.block(TF.layer_view(mp_g, j), cfg, x,
+                        TF.layer_view(st_g, j), impl=impl)
+    return x
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
@@ -168,7 +179,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, *, window: int = 0):
 
 
 # --------------------------------------------------------------------------
-# losses (forward only: the port has no LM training yet)
+# losses (``launch.steps.make_train_step`` differentiates ``train_loss``)
 # --------------------------------------------------------------------------
 
 def _ce(logits, labels, mask=None):
@@ -202,18 +213,10 @@ def train_loss(params, cfg: ModelConfig, batch, *, window: int = 0,
 # parameter counting (exact, on the meta device: no allocation)
 # --------------------------------------------------------------------------
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameters of ``cfg``; ``active_only``: those one token uses (an
     MoE model counted with ``top_k`` experts a layer)."""
     if active_only and cfg.is_moe:
         cfg = cfg.replace(num_experts=cfg.top_k)
     return sum(math.prod(t.shape)
-               for t in _leaves(init_params(0, cfg, device="meta")))
+               for t in tree_leaves(init_params(0, cfg, device="meta")))

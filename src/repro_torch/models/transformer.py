@@ -6,25 +6,36 @@ Layer params are stacked with a leading ``L`` axis under the JAX
 package's keys: an MoE model keeps its ``first_dense_layers`` dense
 layers under ``lead_layers`` and the MoE layers under ``layers``.  Where
 the JAX package scans over layers, this module loops over views
-``p[k][l]`` of the stacks.  ``cfg.remat`` only matters for gradients and
-is ignored (the port has no LM training yet).
+``p[k][l]`` of the stacks.  With ``cfg.remat`` set and grad mode on, each
+layer runs under ``torch.utils.checkpoint`` (its activations recomputed in
+the backward pass), where the JAX package wraps its scan body in
+``jax.checkpoint``; without grad it changes nothing.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.tree import tree_map
 
 MAX_POS_EMBED = 32768     # learned abs-pos table for non-RoPE encoders
 
 
+def remat_call(cfg: ModelConfig, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under ``torch.utils.checkpoint`` when
+    ``cfg.remat`` is set and grad mode is on (the layer's activations are
+    recomputed in the backward pass instead of kept)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
+
+
 def layer_view(tree, l: int):
     """Layer ``l`` of a layer-stacked param tree (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: layer_view(v, l) for k, v in tree.items()}
-    return tree[l]
+    return tree_map(lambda t: t[l], tree)
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, *, moe_layer: bool,
@@ -113,8 +124,9 @@ def forward(params, cfg: ModelConfig, batch, *, window: int = 0,
     x, positions = _embed_inputs(params, cfg, batch, dtype)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layer_views(params):
-        x, _, aux = _layer_apply(lp, cfg, x, positions, None, window=window,
-                                 impl=impl, q_chunks=q_chunks)
+        x, _, aux = remat_call(cfg, _layer_apply, lp, cfg, x, positions,
+                               None, window=window, impl=impl,
+                               q_chunks=q_chunks)
         if aux is not None:
             aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_norm"])

@@ -134,7 +134,12 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
     assert {"repro_torch.core.simulator", "repro_torch.obs.export",
             "repro_torch.obs.profile", "repro_torch.sweep.batch",
-            "repro_torch.sweep.driver", "repro_torch.models.mamba"} \
+            "repro_torch.sweep.driver", "repro_torch.models.mamba",
+            "repro_torch.tree", "repro_torch.optim.optimizers",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.io",
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.launch.fl_train", "repro_torch.fl.client",
+            "repro_torch.llm_federated_pretrain"} \
         <= set(mods) and len(mods) >= 30
 
 
