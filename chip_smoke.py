@@ -265,7 +265,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and over the bank alone, and ``flash_attention`` in f32 at the
      evaluator's shape ([16, 128, 32, 8, 128], causal), beside their plain
      versions, library calls and bounds;
- 30. one JSON line of per-kernel numbers (the two LM kernels also at
+ 30. the mesh runtime (``launch/mesh.py``; one card, so one rank over
+     NCCL or two processes over gloo): (a) phase 4's configuration for 2
+     epochs through ``FLSimulation`` with ``SimConfig(mesh=
+     make_data_mesh())`` in a one-rank NCCL group: its records equal phase
+     4's first two, its model the bits of the unsharded run, one
+     ``fed_agg`` launch a step; (b) the same as two processes sharing the
+     card in a gloo group with CUDA tensors, each training half of the
+     participants: phase 4's host history, the two ranks bit-equal,
+     ``fed_agg`` once a fused epoch on each rank; in the first epoch each
+     rank's trained rows bit-equal to the unsharded step's trained in the
+     same row blocks and the aggregate within 1e-5 of it; the final model
+     within 1e-4 of the unsharded run (30 SGD steps an epoch amplify the
+     order of sums: 1.2e-5 at 2 epochs); (c) ``make_ep_moe_layer`` on one
+     deepseek-v2-236b MoE layer at full width (15.1 GB of f32 expert
+     weights) over 2 x 2048 tokens in a one-rank NCCL group at a capacity
+     factor where nothing drops, against ``moe_ffn_reference`` within a
+     derived tolerance (at most 1e-4 of max |y|); (d) ``make_fl_round`` on
+     the qwen3-4b reduced loss (4 satellites, J = 2) against the same
+     steps and eq. 14 written out, within 1e-5.  No other kernel launches
+     on these paths; the phase's wall is printed;
+ 31. one JSON line of per-kernel numbers (the two LM kernels also at
      zamba2's shapes, as ``flash_attention:zamba2`` and
      ``chunk_scan:zamba2``, with phase 23's launches; ``fed_agg:lm`` and
      ``flash_attention:lm_eval`` at phase 29's shapes and launches).
@@ -273,7 +293,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository beside it, it exits non-zero and prints no result.  A run
-takes 13 to 15 minutes on an H100.
+takes 13 to 16 minutes on an H100.
 ``--report PATH`` also writes every number of the run there as JSON,
 with the seconds at which each phase started.
 """
@@ -906,8 +926,11 @@ def main() -> None:
     lm_t = report["lm_kernel_timings"] = lm_timings_process(
         lm_full["params"])
 
-    # ---- 30. the kernel line ----------------------------------------------
-    phase("phase 30: the kernel line")
+    # ---- 30. the mesh runtime ---------------------------------------------
+    mesh_runtime(torch, dev, report, sim, hist, lm_wrappers)
+
+    # ---- 31. the kernel line ----------------------------------------------
+    phase("phase 31: the kernel line")
     fb, pg = timings["eq14_bank_carry"], timings["pairwise_dist_grouping"]
     fl, fe = lm_t["fed_agg_lm"], lm_t["flash_lm_eval"]
     fz, cz = fa_all["zamba2"], cs_all["zamba2"]
@@ -970,8 +993,11 @@ def main() -> None:
              bound_by=fe["bound_by"], library_ms=fe["library_ms"]),
     ]}
     report["kernels"] = kernel_line["kernels"]
-    report["phase_starts_s"] = PHASE_STARTS + [(round(
-        time.perf_counter() - T0, 1), "end")]
+    total_s = time.perf_counter() - T0
+    report["phase_starts_s"] = PHASE_STARTS + [(round(total_s, 1), "end")]
+    print(f"chip_smoke: every phase passed in {total_s:.1f} s ({card}; "
+          f"phase 30, the mesh runtime, "
+          f"{report['mesh_runtime']['wall_s']:.1f} s of it)")
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1, default=str))
@@ -3860,6 +3886,374 @@ def lm_kernel_timings(torch, dev, gen, N: int) -> dict:
         host_ms=host_ms, plain_ms=p_ms, library_ms=l_ms, library_err=lib_err,
         bound_ms=bm, bound_by=by, max_abs_err=err)
     return out
+
+
+# phase 30: the mesh runtime (launch/mesh.py) on the one card.  (a), (c)
+# and (d) run in a one-rank NCCL group; (b) as two processes sharing the
+# card in a gloo group (NCCL refuses two ranks on one device; gloo sums
+# CUDA tensors through the host).  Runs across several cards wait for a
+# machine with more than one
+MESH_EPOCHS = 2
+MESH_WORLD = 2
+EP_SHAPE = (2, 2048)                 # tokens through the MoE layer
+EP_FACTOR = 1.0                      # one rank: C = T k slots, none drop
+FL_SATS, FL_ITERS, FL_LR = 4, 2, 0.05
+FL_TOL = 1e-5
+
+
+def epoch_trace(prog) -> dict:
+    """Record, on the host, the rows each step of ``prog`` trains (a
+    rank's own rows on a mesh) and the model it ends with."""
+    rec = {"rows": [], "w": []}
+    train, step = prog._train, prog.step
+
+    def traced_train(*args, **kw):
+        stack, losses = train(*args, **kw)
+        rec["rows"].append(stack.cpu())
+        return stack, losses
+
+    def traced_step(*args, **kw):
+        out = step(*args, **kw)
+        rec["w"].append(out[0].cpu())
+        return out
+    prog._train, prog.step = traced_train, traced_step
+    return rec
+
+
+def mesh_sim(work, mesh, epochs=MESH_EPOCHS, trace=False):
+    """Phase 4's configuration (asyncfleo-hap over 3 days) on ``work``,
+    with ``mesh``: (simulation, history, wall s, and with ``trace``
+    ``epoch_trace``'s record)."""
+    import torch
+    from repro_torch.core.epoch_step import make_epoch_program
+    from repro_torch.core.simulator import FLSimulation, SimConfig
+    from repro_torch.fl.strategies import get_strategy
+    rec = (epoch_trace(make_epoch_program(work.pool, work.w0, mesh=mesh))
+           if trace else None)
+    sim = FLSimulation(get_strategy("asyncfleo-hap"), work.pool,
+                       work.evaluator,
+                       SimConfig(duration_s=3 * 86400.0, mesh=mesh))
+    t0 = time.perf_counter()
+    hist = sim.run(work.w0, max_epochs=epochs)
+    torch.cuda.synchronize()
+    return sim, hist, time.perf_counter() - t0, rec
+
+
+def mesh_rank(rank: int, world: int, store: str, out: str) -> None:
+    """Phase 30 (b)'s rank: phase 4's workload built anew on cuda:0, run
+    on a data mesh over a ``world``-process gloo group; the history, the
+    rows it trained in the first epoch, the model after each epoch, the
+    steps and each kernel's launches go to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.fl_constellation_sim import build_workload
+    from repro_torch.kernels.chunk_scan import chunk_scan
+    from repro_torch.kernels.fed_agg import fed_agg
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_sq
+    from repro_torch.launch.mesh import make_data_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        work = build_workload(iid=True, device="cuda")
+        mesh = make_data_mesh(device="cuda")
+        wrappers = (fed_agg, pairwise_dist_sq, flash_attention, chunk_scan)
+        for w in wrappers:
+            w.launches = 0
+        sim, hist, wall, rec = mesh_sim(work, mesh, trace=True)
+        prog = sim._fused_prog
+        torch.save(dict(history=[vars(r) for r in hist],
+                        w=sim._w_flat.cpu(), wall_s=wall,
+                        rows0=rec["rows"][0], w_by_epoch=rec["w"],
+                        steps=(prog.dispatches, prog.fallback_dispatches),
+                        launches={w.__name__: w.launches for w in wrappers},
+                        mesh=repr(mesh)), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_ranks_start(tmp: Path) -> list:
+    """Phase 30 (b)'s processes, started (stopped at exit)."""
+    import atexit
+    procs = []
+    for rank in range(MESH_WORLD):
+        code = (f"import sys\n"
+                f"sys.path[:0] = [{str(ROOT)!r}, {str(SRC)!r}]\n"
+                "import chip_smoke as cs\n"
+                f"cs.mesh_rank({rank}, {MESH_WORLD}, "
+                f"{str(tmp / 'store')!r}, {str(tmp / f'rank{rank}.pt')!r})\n")
+        procs.append(subprocess.Popen([sys.executable, "-c", code],
+                                      stdout=subprocess.DEVNULL,
+                                      stderr=subprocess.PIPE, text=True))
+
+    def stop():
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)
+    return procs
+
+
+class HalvesPool:
+    """A pool whose fused-epoch training runs each epoch's participants in
+    two halves: the row blocks, and so the batch shapes, that the ranks of
+    a two-rank data mesh train (phase 30 (b)).  Everything else is the
+    wrapped pool's."""
+
+    def __init__(self, pool):
+        self.pool = pool
+
+    def __getattr__(self, name):
+        return getattr(self.pool, name)
+
+    def epoch_train_fn(self):
+        import torch
+        fn = self.pool.epoch_train_fn()
+
+        def train(params, inputs, ids, seed):
+            h = len(ids) // 2
+            (a, la), (b, lb) = (fn(params, tuple(t[lo:hi] for t in inputs),
+                                   ids[lo:hi], seed)
+                                for lo, hi in ((0, h), (h, len(ids))))
+            return ({k: torch.cat([a[k], b[k]]) for k in a},
+                    torch.cat([la, lb]))
+        return train
+
+
+def host_rows(hist):
+    """The host fields of history records (objects or their ``vars``)."""
+    return [tuple((r if isinstance(r, dict) else vars(r))[k] for k in
+                  ("epoch", "time_s", "num_models", "gamma", "stale_groups"))
+            for r in hist]
+
+
+def mesh_runtime(torch, dev, report, main_sim, main_hist, wrappers) -> None:
+    """Phase 30: the mesh runtime on the card.  (a) the epoch path on a
+    one-rank data mesh (NCCL); (b) the same on two processes sharing the
+    card (gloo); (c) expert-parallel MoE, one deepseek-v2-236b layer at
+    full width; (d) the constellation-parallel FL round on the qwen3-4b
+    reduced loss.  ``main_sim``/``main_hist``: phase 4's run."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.fl.sharded import make_fl_round
+    from repro_torch.kernels.fed_agg import fed_agg
+    from repro_torch.launch.mesh import make_data_mesh, make_host_mesh
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import registry as R
+    from repro_torch.models.moe_ep import make_ep_moe_layer
+    from repro_torch.tree import tree_leaves, tree_map
+    card = report["card"]
+    others = [w for w in wrappers if w is not fed_agg]
+    phase(f"phase 30: mesh runtime — (a) phase 4's configuration, "
+          f"{MESH_EPOCHS} epochs, on a one-rank NCCL data mesh; (b) the "
+          f"same over {MESH_WORLD} gloo processes sharing the card; (c) "
+          f"expert-parallel MoE, deepseek-v2-236b at full width; (d) the FL "
+          f"round on the qwen3-4b reduced loss")
+    t_phase = time.perf_counter()
+    out = report["mesh_runtime"] = {"card": card}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    procs = mesh_ranks_start(tmp)
+
+    # ---- (a) the epoch path, one rank -----------------------------------
+    work = sim_workload(main_sim)
+    _s, plain_hist, _w, _r = mesh_sim(work, None)
+    plain_w = _s._w_flat.clone()
+    # (b)'s yardstick: the unsharded step with each epoch's participants
+    # trained in the two ranks' row blocks (the same batch shapes)
+    _s, _h, _w, halves = mesh_sim(dataclasses.replace(
+        work, pool=HalvesPool(work.pool)), None, trace=True)
+    mesh = make_data_mesh(device=dev)
+    if (dist.get_backend(), mesh.shape) != ("nccl", (1, 1)):
+        fail(f"(a): the data mesh is {mesh} over {dist.get_backend()}, not "
+             f"one NCCL rank")
+    for w in wrappers:
+        w.launches = 0
+    sim, hist, wall, _r = mesh_sim(work, mesh)
+    launches = {w.__name__: w.launches for w in wrappers}
+    steps = sim._fused_prog.dispatches + sim._fused_prog.fallback_dispatches
+    rows_equal = [vars(r) for r in hist] == \
+        [vars(r) for r in main_hist[:MESH_EPOCHS]]
+    bits_equal = torch.equal(sim._w_flat, plain_w)
+    print(f"(a) one-rank mesh {mesh}: {len(hist)} epochs in {wall:.3f} s, "
+          f"{steps} steps, launches {launches}; records equal phase 4's "
+          f"first {MESH_EPOCHS}: {rows_equal}; model bit-equal to the "
+          f"unsharded run of the same epochs: {bits_equal}")
+    if not rows_equal or not bits_equal:
+        fail("(a): the one-rank mesh run is not phase 4's run")
+    if launches["fed_agg"] != steps or any(w.launches for w in others):
+        fail(f"(a): launches {launches} for {steps} steps")
+    out["a"] = dict(wall_s=wall, steps=steps, launches=launches)
+
+    # ---- (c) expert-parallel MoE, one layer at full width ----------------
+    cfg = get_config("deepseek-v2-236b").replace(dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    p = MOE.init_moe_ffn(gen, cfg, device=dev)
+    expert_gb = sum(p[k].numel() * 4 for k in ("we1", "we3", "we2")) / 1e9
+    x = torch.randn(*EP_SHAPE, cfg.d_model, generator=gen, device=dev) * 0.5
+    mesh11 = make_host_mesh(device=dev)
+    moe = make_ep_moe_layer(cfg, mesh11, capacity_factor=EP_FACTOR)
+    for w in wrappers:
+        w.launches = 0
+    ep_s = []
+    for _ in range(2):              # cold, then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = moe(p, x)
+        torch.cuda.synchronize()
+        ep_s.append(time.perf_counter() - t0)
+    dropped = int(moe.dropped)
+    ep_launches = {w.__name__: w.launches for w in wrappers}
+    t0 = time.perf_counter()
+    want = MOE.moe_ffn_reference(p, cfg, x)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    err = float((y - want).abs().max())
+    scale = float(want.abs().max())
+    # both sides sum the same products over d, over f and over the k
+    # routed experts and the shared one, in other orders: f32 rounding of
+    # a K-term sum moves it by about eps sqrt(K) of its scale; 4x margin,
+    # and never looser than 1e-4 of max |y|
+    derived = 4 * F32_EPS * (math.sqrt(cfg.d_model) +
+                             math.sqrt(cfg.moe_d_ff) +
+                             math.sqrt(cfg.top_k + 1)) * scale
+    tol = min(derived, 1e-4 * scale)
+    del p, want
+    torch.cuda.empty_cache()
+    print(f"(c) deepseek-v2-236b MoE layer (d {cfg.d_model}, "
+          f"{cfg.num_experts} experts, moe_d_ff {cfg.moe_d_ff}, top-"
+          f"{cfg.top_k}, {cfg.num_shared_experts} shared; {expert_gb:.1f} GB "
+          f"of f32 expert weights) on {EP_SHAPE[0]}x{EP_SHAPE[1]} tokens, "
+          f"one NCCL rank, capacity factor {EP_FACTOR:g}: dropped "
+          f"{dropped}, aux {float(aux):.6f}; max |ep - moe_ffn_reference| "
+          f"{err:.3e} (tolerance {tol:.3e} = min(4 eps (sqrt d + sqrt f + "
+          f"sqrt(k + 1)), 1e-4) x max |y| {scale:.3e}); {ep_s[0]:.3f} s "
+          f"cold, {ep_s[1]:.3f} s warm, the reference {ref_s:.3f} s; "
+          f"launches {ep_launches}")
+    if dropped or not math.isfinite(float(aux)):
+        fail(f"(c): {dropped} assignments dropped, aux {float(aux)}")
+    if not err <= tol or any(ep_launches.values()):
+        fail(f"(c): error {err} > {tol} or launches {ep_launches}")
+    out["c"] = dict(err=err, tol=tol, max_y=scale, dropped=dropped,
+                    ep_s=ep_s, ref_s=ref_s, expert_gb=expert_gb,
+                    launches=ep_launches)
+
+    # ---- (d) the FL round, one rank --------------------------------------
+    lcfg = get_config("qwen3-4b").reduced().replace(dtype="float32",
+                                                    remat=False)
+    params = R.init_params(4, lcfg, device=dev)
+    toks = torch.randint(0, lcfg.vocab_size, (FL_SATS, FL_ITERS, 2, 64),
+                         generator=gen, device=dev)
+    weights = torch.tensor([0.4, 0.3, 0.2, 0.1], device=dev)
+
+    def loss(params, batch):
+        return R.train_loss(params, lcfg, {"tokens": batch},
+                            impl="plain")[0]
+
+    fl_round = make_fl_round(loss, make_data_mesh(device=dev),
+                             local_iters=FL_ITERS, lr=FL_LR)
+    for w in wrappers:
+        w.launches = 0
+    fl_s = []
+    for _ in range(2):              # cold, then warm
+        t0 = time.perf_counter()
+        new, mean_loss = fl_round(params, toks, weights)
+        torch.cuda.synchronize()
+        fl_s.append(time.perf_counter() - t0)
+    fl_launches = {w.__name__: w.launches for w in wrappers}
+    # the same J steps a satellite and eq. 14 written out
+    total = tree_map(torch.zeros_like, params)
+    losses = []
+    for s in range(FL_SATS):
+        q = params
+        for j in range(FL_ITERS):
+            l_, _m, g = loss_and_grads(q, lcfg, {"tokens": toks[s, j]})
+            q = tree_map(lambda a, b: a - FL_LR * b, q, g)
+            losses.append(float(l_))
+        total = tree_map(lambda t, a: t + weights[s] * a, total, q)
+    gamma = float(weights.sum())
+    want = tree_map(lambda g, t: (1.0 - gamma) * g + t, params, total)
+    fl_err = max(float((a - b).abs().max())
+                 for a, b in zip(tree_leaves(new), tree_leaves(want)))
+    loss_err = abs(float(mean_loss) - sum(losses) / len(losses))
+    print(f"(d) make_fl_round, qwen3-4b reduced in f32 ({lcfg.num_layers} "
+          f"layers, d_model {lcfg.d_model}), {FL_SATS} satellites, J = "
+          f"{FL_ITERS}, one NCCL rank: max |round - plain| {fl_err:.3e} "
+          f"(tolerance {FL_TOL}), mean loss {float(mean_loss):.6f} "
+          f"(|diff| {loss_err:.3e}); {fl_s[0]:.3f} s cold, {fl_s[1]:.3f} s "
+          f"warm; launches {fl_launches}")
+    if not fl_err <= FL_TOL or not loss_err <= FL_TOL * 10:
+        fail(f"(d): round error {fl_err}, loss error {loss_err}")
+    if any(fl_launches.values()):
+        fail(f"(d): launches {fl_launches}")
+    out["d"] = dict(err=fl_err, loss_err=loss_err, wall_s=fl_s,
+                    launches=fl_launches)
+    dist.destroy_process_group()
+
+    # ---- (b) two processes on the one card -------------------------------
+    ranks = []
+    for rank, proc in enumerate(procs):
+        try:
+            _o, err_text = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            fail(f"(b): rank {rank} did not end in time")
+        if proc.returncode != 0:
+            fail(f"(b): rank {rank} failed:\n{err_text[-3000:]}")
+        ranks.append(torch.load(tmp / f"rank{rank}.pt"))
+    for rank, r in enumerate(ranks):
+        steps_b = sum(r["steps"])
+        print(f"(b) rank {rank} of {MESH_WORLD} ({r['mesh']}): "
+              f"{len(r['history'])} epochs in {r['wall_s']:.3f} s, steps "
+              f"{r['steps']}, launches {r['launches']}")
+        if host_rows(r["history"]) != host_rows(main_hist[:MESH_EPOCHS]):
+            fail(f"(b): rank {rank}'s host history is not phase 4's")
+        if r["launches"]["fed_agg"] != steps_b or r["steps"][1] or any(
+                r["launches"][w.__name__] for w in others):
+            fail(f"(b): rank {rank} launched {r['launches']} for "
+                 f"{r['steps']} steps")
+        if not torch.equal(r["w"], ranks[0]["w"]) or \
+                r["history"] != ranks[0]["history"]:
+            fail(f"(b): rank {rank}'s model or history differs from rank 0's")
+    # the first epoch: each rank trains exactly the rows the unsharded
+    # step trains in its block, and the aggregate differs by the order of
+    # the sums (eq. 14 on identical rows: 1e-5); the final model after
+    # J = 30 SGD steps an epoch, which amplify any reordering, against the
+    # unsharded run at the training tolerance (1e-4)
+    m = halves["rows"][0].shape[0] // MESH_WORLD
+    rows_equal = all(torch.equal(r["rows0"],
+                                 halves["rows"][0][k * m:(k + 1) * m])
+                     for k, r in enumerate(ranks))
+    first = float((ranks[0]["w_by_epoch"][0] - halves["w"][0]).abs().max())
+    final = float((ranks[0]["w"].to(dev) - plain_w).abs().max())
+    final_halves = float((ranks[0]["w"] - halves["w"][-1]).abs().max())
+    halves_plain = float((halves["w"][-1].to(dev) - plain_w).abs().max())
+    acc = [(a["accuracy"], b.accuracy) for a, b in
+           zip(ranks[0]["history"], main_hist)]
+    print(f"(b) host history equals phase 4's; ranks bit-equal; epoch 0: "
+          f"the ranks' trained rows bit-equal to the unsharded step's in the "
+          f"same row blocks: {rows_equal}, the aggregate "
+          f"{first:.3e} from it (tolerance {FED_AGG_TOL}); after "
+          f"{MESH_EPOCHS} epochs: {final:.3e} from the unsharded run "
+          f"(tolerance 1e-4), {final_halves:.3e} from the row-block run, "
+          f"which is {halves_plain:.3e} from the unsharded run (30 SGD "
+          f"steps an epoch amplify the order of sums); accuracy (two ranks, "
+          f"phase 4) {acc}")
+    if not rows_equal or not first <= FED_AGG_TOL:
+        fail(f"(b): the first epoch's rows equal: {rows_equal}, aggregate "
+             f"{first} from the unsharded step's")
+    if not final <= 1e-4:
+        fail(f"(b): the two-rank model is {final} from the unsharded run")
+    out["b"] = dict(rows_equal=rows_equal, first_epoch=first, final=final,
+                    final_vs_row_blocks=final_halves,
+                    row_blocks_vs_unsharded=halves_plain, accuracy=acc,
+                    ranks=[dict(wall_s=r["wall_s"], steps=r["steps"],
+                                launches=r["launches"]) for r in ranks])
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 30: {out['wall_s']:.1f} s ({card})")
 
 
 if __name__ == "__main__":

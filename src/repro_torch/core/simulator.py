@@ -53,8 +53,11 @@ the run's epoch step (read-only: the same history and model bits).
 ``SimConfig.dispatcher`` (a ``sweep/batch.DispatchBatcher``) routes the
 fused steps of one scenario of a sweep through the batcher.
 
-A device mesh (``SimConfig.mesh``) is not ported: it raises
-``NotImplementedError`` naming the slice of the port that brings it.
+``SimConfig.mesh`` (a ``launch.mesh.Mesh``) shards the fused step's
+participants over the mesh's "data" axis (``core/epoch_step.py``): every
+rank of the axis runs the same simulation, each trains its share of the
+participants, and the ranks end every epoch with the same bits.  The
+stacked and legacy paths ignore the mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -70,8 +73,9 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core.aggregation import SatelliteMeta
 from repro_torch.core.constellation import (WalkerDelta, make_ps_nodes,
                                             paper_constellation)
-from repro_torch.core.epoch_step import (carry_capacity, make_epoch_program,
-                                         next_pow2)
+from repro_torch.core.epoch_step import (carry_capacity, combine_stack,
+                                         make_epoch_program, next_pow2,
+                                         stack_rows)
 from repro_torch.core.grouping import (GroupingState, segment_partial_inputs,
                                        segment_weight_matrix)
 from repro_torch.core.links import LinkModel, model_bits
@@ -83,17 +87,9 @@ from repro_torch.core.visibility import (SparseVisibilityTimeline,
 from repro_torch.fl.strategies import StrategySpec
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP queue A item "
-        f"{item} of the PyTorch port")
-
-
 @dataclasses.dataclass
 class SimConfig:
-    """The JAX package's ``SimConfig``, field for field.  ``mesh`` is not
-    ported yet and must stay None: ``FLSimulation`` raises
-    ``NotImplementedError`` otherwise."""
+    """The JAX package's ``SimConfig``, field for field."""
     duration_s: float = 3 * 86400.0
     dt_s: float = 10.0
     train_time_s: float = 600.0        # on-board local-training wall time
@@ -105,7 +101,7 @@ class SimConfig:
     link: Optional[LinkModel] = None   # None -> paper Table I RF (16 Mb/s)
     use_model_bank: bool = True        # stacked path when trainer supports it
     use_fused_step: bool = True        # one epoch step a call (DESIGN §6)
-    mesh: Optional[object] = None      # a device mesh (not ported)
+    mesh: Optional[object] = None      # launch.mesh.Mesh with a "data" axis
     event_driven: bool = False         # run() delegates to sched.runtime
     # pluggable fault/heterogeneity layer (sched/faults.FaultModel,
     # DESIGN.md §10-§11); None attaches NO fault state at all —
@@ -128,8 +124,6 @@ class SimConfig:
 
 
 def _check_ported(sim: SimConfig) -> None:
-    if sim.mesh is not None:
-        raise _not_ported("SimConfig.mesh", "15 (mesh- and pod-shaped code)")
     if sim.visibility not in ("dense", "sparse"):
         raise ValueError(f"visibility must be dense|sparse: {sim.visibility}")
 
@@ -541,7 +535,7 @@ class FLSimulation:
                 self._w_flat, carry, inputs, ids_np, seed,
                 wv_bank, wv_carry, base_w, dw_row, dw_seg, kpad,
                 blocked_m, dw_carry, self.grouping.ref_device(),
-                fallback=fallback)
+                fallback=fallback, late_rows=[k for (_, _, k) in late])
 
         if new_orbits:
             # don't block here: the fetch resolves at the next grouping
@@ -556,13 +550,10 @@ class FLSimulation:
                     gi = self.grouping.group_of(o)
                     groups.setdefault(gi, []).extend(idxs)
                 ws, base_w, info = self._mode_weights(metas, beta, groups)
-                out = agg.combine_stacked(
-                    [(stack, agg.scatter_weights(bank_rows, ws,
-                                                 len(ids_np))),
-                     (carry if c_idx else None,
-                      agg.scatter_weights(carry_rows, ws, cap))],
-                    new_w, base_w)
-                new_w = out if out is not None else new_w
+                new_w = combine_stack(
+                    stack, agg.scatter_weights(bank_rows, ws, len(ids_np)),
+                    carry if c_idx else None,
+                    agg.scatter_weights(carry_rows, ws, cap), new_w, base_w)
 
         # retire carried stragglers, enqueue this epoch's late rows
         with self._seg("carry"):
@@ -570,7 +561,7 @@ class FLSimulation:
             kept_dev = (gather_rows(self._pend_dev, k_idx)
                         if k_idx else None)
             if late:
-                late_dev = gather_rows(stack, [k for (_, _, k) in late])
+                late_dev = stack_rows(stack, [k for (_, _, k) in late])
                 kept_dev = (late_dev if kept_dev is None
                             else torch.cat([kept_dev, late_dev]))
                 kept_meta += [(ta, s, train_epoch)
@@ -796,7 +787,7 @@ class FLSimulation:
                                                       "train_many_stacked")
         fused = None
         if stacked and self.sim.use_fused_step:
-            fused = make_epoch_program(self.trainer, w0)
+            fused = make_epoch_program(self.trainer, w0, mesh=self.sim.mesh)
             if fused is not None:
                 # dispatch profiling hook (obs/profile.py); programs are
                 # cached on the trainer, so (re)set it every run: None

@@ -14,7 +14,8 @@ static signatures (same program spec, participant count, carry rows,
 kpad/blocked_m, fallback split, batch structure and the trainer's
 ``scenario_batch_key``) become ONE physical ``batched_step``; singletons
 and trainers without a batch key run solo through their own ``step`` —
-trivially bit-exact.  Every device step of a batched sweep runs on the
+trivially bit-exact, as do programs with a mesh (``_batchable``, the
+reference's rule).  Every device step of a batched sweep runs on the
 driver thread; each scenario gets back its own outputs.
 
 A batched step updates a fresh (B, N) stack of the group's global
@@ -24,7 +25,11 @@ writes another scenario's model.
 
 Deadlock-freedom: workers block only inside ``submit``; the driver
 flushes exactly when no worker can make progress without it; every value
-a worker reads after waking was produced by that flush.
+a worker reads after waking was produced by that flush.  The driver counts
+the workers it releases as running, under the lock, before it wakes them:
+a worker that wakes, steps and submits again before its group-mates have
+run can then never make the barrier hold with them still asleep, which
+would flush it alone.
 
 Parity contract (DESIGN.md §13): per-scenario histories, weights and
 *logical* step counts from a batched run are bit-identical to running
@@ -96,6 +101,7 @@ class _Request:
     args: Tuple                        # normalized step-order args (14)
     fallback: bool
     sig: Tuple                         # grouping signature
+    late_rows: Tuple = ()              # step(late_rows=...) of a solo step
     event: threading.Event = dataclasses.field(default_factory=threading.Event)
     out: Optional[Tuple] = None
     error: Optional[BaseException] = None
@@ -127,9 +133,14 @@ class BatchedProgram:
     def profiler(self, value):
         self._inner.profiler = value
 
+    def _batchable(self) -> bool:
+        """A program batches with others only under a batch key and
+        without a mesh (its steps hold collectives: it runs solo)."""
+        return self._key is not None and self._inner.mesh is None
+
     def step(self, w_flat, carry, inputs, ids_np, seed, wv_bank, wv_carry,
              base_w, dw_row, dw_seg, kpad, blocked_m, dw_carry, ref,
-             *, fallback: bool = False):
+             *, fallback: bool = False, late_rows=()):
         if fallback:
             self.fallback_dispatches += 1
         else:
@@ -137,11 +148,13 @@ class BatchedProgram:
         args = _normalize_step_args(w_flat, carry, inputs, ids_np, seed,
                                     wv_bank, wv_carry, base_w, dw_row,
                                     dw_seg, kpad, blocked_m, dw_carry, ref)
-        sig = (self._key, self._inner.spec, int(args[1].shape[0]),
+        sig = (self._key if self._batchable() else None,
+               self._inner.spec, int(args[1].shape[0]),
                int(args[3].shape[0]), int(kpad), int(blocked_m),
                bool(fallback), _inputs_sig(inputs))
         return self._batcher.submit(
-            _Request(self._inner, args, bool(fallback), sig))
+            _Request(self._inner, args, bool(fallback), sig,
+                     tuple(late_rows)))
 
 
 class DispatchBatcher:
@@ -189,9 +202,7 @@ class DispatchBatcher:
             self._pending.append(req)
             self._running -= 1
             self._cv.notify_all()
-        req.event.wait()
-        with self._cv:
-            self._running += 1
+        req.event.wait()        # drain() counted this worker running again
         if req.error is not None:
             raise req.error
         return req.out
@@ -215,6 +226,9 @@ class DispatchBatcher:
                 if not self._pending and self._live == 0:
                     return
                 batch, self._pending = self._pending, []
+                # the released workers run from here on: counted before
+                # any wakes, so none can make the barrier hold alone
+                self._running += len(batch)
             self._flush(batch)
 
     def _flush(self, batch: List[_Request]) -> None:
@@ -239,7 +253,8 @@ class DispatchBatcher:
             # singleton or no batch key: the scenario's own program, its
             # own step() — bit-exact by construction
             for r in reqs:
-                r.out = r.prog.step(*r.args, fallback=r.fallback)
+                r.out = r.prog.step(*r.args, fallback=r.fallback,
+                                    late_rows=r.late_rows)
                 self.physical_dispatches += 1
                 self.solo_dispatches += 1
             self.max_group = max(self.max_group, 1)

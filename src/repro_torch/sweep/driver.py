@@ -118,7 +118,7 @@ def run_scenarios(specs: Sequence[ScenarioSpec], w0=None, *,
     # on this thread, before any worker starts: fill the trainers' program
     # caches and load the kernel library (neither table has a lock)
     for fls, _rt in builds:
-        make_epoch_program(fls.trainer, w0)
+        make_epoch_program(fls.trainer, w0, mesh=fls.sim.mesh)
     if next(iter(w0.values())).device.type == "cuda":
         from repro_torch.kernels.fed_agg import ops as fed_agg_ops
         fed_agg_ops.load()
@@ -150,7 +150,7 @@ def run_scenarios(specs: Sequence[ScenarioSpec], w0=None, *,
         # a shared trainer shares one program (and its counters) across
         # scenarios, so per-scenario step counts are deltas
         for i, (fls, rt) in enumerate(builds):
-            prog = make_epoch_program(fls.trainer, w0)
+            prog = make_epoch_program(fls.trainer, w0, mesh=fls.sim.mesh)
             d0 = ((prog.dispatches, prog.fallback_dispatches)
                   if prog is not None else (0, 0))
             histories[i] = rt.run(w0, max_epochs=max_epochs,

@@ -103,8 +103,12 @@ def test_program_is_cached_per_trainer(programs):
     w = params_from_jax(_w0(TINY), device="cpu")
     assert make_epoch_program(tpool, w) is tprog
     assert make_epoch_program(object(), w) is None
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_epoch_program(tpool, w, mesh=object())
+    # a mesh program is cached beside the unsharded one, under the mesh
+    mesh = object()
+    mprog = make_epoch_program(tpool, w, mesh=mesh)
+    assert mprog is not tprog and mprog.mesh is mesh and tprog.mesh is None
+    assert make_epoch_program(tpool, w, mesh=mesh) is mprog
+    assert make_epoch_program(tpool, w) is tprog
 
 
 @pytest.mark.parametrize("n", range(0, 70, 7))

@@ -1,5 +1,6 @@
 """The whole slice: the port's epoch loop against the JAX package's, and the
-port's rules (no JAX inside it, no silent CPU, unported options refuse).
+port's rules (no JAX inside it, no silent CPU, and the option it once
+refused, a mesh, runs).
 
 Both simulations start from the same w0 and train with the same minibatch
 indices (the JAX draws, fed to the port).  Simulated time, model counts,
@@ -26,6 +27,7 @@ from repro_torch.core.modelbank import params_from_jax
 from repro_torch.core.simulator import FLSimulation, SimConfig
 from repro_torch.fl.strategies import get_strategy
 from repro_torch.fl_constellation_sim import build_workload, main
+from repro_torch.launch.mesh import make_data_mesh
 from test_torch_cnn_client import TINY, _w0, injected, jcfg
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -173,9 +175,22 @@ def test_cuda_without_a_card_raises(setup):
                 torch.zeros(2, device="meta"))
 
 
-@pytest.mark.parametrize("change", [dict(mesh=object())])
+@pytest.mark.parametrize("change", [dict(mesh=make_data_mesh)])
 def test_unported_options_raise(setup, change):
+    """The one option the port used to refuse, ``SimConfig.mesh``, runs
+    now: on a one-rank data mesh (the identity mesh) the run is the
+    unsharded one, history and model bits."""
     *_, work = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
-        FLSimulation(get_strategy("asyncfleo-hap"), work.pool, work.evaluator,
-                     SimConfig(duration_s=3600.0, **change))
+    runs = []
+    try:
+        for kw in ({}, {k: make(device="cpu") for k, make in change.items()}):
+            sim = FLSimulation(get_strategy("asyncfleo-hap"), work.pool,
+                               work.evaluator,
+                               SimConfig(duration_s=DAYS * 86400, **kw))
+            runs.append((sim.run(work.w0, max_epochs=2), sim._w_flat))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    (h0, w0), (h1, w1) = runs
+    assert [vars(r) for r in h0] == [vars(r) for r in h1] and len(h0) == 2
+    assert torch.equal(w0, w1)

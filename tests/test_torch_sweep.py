@@ -14,6 +14,7 @@ import dataclasses
 import os
 import sys
 import threading
+import time
 import types
 
 import numpy as np
@@ -345,3 +346,124 @@ def test_pool_sweep_runs_solo_bit_identical():
     assert_bit_identical(seq, bat)
     assert batcher.batched_dispatches == 0
     assert batcher.solo_dispatches == sum(r.dispatches for r in bat) > 0
+
+
+# ---- the barrier: released workers count as running before they wake ------
+
+def _step_program():
+    """A real ``EpochStepProgram`` over a 4-parameter model whose training
+    leaves every participant at the global model."""
+    from repro_torch.core.epoch_step import EpochStepProgram
+    from repro_torch.core.modelbank import FlatSpec
+    spec = FlatSpec.of({"w": torch.zeros(4)})
+
+    def train(params, inputs, ids, seed):
+        return (spec.flatten(params)[None, :].repeat(len(ids), 1),
+                torch.zeros(len(ids)))
+    return EpochStepProgram(spec, train)
+
+
+STEP_ARGS = (None, np.arange(2, dtype=np.int32), 0,
+             np.full(2, 0.5, np.float32), np.zeros(4, np.float32), 0.0,
+             np.zeros(2, np.float32), np.zeros(2, np.int32), 0, 0,
+             np.zeros((0, 4), np.float32))
+
+
+def _run_workers(batcher, proxies, steps, **step_kw):
+    """Each proxy stepped ``steps`` times on a worker thread of its own
+    (named after its index) while this thread drains the batcher."""
+    errors = []
+
+    def work(proxy):
+        try:
+            for _ in range(steps):
+                proxy.step(torch.zeros(4), torch.zeros(4, 4), *STEP_ARGS,
+                           torch.zeros(4), **step_kw)
+        except Exception as e:        # noqa: BLE001 — asserted below
+            errors.append(e)
+        finally:
+            batcher.finish()
+
+    threads = []
+    for i, proxy in enumerate(proxies):
+        batcher.register()
+        threads.append(threading.Thread(target=work, args=(proxy,),
+                                        name=str(i), daemon=True))
+    for t in threads:
+        t.start()
+    drainer = threading.Thread(target=batcher.drain, daemon=True)
+    drainer.start()
+    for t in threads + [drainer]:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads + [drainer])
+    assert not errors, errors
+
+
+def test_barrier_counts_released_workers_before_waking_them():
+    """The race that made ``[seeds]`` flaky, made certain.  Three scenarios
+    step together; after the first flush worker 0 wakes and submits its
+    second step at once, while workers 1 and 2 are held just after their
+    wake-up, before a barrier that re-counted workers in ``submit`` would
+    count them running again.  Such a barrier sees no runnable worker and
+    one pending request and flushes it alone; the driver that counts the
+    workers it releases before it wakes them waits for all three."""
+    second = threading.Event()
+
+    class HeldEvent(threading.Event):
+        def wait(self, timeout=None):
+            woke = super().wait(timeout)
+            second.wait(10)          # worker 0 has submitted again
+            deadline = time.monotonic() + 0.5
+            while batcher.flushes < 2 and time.monotonic() < deadline:
+                time.sleep(0.005)    # room for a barrier to flush it alone
+            return woke
+
+    class Batcher(DispatchBatcher):
+        def submit(self, req):
+            me = threading.current_thread().name
+            calls[me] = calls.get(me, 0) + 1
+            if me != "0" and calls[me] == 1:
+                req.event = HeldEvent()
+            if me == "0" and calls[me] == 2:
+                second.set()
+            return super().submit(req)
+
+    calls = {}
+    batcher = Batcher()
+    prog = _step_program()
+    _run_workers(batcher, [batcher.wrap(prog, key="k") for _ in range(3)],
+                 steps=2)
+    assert batcher.solo_dispatches == 0, batcher.summary()
+    assert (batcher.flushes, batcher.batched_dispatches,
+            batcher.max_group) == (2, 2, 3)
+
+
+def test_mesh_program_runs_solo():
+    """A program with a mesh never batches (the reference's ``_batchable``)
+    and gets its ``late_rows`` through the proxy; without a mesh the same
+    scenarios share one physical step a flush."""
+    seen = []
+
+    class Recorded:
+        def __init__(self, inner, mesh):
+            self.inner, self.mesh = inner, mesh
+            self.spec, self.profiler = inner.spec, None
+
+        def step(self, *args, late_rows=(), **kw):
+            seen.append(late_rows)
+            return self.inner.step(*args, **kw)
+
+        def batched_step(self, *args, **kw):
+            seen.append("batched")
+            return self.inner.batched_step(*args, **kw)
+
+    prog = _step_program()
+    for mesh, solo in ((None, 0), (object(), 4)):
+        batcher = DispatchBatcher()
+        proxies = [batcher.wrap(Recorded(prog, mesh), key="k")
+                   for _ in range(2)]
+        assert [p._batchable() for p in proxies] == [mesh is None] * 2
+        seen.clear()
+        _run_workers(batcher, proxies, steps=2, late_rows=(1,))
+        assert batcher.solo_dispatches == solo
+        assert seen == ([(1,)] * 4 if mesh is not None else ["batched"] * 2)
