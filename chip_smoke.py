@@ -285,7 +285,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the qwen3-4b reduced loss (4 satellites, J = 2) against the same
      steps and eq. 14 written out, within 1e-5.  No other kernel launches
      on these paths; the phase's wall is printed;
- 31. one JSON line of per-kernel numbers (the two LM kernels also at
+ 31. the dry-run tools (``launch/dryrun.py``, ``ep_dryrun.py``,
+     ``fl_dryrun.py``; no kernel on their path): (a) ``dryrun_one`` on
+     ``launch.train``'s step at one rank in phase 27's configuration, in a
+     process of its own (a fake world of one rank): its argument bytes
+     equal to those the card holds for the params, AdamW state and batch,
+     its FLOPs to ``FlopCounterMode``'s count of one real step on the
+     card, its predicted peak within 5 % of phase 27's measured peak
+     (above what the process held before each run) for remat off and on,
+     and the arguments alone (the known-bad control) outside it; (b) ``dryrun --arch qwen3-4b --shape train_4k`` with and
+     without ``--multi-pod``, ``ep_dryrun --arch kimi-k2-1t-a32b`` and
+     ``fl_dryrun`` over fake worlds of 256 and 512 ranks, each its own
+     process, all at once: each exits 0, prints its row and never
+     initialises CUDA; the phase's wall is printed;
+ 32. one JSON line of per-kernel numbers (the two LM kernels also at
      zamba2's shapes, as ``flash_attention:zamba2`` and
      ``chunk_scan:zamba2``, with phase 23's launches; ``fed_agg:lm`` and
      ``flash_attention:lm_eval`` at phase 29's shapes and launches).
@@ -293,7 +306,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository beside it, it exits non-zero and prints no result.  A run
-takes 13 to 16 minutes on an H100.
+takes 14 to 17 minutes on an H100.
 ``--report PATH`` also writes every number of the run there as JSON,
 with the seconds at which each phase started.
 """
@@ -311,10 +324,6 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 MAIN_N = 206922                     # MNIST_CNN's parameters, the main path's N
-H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
-H100_F32_FLOP_PER_S = 67e12         # f32 outside the tensor cores
-H100_BF16_FLOP_PER_S = 989e12       # bf16 tensor cores, dense
-H100_TF32_FLOP_PER_S = 495e12       # TF32 tensor cores, dense
 F32_EPS = 2.0 ** -24
 L2_BYTES = 50 * 2 ** 20
 FED_AGG_TOL = 1e-5                  # max abs error, outputs of order 1
@@ -438,8 +447,17 @@ def time_device(torch, fn, sets, reps: int = 200, only=None,
     return dev_us / reps / 1e3, queue, host, count / reps
 
 
-def bound_ms(nbytes: float, flops: float, peak=H100_F32_FLOP_PER_S):
-    t_b = nbytes / H100_BYTES_PER_S * 1e3
+def hw():
+    """The card's roofline constants: ``repro_torch.launch.mesh``'s (the
+    H100 SXM5 80GB HBM3 data sheet at 700 W), importable once ``main``
+    has put the repository's ``src`` on the path."""
+    from repro_torch.launch import mesh
+    return mesh
+
+
+def bound_ms(nbytes: float, flops: float, peak=None):
+    peak = hw().PEAK_FLOPS_F32 if peak is None else peak
+    t_b = nbytes / hw().HBM_BW * 1e3
     t_f = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
@@ -929,8 +947,11 @@ def main() -> None:
     # ---- 30. the mesh runtime ---------------------------------------------
     mesh_runtime(torch, dev, report, sim, hist, lm_wrappers)
 
-    # ---- 31. the kernel line ----------------------------------------------
-    phase("phase 31: the kernel line")
+    # ---- 31. the dry-run tools -------------------------------------------
+    dryrun_path(torch, dev, report)
+
+    # ---- 32. the kernel line ----------------------------------------------
+    phase("phase 32: the kernel line")
     fb, pg = timings["eq14_bank_carry"], timings["pairwise_dist_grouping"]
     fl, fe = lm_t["fed_agg_lm"], lm_t["flash_lm_eval"]
     fz, cz = fa_all["zamba2"], cs_all["zamba2"]
@@ -2684,7 +2705,7 @@ def flash_timings(torch, dev, gen, report) -> dict:
                  f"function: {lib_err} from the kernel")
         l_ms, *_ = time_device(torch, library, sets)
         flops = 4.0 * hd * B * H * attention_pairs(S, S, causal, window)
-        b_ms, by = bound_ms(nbytes, flops, H100_BF16_FLOP_PER_S)
+        b_ms, by = bound_ms(nbytes, flops, hw().PEAK_FLOPS_BF16)
         t = dict(shape=[B, S, H, KV, hd], causal=causal, window=window,
                  ms=k_ms, queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms,
                  library_ms=l_ms, library_err=lib_err, bound_ms=b_ms,
@@ -3108,9 +3129,9 @@ def scan_timings(torch, dev, gen, report) -> dict:
                                            + pairs * V + K * Lc * V)
         # the products run on the tensor cores (TF32 operands): the bound
         # is the bytes; the earlier design's products on the f32 FMA units
-        b_ms, by = bound_ms(nbytes, flops, peak=H100_TF32_FLOP_PER_S)
-        fma_ms = flops / H100_F32_FLOP_PER_S * 1e3
-        tf32_ms = flops / H100_TF32_FLOP_PER_S * 1e3
+        b_ms, by = bound_ms(nbytes, flops, peak=hw().PEAK_FLOPS_TF32)
+        fma_ms = flops / hw().PEAK_FLOPS_F32 * 1e3
+        tf32_ms = flops / hw().PEAK_FLOPS_TF32 * 1e3
         t = dict(shape=[B, T, H, K, V], chunk=Lc, ms=k_ms, wrapper_ms=w_ms,
                  queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms,
                  library_ms=None, bound_ms=b_ms, bound_by=by,
@@ -3422,6 +3443,9 @@ def train_path(torch, dev, report, wrappers) -> None:
     for remat in (False, True):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
+        # what is held before the run (the other run's weights among it):
+        # phase 31 holds its prediction against the peak above it
+        base = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         out = train(cfg.replace(remat=remat), steps=T["steps"],
                     batch=T["B"], seq=T["S"], lr=T["lr"], device=dev,
@@ -3430,7 +3454,7 @@ def train_path(torch, dev, report, wrappers) -> None:
         runs[remat] = dict(
             losses=out["losses"], step_s=out["step_s"], wall_s=wall,
             peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-            flat=flatten_tree(out["params"]))
+            base_gb=base / 1e9, flat=flatten_tree(out["params"]))
         del out
         r = runs[remat]
         print(f"remat={remat}: losses {[round(x, 5) for x in r['losses']]}; "
@@ -3757,7 +3781,7 @@ def lm_fl_full_width(torch, dev, report, wrappers) -> dict:
               f"{-r.accuracy:.5f} models={r.num_models}")
     print(f"CUDA-event spans (ms): training {[round(x, 1) for x in ms['train']]}"
           f", fed_agg {[round(x, 3) for x in ms['fed_agg']]} (bound "
-          f"{(10 * N * 4) / H100_BYTES_PER_S * 1e3:.2f} ms over the bank "
+          f"{(10 * N * 4) / hw().HBM_BW * 1e3:.2f} ms over the bank "
           f"and the carry, 6.30 over the bank alone), evaluation "
           f"{[round(x, 1) for x in ms['eval']]}; fed_agg against fed_agg_ref "
           f"by commit {[f'{e:.2e}' for e in errs]} (tolerance "
@@ -4254,6 +4278,188 @@ def mesh_runtime(torch, dev, report, main_sim, main_hist, wrappers) -> None:
                                 launches=r["launches"]) for r in ranks])
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 30: {out['wall_s']:.1f} s ({card})")
+
+
+# ---- the dry-run tools: phase 31 --------------------------------------------
+
+# phase 31 (a): launch.dryrun's trace of launch.train's step at one rank,
+# in phase 27's configuration, against the card.  Set before the first
+# run: the predicted peak (arguments + traced temp) within 5 % of phase
+# 27's measured max_memory_allocated above what its process held before
+# the run, remat off and on; the arguments alone, the known-bad control,
+# outside it
+DRYRUN_PEAK_REL = 0.05
+DRYRUN_ONE_RANK = """
+import json, sys, torch
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.dryrun import dryrun_one
+arch, layers, B, S = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    int(sys.argv[4])
+cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+shape = ShapeConfig(f"train_b{B}_s{S}", S, B, "train")
+rows = {str(r): dryrun_one(arch, shape.name, cfg=cfg, shape=shape,
+                           mesh_shape=(1, 1), remat=r, verbose=False)
+        for r in (False, True)}
+print(json.dumps({"rows": rows, "cuda_initialized":
+                  torch.cuda.is_initialized()}))
+"""
+# phase 31 (b): the production-mesh CLIs, each a process of its own, with
+# what torch.cuda.is_initialized() says at its end
+DRYRUN_CLIS = (
+    ("dryrun", ["--arch", "qwen3-4b", "--shape", "train_4k"]),
+    ("dryrun", ["--arch", "qwen3-4b", "--shape", "train_4k", "--multi-pod"]),
+    ("ep_dryrun", ["--arch", "kimi-k2-1t-a32b"]),
+    ("fl_dryrun", []),
+)
+DRYRUN_CLI = """
+import importlib, sys, torch
+mod = importlib.import_module("repro_torch.launch." + sys.argv[1])
+rc = mod.main(sys.argv[2:])
+print("cuda_initialized", torch.cuda.is_initialized())
+sys.exit(rc)
+"""
+
+
+def storage_bytes(trees) -> int:
+    """The bytes of the distinct storages of the tensors in ``trees``, each
+    in the caching allocator's 512-byte units: what the card holds for
+    them (the allocator's blocks can be larger: a block it does not split
+    keeps up to 1 MB of a segment's rounding)."""
+    from repro_torch.launch.collectives import alloc_bytes
+    from repro_torch.tree import tree_leaves
+    seen = {}
+    for tree in trees:
+        for t in tree_leaves(tree):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = alloc_bytes(st.nbytes())
+    return sum(seen.values())
+
+
+def dryrun_path(torch, dev, report) -> None:
+    """Phase 31: the dry-run tools (``launch.dryrun``, ``ep_dryrun``,
+    ``fl_dryrun``; no kernel on their path).  (a) the dry-run of
+    ``launch.train``'s step at one rank in phase 27's configuration: its
+    argument bytes and FLOPs exactly the card's for one real step, its
+    predicted peak within ``DRYRUN_PEAK_REL`` of phase 27's measured peak
+    for remat off and on, the arguments alone outside it; (b) the four
+    production-mesh CLIs over fake worlds of 256 and 512 ranks, each its
+    own process: exit 0, a row, CUDA never initialised."""
+    import os
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import registry as R
+    T = TRAIN
+    t_phase = time.perf_counter()
+    phase(f"phase 31: the dry-run tools — (a) launch.dryrun of "
+          f"launch.train's step at one rank ({TRAIN_ARCH}, {T['layers']} "
+          f"layers, f32, B {T['B']} x {T['S']}) against the card; (b) the "
+          f"production-mesh dry-runs, each its own process")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-c", DRYRUN_ONE_RANK, TRAIN_ARCH,
+         str(T["layers"]), str(T["B"]), str(T["S"])],
+        capture_output=True, text=True, env=env, timeout=600)
+    if proc.returncode != 0:
+        fail(f"phase 31 (a)'s dry-run failed:\n{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    if got["cuda_initialized"]:
+        fail("phase 31 (a): the dry-run initialised CUDA")
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=T["layers"],
+                                         dtype="float32")
+    out = {"a": {}, "b": {}}
+    for remat in (False, True):
+        row = got["rows"][str(remat)]
+        mem = row["memory"]
+        c = cfg.replace(remat=remat)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        opt = make_optimizer(T["lr"])
+        params = R.init_params(0, c, device=dev)
+        state = opt.init(params)
+        batch = make_batch(c, T["B"], T["S"], seed=0, device=dev)
+        # the dry-run's batch spec holds int32 tokens, as the reference's
+        batch["tokens"] = batch["tokens"].to(torch.int32)
+        torch.cuda.synchronize(dev)
+        allocated = torch.cuda.memory_allocated(dev) - base
+        held = storage_bytes([params, state, batch])
+        torch.cuda.reset_peak_memory_stats(dev)
+        with FlopCounterMode(display=False) as fc:
+            new = make_train_step(c, opt)(params, state, batch)
+        torch.cuda.synchronize(dev)
+        step_peak = torch.cuda.max_memory_allocated(dev) - base
+        flops = fc.get_total_flops()
+        del new, params, state, batch
+        run27 = report["lm_train"]["runs"][str(remat)]
+        measured = (run27["peak_gb"] - run27["base_gb"]) * 1e9
+        predicted = mem["peak_size_bytes"]
+        rel = abs(predicted - measured) / measured
+        control = abs(mem["argument_size_bytes"] - measured) / measured
+        print(f"remat={remat}: arguments {mem['argument_size_bytes']:,} B "
+              f"predicted, {held:,} B held on the card (their storages in "
+              f"512-byte units; the allocator's blocks {allocated:,} B, "
+              f"{allocated - held:,} B of segment rounding); FLOPs "
+              f"{row['flops']:.6e} predicted ({row['flops_per_device']:.6e} "
+              f"on rank 0), {flops:.6e} counted on the card's step "
+              f"(PERF.md: ~3.1e13 a step); peak {predicted / 1e9:.3f} GB "
+              f"predicted (temp {mem['temp_size_bytes'] / 1e9:.3f} GB) "
+              f"against phase 27's {measured / 1e9:.3f} GB (its peak "
+              f"{run27['peak_gb']:.3f} GB less the {run27['base_gb']:.3f} "
+              f"GB held before its run): {rel:.2%} "
+              f"apart (limit {DRYRUN_PEAK_REL:.0%}), this step's own "
+              f"{step_peak / 1e9:.3f} GB; the arguments alone "
+              f"{control:.2%} apart; traced in {row['lower_s']} s")
+        if mem["argument_size_bytes"] != held:
+            fail(f"phase 31 (a): the dry-run's argument bytes "
+                 f"{mem['argument_size_bytes']} are not the card's {held}")
+        if not row["flops"] == row["flops_per_device"] == flops:
+            fail(f"phase 31 (a): FLOPs {row['flops']} (rank 0 "
+                 f"{row['flops_per_device']}) predicted, {flops} counted")
+        if not rel <= DRYRUN_PEAK_REL:
+            fail(f"phase 31 (a): the predicted peak is {rel:.2%} from the "
+                 f"measured one (remat={remat})")
+        if not control > DRYRUN_PEAK_REL:
+            fail("phase 31 (a): the limit does not reject the arguments "
+                 "alone")
+        out["a"][str(remat)] = dict(
+            argument_bytes=mem["argument_size_bytes"], held_bytes=held,
+            allocated_bytes=allocated,
+            flops=row["flops"], card_flops=flops,
+            predicted_peak=predicted, measured_peak=measured,
+            step_peak=step_peak, rel=rel, control_rel=control,
+            lower_s=row["lower_s"], replicated=row["replicated"])
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    procs = [(mod, argv, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CLI, mod] + argv, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for mod, argv in DRYRUN_CLIS]
+    for mod, argv, start, p in procs:
+        stdout, stderr = p.communicate(timeout=900)
+        wall = time.perf_counter() - start
+        name = " ".join([mod] + argv)
+        lines = stdout.strip().splitlines()
+        if p.returncode != 0:
+            fail(f"phase 31 (b): {name} exited {p.returncode}:\n"
+                 f"{stderr[-3000:]}")
+        if not lines or lines[-1] != "cuda_initialized False":
+            fail(f"phase 31 (b): {name} ended with "
+                 f"{lines[-1:] or 'no output'}")
+        if len(lines) < 2:
+            fail(f"phase 31 (b): {name} printed no row")
+        print(f"{name}: {wall:.1f} s; " + " | ".join(
+            line[:600] for line in lines[:-1]))
+        out["b"][name] = dict(wall_s=wall, rows=lines[:-1])
+    out["b_wall_s"] = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t_phase
+    card = report.get("card", "")
+    print(f"phase 31: {out['wall_s']:.1f} s, (b) {out['b_wall_s']:.1f} s "
+          f"({card})")
+    report["dryrun"] = out
 
 
 if __name__ == "__main__":

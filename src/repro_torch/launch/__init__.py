@@ -1,4 +1,7 @@
 """Step functions, the training drivers (``train``: AdamW on one arch;
 ``fl_train``: the FL launcher with checkpoints), host meshes over the
-ranks of a process group (``mesh``) and the sharding rules
-(``sharding``).  The JAX package's dry-run tooling is not ported yet."""
+ranks of a process group and the production meshes of the dry-run
+(``mesh``), the sharding rules (``sharding``), and the analysis tools:
+meta-device specs (``specs``), collective accounting of traced programs
+(``collectives``) and the dry-runs (``dryrun``, ``ep_dryrun``,
+``fl_dryrun``)."""

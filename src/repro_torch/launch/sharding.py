@@ -15,9 +15,10 @@ Rule sets:
   FSDP_RULES  — adds ZeRO-3-style parameter sharding: the 'embed'
                 dimension of weight matrices shards over 'data'.
 
-Everything here is pure logic over shapes: a mesh is a ``launch.mesh.Mesh``
-or a mapping of axis sizes, so a (16, 16) or (2, 16, 16) layout resolves
-without 256 ranks.  ``placements`` turns a spec into DTensor placements.
+Everything here is pure logic over shapes: a mesh is a
+``launch.mesh.Mesh``, a ``DeviceMesh`` or a mapping of axis sizes, so a
+(16, 16) or (2, 16, 16) layout resolves without 256 ranks.
+``placements`` turns a spec into DTensor placements.
 """
 from __future__ import annotations
 
@@ -129,11 +130,13 @@ RULE_SETS = {"base": BASE_RULES, "fsdp": FSDP_RULES}
 
 
 def mesh_sizes(mesh) -> Dict[str, int]:
-    """{axis: size} of a mesh (anything with ``axis_names`` and ``shape``)
-    or of a mapping of axis sizes."""
+    """{axis: size} of a mesh (anything with ``axis_names`` and ``shape``,
+    or a ``DeviceMesh`` with ``mesh_dim_names``) or of a mapping of axis
+    sizes."""
     if isinstance(mesh, Mapping):
         return {str(k): int(v) for k, v in mesh.items()}
-    return dict(zip(mesh.axis_names, (int(s) for s in mesh.shape)))
+    names = getattr(mesh, "axis_names", None) or mesh.mesh_dim_names
+    return dict(zip(names, (int(s) for s in mesh.shape)))
 
 
 def partition_spec(shape, logical: Logical, mesh,

@@ -69,6 +69,16 @@ def route(p, cfg: ModelConfig, xf):
     return probs, gate, ids
 
 
+def expert_counts(ids: torch.Tensor, E: int, dtype) -> torch.Tensor:
+    """(E,) assignments of ``ids`` to each expert, in ``dtype``:
+    ``bincount``'s counts (exact below 2^24), written as a sum of ones so
+    that the length is E without reading the ids (the dry-run's meta
+    tensors hold none)."""
+    flat = ids.reshape(-1)
+    return torch.zeros(E, dtype=dtype, device=ids.device).index_add(
+        0, flat, torch.ones_like(flat, dtype=dtype))
+
+
 def moe_ffn(p, cfg: ModelConfig, x, *, capacity_factor: float = None):
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar).  The capacity is
     that of this call's B * S tokens."""
@@ -83,8 +93,7 @@ def moe_ffn(p, cfg: ModelConfig, x, *, capacity_factor: float = None):
 
     # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
     me = probs.mean(dim=0)                                          # (E,)
-    ce = torch.bincount(ids.reshape(-1), minlength=E).to(probs.dtype)
-    ce = ce / (T * k)
+    ce = expert_counts(ids, E, probs.dtype) / (T * k)
     aux = E * (me * ce).sum()
 
     C = moe_capacity(T, E, k, capacity_factor)

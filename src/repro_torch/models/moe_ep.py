@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.moe import route
+from repro_torch.models.moe import expert_counts, route
 
 
 def ep_capacity(tokens_local: int, top_k: int, n_ranks: int,
@@ -49,29 +49,40 @@ def ep_capacity(tokens_local: int, top_k: int, n_ranks: int,
 
 def _expert_ffn(p_local, rx: torch.Tensor, eid: torch.Tensor) -> torch.Tensor:
     """SwiGLU of each row of ``rx`` (R, d) through its local expert
-    ``eid`` (-1: an empty slot, whose output is 0).  The rows are placed
-    into per-expert buffers (E_loc, max count, d) and multiplied there."""
+    ``eid`` (-1: an empty slot, whose output is 0).  The rows are sorted
+    by expert into per-expert buffers (E_loc, cap, d) and multiplied
+    there; every shape but ``cap`` is fixed by R.  ``cap`` is the busiest
+    expert's rows, read from the data; a meta tensor (the dry-run) holds
+    none, so there it is R, the most any data could need (the reference's
+    static one-hot buffers have that size too)."""
     E_loc = p_local["we1"].shape[0]
-    dt = rx.dtype
-    y = torch.zeros_like(rx)
-    rows = torch.nonzero(eid >= 0)[:, 0]
-    if rows.numel() == 0:
-        return y
-    e = eid[rows].long()
-    counts = torch.bincount(e, minlength=E_loc)
-    cap = int(counts.max())
-    start = torch.cumsum(counts, 0) - counts
+    R, d = rx.shape
+    dt, dev = rx.dtype, rx.device
+    e = torch.where(eid >= 0, eid.long(), E_loc)    # empty slots sort last
     order = torch.argsort(e, stable=True)
-    rows, e = rows[order], e[order]
-    pos = torch.arange(rows.numel(), device=rx.device) - start[e]
-    h = rx.new_zeros((E_loc, cap, rx.shape[1]))
-    h[e, pos] = rx[rows]
+    e = e[order]
+    start = torch.searchsorted(e, torch.arange(E_loc + 1, device=dev),
+                               side="left")
+    cap = R if dev.type == "meta" else int((start[1:] - start[:-1]).max())
+    if cap == 0:
+        return torch.zeros_like(rx)
+    filled = e < E_loc
+    pos = torch.arange(R, device=dev) - start[e]
+    # every empty slot writes row E_loc * cap, which is never read
+    dest = torch.where(filled, e * cap + pos, E_loc * cap)
+    h = rx.new_zeros((E_loc * cap + 1, d))
+    h[dest] = rx[order]
+    h = h[:E_loc * cap].view(E_loc, cap, d)
     a = torch.bmm(h, p_local["we1"].to(dt))
     b = torch.bmm(h, p_local["we3"].to(dt))
     del h
     a = F.silu(a).mul_(b)
     del b
-    y[rows] = torch.bmm(a, p_local["we2"].to(dt))[e, pos]
+    yb = torch.bmm(a, p_local["we2"].to(dt)).view(E_loc * cap, d)
+    del a
+    y = torch.empty_like(rx)
+    y[order] = torch.where(filled[:, None], yb[torch.where(filled, dest, 0)],
+                           0.0)
     return y
 
 
@@ -91,7 +102,7 @@ def moe_ffn_ep_local(p_local, cfg: ModelConfig, x_loc, *, group,
 
     probs, gate, ids = route(p_local, cfg, x_loc)
     me = probs.mean(dim=0)
-    ce = torch.bincount(ids.reshape(-1), minlength=E).to(probs.dtype)
+    ce = expert_counts(ids, E, probs.dtype)
     aux = E * (me * ce / (T_loc * k)).sum()
     dist.all_reduce(aux, group=group)
     aux = aux / n_ranks

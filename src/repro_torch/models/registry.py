@@ -184,9 +184,12 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, *, window: int = 0):
 
 def _ce(logits, labels, mask=None):
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    # the trailing unit dim is dropped after the subtraction: DTensor
+    # carries a vocab-sharded gather's mask through ``[..., 0]`` at the
+    # wrong rank, so the dry-run's subtraction would fail to reduce it
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    nll = (logz - gold)[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.float()
