@@ -10,23 +10,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      per source, all at once), timed; ``-Xptxas -v``'s registers and
      spills per kernel.  The flash library's wgmma kernels must not spill
      nor have their wgmma serialised, and its SASS (``cuobjdump -sass``)
-     must hold HGMMA (wgmma) and UTMALDG (TMA loads); no
-     ``chunk_scan_*_kernel`` may spill, and the chunk_scan library's SASS
-     must hold TF32 HMMA (its products on the tensor cores); no
-     ``fed_agg`` or ``pairwise_dist`` kernel may spill, and the
-     pairwise_dist library's SASS must hold TF32 HMMA (the tiled Gram);
+     must hold HGMMA (wgmma) and UTMALDG (TMA loads); the chunk_scan
+     kernels at 64 channels may not spill, the library must hold them at
+     64, 128 and 256 channels in f32 and bf16, and its SASS must hold TF32
+     HMMA (its products on the tensor cores); no ``fed_agg`` or
+     ``pairwise_dist`` kernel may spill, and the pairwise_dist library's
+     SASS must hold TF32 HMMA (the tiled Gram).  The tiles added for the
+     kernels' whole domain (flash_bf16_kernel off 32, flash_f32_kernel off
+     32, 64, 80 and 128, chunk_scan at 128 and 256 channels) have their
+     registers and spills printed, not gated;
   2. ``fed_agg`` against its plain version on the card, max abs error: one
      segment, and two segments in one launch (C in 64, 9, 1 beside C2 in
-     0, 1, 4, 8), both base alignments, ``out`` aliasing ``base``;
+     0, 1, 4, 8), both base alignments, ``out`` aliasing ``base``; a bf16
+     stack and a transposed-view stack (cast once by the wrapper) against
+     the plain version over the cast;
   3. ``pairwise_dist_sq`` against its plain version (in float64), error
      over max(D, 1), at M in 1, 2, 8, 9, 65, 66, 130 (the few-rows design
      up to 8 rows, the tiled one above), as one stack and in the
      leading-row form (row 0 from its own pointer) against the plain
      version over the concatenation; on rows a quarter of a TF32 spacing
      off TF32 numbers (one TF32 pass errs by 2^-11 of D there); close rows
-     (ref + 1e-3 randn) at phase 5's limit; two calls on one input must be
-     bit-equal, and one call at M = 2 must launch exactly one kernel
-     (profiler);
+     (ref + 1e-3 randn) at phase 5's limit; a bf16 and a transposed-view
+     stack against the plain version over the cast; two calls on one
+     input must be bit-equal, and one call at M = 2 must launch exactly
+     one kernel (profiler);
   4. the main path: ``repro_torch.fl_constellation_sim.main`` runs
      asyncfleo-hap with MNIST_CNN at full width (N = 206,922), S = 40,
      J = 30, b = 32, 3 epochs, IID shards of the example's synthetic data.
@@ -54,11 +61,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and window 512), hubert-xlarge's (B 4, S 2048, H = KV = 16, hd 80,
      bf16, non-causal), zamba2-2.7b's shared attention (B 4, S 2048, H =
      KV = 32, hd 80, bf16, causal), hd 80 under window 48, and S = 1000 at hd 64, 80
-     and 128 (a ragged last K/V tile after the TMA rings wrap).  At the
-     sweep's input spread the max abs error is within 1e-5 (f32) and 2e-2
-     (bf16); every bf16 case, also at a spread of 2 that makes the softmax
-     peaked, holds each element within 2^-7 |want| + 2^-8 rms(want's
-     row);
+     and 128 (a ragged last K/V tile after the TMA rings wrap); the whole
+     domain: head dims 8, 40, 96, 192 and 256 at S 200 (causal, window 48
+     and non-causal, f32 and bf16), hd 36 in bf16 (element loads), B * H
+     = 65,600 at hd 32 and 80 in f32 and bf16 (past grid.y), and hd 64
+     bf16 views TMA cannot map.  At the sweep's input spread the max abs
+     error is within 1e-5 (f32) and 2e-2 (bf16); every bf16 case, also at
+     a spread of 2 that makes the softmax peaked, holds each element within
+     2^-7 |want| + 2^-8 rms(want's row);
   8. model-level route parity: qwen3-4b at full width with 2 layers in
      f32, prefill logits through the kernel route against the plain route
      (2e-4), and 16 decode steps against the full forward (1e-4);
@@ -71,8 +81,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ms/token (warm), the device busy share and the top device ops of one
      prefill plus decode; the qwen3-4b weights are freed after it;
  10. ``flash_attention`` timed at the prefill shape (causal, window
-     512), at hubert-xlarge's and at zamba2-2.7b's, beside its plain
-     version,
+     512), at hubert-xlarge's, at zamba2-2.7b's, and at head dims 96
+     ([4, 2048, 32, 32, 96], Phi-3-mini's heads) and 256 ([4, 2048, 16, 8,
+     256], Gemma 2 9B's), causal, beside its plain version,
      ``scaled_dot_product_attention`` (the library yardstick, never called
      by the port; with a boolean band mask for window 512) and its bound;
  11. ``chunk_scan`` against its plain version (the sequential recurrence)
@@ -89,8 +100,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      5248; k = B dt; a scalar decay per head), at B 2 x 256 steps in f32
      and at the serving shape (B 4, T 2048, H 40, K 64, V 128, chunk 128)
      in bf16, each on the kernel's 16-byte load path and, with the conv
-     output shifted by one element, on its element loads.  f32: max abs
-     error <= 5e-5 on y and
+     output shifted by one element, on its element loads; the whole
+     domain: (K, V, chunk, T) in (128, 64, 256, 512), (256, 64, 64, 256),
+     (6, 10, 16, 64) and (96, 130, 32, 96) in both modes, f32 and bf16,
+     and mamba2-2.7b's Mamba2 layers in the model's call form at the
+     serving size (B 4, T 2048, H 80, K 128, V 64, chunk 256, bf16).  f32:
+     max abs error <= 5e-5 on y and
      the final state; bf16: every y element within 2^-7 |want| + 2^-8
      rms(want's row), the state within 5e-5; all of it finite.  The
      distance to the plain version of the kernel's own decomposition
@@ -113,8 +128,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      as phase 9, and the lowest in-chunk cumulative log-decay of the
      prefill's 32 layers (how close the JAX package's factorisation came
      to overflowing on this input);
- 14. ``chunk_scan`` timed at rwkv6-7b's serving shape and at zamba2's
-     (Mamba2, in the model's call form): the kernel (one launch a call)
+ 14. ``chunk_scan`` timed at rwkv6-7b's serving shape, at zamba2's and
+     at mamba2-2.7b's ([4, 2048, 80, 128, 64], chunk 256; Mamba2, in the
+     model's call form): the kernel (one launch a call)
      and the wrapper (every kernel of a call: the zeroing of its sync
      buffer too), beside its plain version and its bound both ways —
      bytes, which bound the tensor-core route, and operations at the f32
@@ -306,7 +322,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository beside it, it exits non-zero and prints no result.  A run
-takes 14 to 17 minutes on an H100.
+takes 14 to 18 minutes on an H100, most of the spread in its host-bound
+phases (the CPU references of phases 4, 16-18 and 28, the serving
+paths' host).
 ``--report PATH`` also writes every number of the run there as JSON,
 with the seconds at which each phase started.
 """
@@ -352,6 +370,14 @@ PREFILL = dict(B=4, S=2048, H=32, KV=8, hd=128)   # the serving prefill
 HUBERT_ATTN = dict(B=4, S=2048, H=16, KV=16, hd=80)
 # zamba2-2.7b's shared attention block over the serving prefill
 ZAMBA_ATTN = dict(B=4, S=2048, H=32, KV=32, hd=80)
+# the kernels' whole domain beyond the serving shapes: flash head dims off
+# 32, 64, 80 and 128 (phase 7), B * H past grid.y's 65,535 (B, S, H, KV,
+# hd), and the prefill-sized timings of phase 10: Phi-3-mini's head dim 96
+# (32 heads) and Gemma 2 9B's 256 (16 query heads, 8 KV heads)
+WIDE_HEAD_DIMS = (8, 40, 96, 192, 256)
+WIDE_BH = (1025, 16, 64, 8, 32)
+PHI3_ATTN = dict(B=4, S=2048, H=32, KV=32, hd=96)
+GEMMA2_ATTN = dict(B=4, S=2048, H=16, KV=8, hd=256)
 # chunk_scan, max abs error of y and the final state in f32 (the JAX
 # package's sweep atol, without its rtol = 0.1 slack), and of the f32 final
 # state in every case (both sides widen the same bf16 inputs to f32)
@@ -360,6 +386,13 @@ SCAN_SERVE = dict(B=4, T=2048, H=64, K=64, V=64, chunk=128)  # rwkv6-7b
 # zamba2-2.7b's Mamba2 layers over the serving prefill (K = ssm_state, V =
 # ssm_head_dim); the conv output's row holds x (H V), B (K) and C (K)
 SCAN_ZAMBA = dict(B=4, T=2048, H=40, K=64, V=128, chunk=128)
+# the scan's whole domain beyond the serving shapes, as (K, V, chunk, T):
+# K 128 with chunks of 256, K 256, K and V off multiples of 4, V past two
+# column tiles; and mamba2-2.7b's Mamba2 layers (d_state 128, head dim 64,
+# 80 heads, chunk 256) over the serving prefill
+WIDE_SCAN = ((128, 64, 256, 512), (256, 64, 64, 256), (6, 10, 16, 64),
+             (96, 130, 32, 96))
+SCAN_MAMBA2 = dict(B=4, T=2048, H=80, K=128, V=64, chunk=256)
 F32_EXP_MAX = 88.72                 # log of the largest finite f32
 
 
@@ -590,14 +623,27 @@ def main() -> None:
                     fail(f"fed_agg aliased C={C} C2={C2} N={N}: error {err}")
         print(f"  C={C:2d} + C2 in (0, 1, 4, 8), N in (206922, 10003, 1001): "
               f"ok")
+    # stacks that are not contiguous f32, which the wrapper casts once
+    # (as the reference does): bf16 rows, and a transposed view
+    for name, stack in (("bf16", randn(9, 10003).bfloat16()),
+                        ("transposed view", randn(10003, 9).T)):
+        gamma = torch.rand(9, generator=gen, device=dev) / 9
+        base = randn(10003)
+        got = fed_agg(stack, gamma, base, 0.35)
+        want = fed_agg_ref(stack.float().contiguous(), gamma, base, 0.35)
+        err = float((got - want).abs().max())
+        fed_err = max(fed_err, err)
+        if not err <= FED_AGG_TOL:
+            fail(f"fed_agg {name} stack: error {err}")
+        print(f"  {name} stack (9, 10003): error {err:.3e}")
     empty = fed_agg(torch.zeros((0, 1001), device=dev),
                     torch.zeros(0, device=dev), buf[:1001], 0.35)
     if not torch.allclose(empty, 0.35 * buf[:1001], atol=0, rtol=1e-6):
         fail("fed_agg C=0 is not bw * base")
     torch.cuda.synchronize()
     print(f"fed_agg: max abs error {fed_err:.3e} over 24 one-segment and 36 "
-          f"two-segment shapes, both base alignments, aliased out, C=0 "
-          f"(tolerance {FED_AGG_TOL})")
+          f"two-segment shapes, both base alignments, aliased out, a bf16 "
+          f"and a transposed stack, C=0 (tolerance {FED_AGG_TOL})")
 
     # ---- 3. pairwise_dist_sq vs plain -------------------------------------
     phase("phase 3: pairwise_dist_sq kernel vs plain (error / max(D, 1)); "
@@ -675,9 +721,19 @@ def main() -> None:
         close[M] = dict(abs_err=err, max_d=float(want.max()), limit=tol)
         print(f"  close rows M={M:2d}, both forms: abs error {err:.3e} (max "
               f"D {float(want.max()):.3e}, limit {tol:.3e})")
+    # stacks that are not contiguous f32, cast once by the wrapper: bf16
+    # rows, and a transposed view, each against the plain version over the
+    # cast (in float64)
+    cast = {}
+    for name, x in (("bf16", randn(9, 4097).bfloat16()),
+                    ("transposed view", randn(4097, 9).T)):
+        want = pairwise_dist_sq_ref(x.double())
+        scale = max(float(want.max()), 1.0)
+        cast[name] = held(f"{name} stack", x, want, PDIST_TOL * scale) / scale
+        print(f"  {name} stack (9, 4097): scaled error {cast[name]:.3e}")
     report["pairwise_dist_checks"] = dict(
         max_scaled=pd_err, max_abs=pd_abs, tf32_sensitive_scaled=tf32_err,
-        close_rows=close)
+        close_rows=close, cast_stacks=cast)
     # one kernel a call at the grouping shape: 20 calls in the trace, and
     # every device operation of theirs that one kernel
     from torch.profiler import ProfilerActivity, profile
@@ -1266,8 +1322,9 @@ def check_build(kernels, logs) -> dict:
     """Phase 1's checks: registers and spills per kernel; the wgmma
     kernel of flash_attention without spills and without serialised
     wgmma; HGMMA (wgmma) and UTMALDG (TMA loads) in its library's SASS;
-    every chunk_scan kernel without spills, and TF32 HMMA in its
-    library's SASS."""
+    the chunk_scan kernels at 64 channels without spills, and TF32 HMMA
+    in its library's SASS.  The wider tiles' registers and spills are
+    printed and kept in the report, not gated."""
     report = {}
     for name, log in logs.items():
         rows, warn = ptxas_kernels(log)
@@ -1307,12 +1364,29 @@ def check_build(kernels, logs) -> dict:
         fail(f"the flash_attention library's SASS lacks wgmma or TMA: "
              f"{counts}")
     report["flash_sass"] = counts
+    # the serving shapes' kernels keep their gates; the tiles added for the
+    # whole domain (flash_bf16_kernel off 32, flash_f32_kernel off 32, 64,
+    # 80 and 128, chunk_scan_kernel at 128 and 256 channels) are printed,
+    # not gated
     scan = [r for r in report["chunk_scan"]["kernels"]
             if r[0].startswith("chunk_scan_")]
-    if not scan:
-        fail("ptxas reported no chunk_scan kernel")
-    if any(st or ld for _, _, st, ld in scan):
-        fail(f"the chunk_scan kernels spill: {scan}")
+    if sorted(r[0] for r in scan) != sorted(
+            f"chunk_scan_kernel<{t},{k}>" for t in ("f32", "bf16")
+            for k in (64, 128, 256)):
+        fail(f"ptxas reported chunk_scan kernels {[r[0] for r in scan]}, "
+             f"not f32 and bf16 at 64, 128 and 256 channels")
+    served = [r for r in scan if r[0].endswith(",64>")]
+    if any(st or ld for _, _, st, ld in served):
+        fail(f"the chunk_scan kernels at 64 channels spill: {served}")
+    present = {"flash_bf16_kernel<32>", *(f"flash_f32_kernel<{hd}>"
+                                         for hd in (32, 64, 80, 128))}
+    wide = [r for r in flash["kernels"]
+            if r[0].startswith(("flash_bf16", "flash_f32"))
+            and r[0] not in present] + [r for r in scan if r not in served]
+    print(f"  the whole domain's wider tiles (not gated): "
+          + ", ".join(f"{k} {regs} registers, spills {st}/{ld} B"
+                      for k, regs, st, ld in wide))
+    report["wide_tiles"] = wide
     hmma = [line for line in sass_of(kernels, "chunk_scan").splitlines()
             if "HMMA" in line]
     tf32 = sum(".TF32" in line for line in hmma)
@@ -2479,6 +2553,27 @@ def flash_vs_plain(torch, dev, gen, report) -> tuple:
         for spread in FLASH_SPREADS:
             cases.append((B, S, H, KV, hd, causal, window, "bfloat16",
                           spread))
+    # the whole domain: head dims off the serving ones, on the mma.sync
+    # and f32 kernels' padded tiles (8 and 40 zero-filled to 32 and 64, 96,
+    # 192 and 256 their own), and hd 36 in bf16 (rows of 72 bytes: element
+    # loads)
+    for hd in WIDE_HEAD_DIMS:
+        for causal, window in ((True, 0), (True, 48), (False, 0)):
+            cases.append((1, 200, 4, 2, hd, causal, window, "float32",
+                          FLASH_SPREADS[0]))
+            for spread in FLASH_SPREADS:
+                cases.append((1, 200, 4, 2, hd, causal, window, "bfloat16",
+                              spread))
+    for spread in FLASH_SPREADS:
+        cases.append((1, 200, 4, 2, 36, True, 0, "bfloat16", spread))
+    # B * H past grid.y's 65,535 (the mma.sync and f32 kernels stride over
+    # it), at hd 32 and at hd 80, which the wgmma kernel takes below that
+    # B * H
+    for B, S, H, KV, hd in (WIDE_BH, (1025, 16, 64, 8, 80)):
+        cases.append((B, S, H, KV, hd, True, 0, "float32",
+                      FLASH_SPREADS[0]))
+        for spread in FLASH_SPREADS:
+            cases.append((B, S, H, KV, hd, True, 0, "bfloat16", spread))
     results = []
     for B, S, H, KV, hd, causal, window, dt, spread in cases:
         dtype = getattr(torch, dt)
@@ -2489,6 +2584,18 @@ def flash_vs_plain(torch, dev, gen, report) -> tuple:
             f"B={B} S={S:4d} H={H:2d} KV={KV} hd={hd:3d} causal={causal:d} "
             f"window={window:3d} {dt:8s} spread {spread}", q, k, v, causal,
             window, spread))
+    # hd 64 bf16 as a view TMA cannot map (its base 2 bytes off 16): the
+    # mma.sync kernel's 64-wide tile, element loads
+    for spread in FLASH_SPREADS:
+        B, S, H, KV, hd = 2, 300, 8, 2, 64
+        buf = randn((B * S * (H + 2 * KV) * hd + 1,), torch.bfloat16, spread)
+        fused = buf[1:].view(B, S, (H + 2 * KV) * hd)
+        q = fused[..., :H * hd].view(B, S, H, hd)
+        k = fused[..., H * hd:(H + KV) * hd].view(B, S, KV, hd)
+        v = fused[..., (H + KV) * hd:].view(B, S, KV, hd)
+        results.append(check(
+            f"unaligned views B={B} S={S} H={H} KV={KV} hd={hd} causal "
+            f"bfloat16 spread {spread}", q, k, v, True, 0, spread))
     # q, k, v as strided views into one fused (B, S, (H + 2 KV) hd) tensor
     for dt in ("float32", "bfloat16"):
         B, S, H, KV, hd = 2, 300, 8, 2, 64
@@ -2654,15 +2761,17 @@ def serving_path(torch, dev, report, *, arch, phase_no, expected,
 
 def flash_timings(torch, dev, gen, report) -> dict:
     """Phase 10: the kernel at the prefill shape (causal, and window 512),
-    at hubert-xlarge's (non-causal, hd 80) and at zamba2's shared
-    attention (causal, hd 80, H = KV = 32), beside its plain version, the
-    library yardstick and its bound.  Returns every shape's numbers."""
+    at hubert-xlarge's (non-causal, hd 80), at zamba2's shared attention
+    (causal, hd 80, H = KV = 32), and at the whole domain's head dims 96
+    (Phi-3-mini's heads) and 256 (Gemma 2 9B's), causal, beside its plain
+    version, the library yardstick and its bound.  Returns every shape's
+    numbers."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
     F = torch.nn.functional
     phase("phase 10: flash_attention timings at the prefill shape, at "
-          "hubert-xlarge's and at zamba2's (device time from the profiler "
-          "trace; inputs cycled through > 2x L2)")
+          "hubert-xlarge's, at zamba2's and at head dims 96 and 256 (device "
+          "time from the profiler trace; inputs cycled through > 2x L2)")
     P, Hu, Z = PREFILL, HUBERT_ATTN, ZAMBA_ATTN
     out = {}
     for key, (B, S, H, KV, hd), causal, window in (
@@ -2671,7 +2780,11 @@ def flash_timings(torch, dev, gen, report) -> dict:
              True, 512),
             ("hubert", (Hu["B"], Hu["S"], Hu["H"], Hu["KV"], Hu["hd"]),
              False, 0),
-            ("zamba2", (Z["B"], Z["S"], Z["H"], Z["KV"], Z["hd"]), True, 0)):
+            ("zamba2", (Z["B"], Z["S"], Z["H"], Z["KV"], Z["hd"]), True, 0),
+            ("hd96", tuple(PHI3_ATTN[x] for x in ("B", "S", "H", "KV", "hd")),
+             True, 0),
+            ("hd256", tuple(GEMMA2_ATTN[x]
+                            for x in ("B", "S", "H", "KV", "hd")), True, 0)):
         elt = 2
         nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * elt
 
@@ -2928,10 +3041,22 @@ def scan_vs_plain(torch, dev, gen, report) -> tuple:
         results.append(check_model_form(z["B"], z["T"], z["H"], z["K"],
                                         z["V"], z["chunk"], "bfloat16",
                                         aligned))
-    worst = max(max(r["y_err"], r["s_err"]) for r in results
-                if r["dtype"] == "float32")
+    # the whole domain: K up to 256 (the 128- and 256-channel kernels),
+    # K and V off multiples of 4 (element loads; odd V one element at a
+    # time), chunks longer than a sub-block (256 at K 128; 64 at K 256 in
+    # f32, whose sub-blocks are 32 steps); then mamba2-2.7b's Mamba2 layers
+    # in the model's call form at the serving size
+    for K, V, chunk, T in WIDE_SCAN:
+        for mode in ("rwkv", "mamba"):
+            for dt in ("float32", "bfloat16"):
+                results.append(check(2, T, 2, K, V, chunk, mode, dt))
+    m = SCAN_MAMBA2
+    results.append(check_model_form(m["B"], m["T"], m["H"], m["K"], m["V"],
+                                    m["chunk"], "bfloat16"))
     zamba = max(max(r["y_err"], r["s_err"]) for r in results
                 if r["dtype"] == "float32" and r["model_form"])
+    worst = max(max(r["y_err"], r["s_err"]) for r in results
+                if r["dtype"] == "float32")
     scaled = max(r["scaled_err"] for r in results
                  if r["scaled_err"] is not None)
     print(f"chunk_scan: {len(results)} cases pass; max abs error in f32 "
@@ -3059,18 +3184,22 @@ def lowest_in_chunk_decay(torch, params, cfg, out) -> None:
 
 
 def scan_timings(torch, dev, gen, report) -> dict:
-    """Phase 14: the kernel at rwkv6-7b's serving shape (RWKV6 mode) and
-    at zamba2's (Mamba2 mode, in the model's call form: r with a head
-    stride of 0, v a view of the conv output), beside its plain version
-    and its bound.  Returns both shapes' numbers."""
+    """Phase 14: the kernel at rwkv6-7b's serving shape (RWKV6 mode), at
+    zamba2's and at mamba2-2.7b's (Mamba2 mode, in the model's call form:
+    r with a head stride of 0, v a view of the conv output; K 128 and
+    chunk 256 at mamba2-2.7b's), beside its plain version and its bound.
+    Returns every shape's numbers."""
     from repro_torch.kernels.chunk_scan import chunk_scan
     from repro_torch.kernels.chunk_scan.ref import chunk_scan_ref
     c, z = SCAN_SERVE, SCAN_ZAMBA
+    m = SCAN_MAMBA2
     phase(f"phase 14: chunk_scan timings at rwkv6-7b's serving shape "
           f"[{c['B']}, {c['T']}, {c['H']}, {c['K']}, {c['V']}] chunk "
-          f"{c['chunk']} bf16 RWKV6 and at zamba2's [{z['B']}, {z['T']}, "
-          f"{z['H']}, {z['K']}, {z['V']}] Mamba2 (device time from the "
-          f"profiler trace; inputs cycled through > 2x L2)")
+          f"{c['chunk']} bf16 RWKV6, at zamba2's [{z['B']}, {z['T']}, "
+          f"{z['H']}, {z['K']}, {z['V']}] Mamba2 and at mamba2-2.7b's "
+          f"[{m['B']}, {m['T']}, {m['H']}, {m['K']}, {m['V']}] chunk "
+          f"{m['chunk']} Mamba2 (device time from the profiler trace; "
+          f"inputs cycled through > 2x L2)")
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -3083,7 +3212,7 @@ def scan_timings(torch, dev, gen, report) -> dict:
                 -torch.rand(B, T, H, K, generator=gen, device=dev) * 1.2,
                 randn(B, H, K, V) * 0.1, randn(H, K) * 0.2)
 
-    def zamba_inputs():
+    def mamba_inputs(z):
         """As ``models/mamba.block`` passes them: v and r views of one
         conv output, k = B * dt, the decay (B, T, H) f32."""
         B, T, H, K, V = (z[x] for x in ("B", "T", "H", "K", "V"))
@@ -3097,8 +3226,11 @@ def scan_timings(torch, dev, gen, report) -> dict:
                 randn(B, H, K, V) * 0.1, None)
 
     out = {}
-    for key, cfg, make, plain_reps in (("rwkv6", c, rwkv_inputs, 3),
-                                       ("zamba2", z, zamba_inputs, 1)):
+    m = SCAN_MAMBA2
+    for key, cfg, make, plain_reps in (
+            ("rwkv6", c, rwkv_inputs, 3),
+            ("zamba2", z, lambda: mamba_inputs(z), 1),
+            ("mamba2", m, lambda: mamba_inputs(m), 1)):
         B, T, H, K, V, Lc = (cfg[x] for x in ("B", "T", "H", "K", "V",
                                               "chunk"))
         rwkv = key == "rwkv6"

@@ -93,6 +93,12 @@ class ModelConfig:
         from repro_torch.models.registry import analytic_param_count
         return analytic_param_count(self)
 
+    def active_param_count(self) -> int:
+        """Parameters one token uses: an MoE model counted with ``top_k``
+        experts a layer (the dense families: ``param_count``)."""
+        from repro_torch.models.registry import analytic_param_count
+        return analytic_param_count(self, active_only=True)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -90,6 +90,13 @@ def _all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
     return t
 
 
+def bank_sharding(mesh):
+    """The (C, N) bank layout: participants over "data", parameters
+    replicated (the shared rule lives in ``launch/sharding.py``)."""
+    from repro_torch.launch.sharding import bank_sharding as _bs
+    return _bs(mesh)
+
+
 def sharded_contract(w: torch.Tensor, stack: torch.Tensor,
                      mesh) -> torch.Tensor:
     """(C,) @ (C, N) with the C axis sharded over "data": each rank passes

@@ -69,6 +69,18 @@ class FlatSpec:
             off += size
         return tree_unflatten(self.paths, views)
 
+    def unflatten_host(self, flat):
+        """(N,) tensor or array -> parameter tree of host numpy arrays (one
+        copy of the vector to the host; the leaves are views into it)."""
+        if isinstance(flat, torch.Tensor):
+            flat = flat.detach().cpu().numpy()
+        flat = np.asarray(flat)
+        parts, off = [], 0
+        for size, shape in zip(self.sizes, self.shapes):
+            parts.append(flat[off:off + size].reshape(shape))
+            off += size
+        return tree_unflatten(self.paths, parts)
+
 
 def flatten_tree(model) -> torch.Tensor:
     """A parameter tree (a dict, nested dicts allowed) -> new (N,) float32
@@ -143,6 +155,15 @@ class ModelBank:
 
     def select(self, idx: Sequence[int]) -> "ModelBank":
         return ModelBank(self.spec, gather_rows(self.stack, list(idx)))
+
+    def row(self, i: int) -> torch.Tensor:
+        """Client ``i``'s flat (N,) model: a view of its row."""
+        return self.stack[i]
+
+    def pytree(self, i: int):
+        """Client ``i``'s parameter tree: views into its row, on the
+        stack's device (no copy)."""
+        return self.spec.unflatten(self.stack[i])
 
     def to_pytrees(self) -> List:
         """Materialise one parameter tree per client: each row copied out

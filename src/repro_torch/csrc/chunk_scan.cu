@@ -61,9 +61,25 @@
 // trip through shared memory.  Tiles are zero-filled past the
 // chunk, past K and past V, so the products need no per-tile branch.
 // Element loads replace cp.async for an operand without a unit channel
-// stride and 16-byte aligned rows.  Row pitches of 72 (bf16: 36 words) and
-// 68 or 72 f32 words keep the fragment reads free of bank conflicts.
-// Shared memory: 109 KB in bf16 (two CTAs an SM), 161 KB in f32.
+// stride and 16-byte aligned rows (K or V not a multiple of 16 bytes
+// among them), and an odd V takes its state and y one element at a time.
+// Row pitches of 72 (bf16: 36 words) and 68 or 72 f32 words keep the
+// fragment reads free of bank conflicts.  Shared memory at K <= 64: 109
+// KB in bf16 (two CTAs an SM), 161 KB in f32.
+//
+// K up to 256: instantiations at 64, 128 and 256 channels, the launcher
+// taking the smallest that holds K.  Above 64 the state pass loops over
+// blocks of 64 channels, and r exp(M - Lref) is formed again at each use
+// rather than kept in registers (at 256 channels 128 more a thread).
+// The tiles at 128 and 256 channels leave room for fewer steps (see
+// max_steps: 194,080 bytes at 128 channels and 128 steps in bf16, 216,096
+// at 256 and 64; f32 halves the steps), and a chunk longer than those
+// steps (or than 128 at 64 channels) runs as sub-blocks of them, in order,
+// the last one shorter: each sub-block is a work item of its own and hands the
+// state on to the next through the flags, as chunks do.  The recurrence's
+// result does not depend on where the time axis is cut, so this is the
+// same function; the 16-row re-referencing inside each sub-block stays.
+// Past 256 channels the tiles would not fit: the launcher refuses K > 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,22 +87,33 @@
 namespace {
 
 constexpr int kThreads = 256;           // 8 warps
-constexpr int kMaxK = 64;
-constexpr int kMaxL = 128;
 constexpr int kVT = 64;                 // V columns per CTA
 constexpr int kSB = 16;                 // query rows per sub-block
-constexpr int kLD = 72;                 // pitch of the r, k, ld tiles
 constexpr int kLDS = 68;                // pitch of the state tile (f32)
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The kernel's channel capacity kMaxK (64, 128 or 256: the smallest that
+// holds K) sets the tiles' pitch and the steps a CTA holds at once
+// (kMaxL): 128 at 64 channels; at 128, 128 in bf16 and 64 in f32; at
+// 256, 64 in bf16 and 32 in f32, so that the tiles fit in the 227 KB of
+// shared memory a CTA can hold.
+template <int kMaxK> __host__ __device__ constexpr int pitch() {
+  return kMaxK + 8;                     // 72 at 64: 8 words past a bank row
+}
+template <typename T, int kMaxK>
+__host__ __device__ constexpr int max_steps() {
+  return kMaxK == 64 ? 128 : (kMaxK == 128 ? 128 : 64) / (sizeof(T) / 2);
+}
 
 // the v pitch: the A.v fragments read rows 2t, 2t + 1
 template <typename T> __host__ __device__ constexpr int ldv_out() {
   return sizeof(T) == 2 ? 72 : 68;
 }
 
-template <typename T> constexpr size_t smem_bytes() {
-  return 2 * kMaxL * kLD * sizeof(T) + kMaxL * ldv_out<T>() * sizeof(T) +
-         ((kMaxL + 1) * kLD + kMaxK * kLDS + kThreads) * sizeof(float);
+template <typename T, int kMaxK> constexpr size_t smem_bytes() {
+  constexpr int L = max_steps<T, kMaxK>(), LD = pitch<kMaxK>();
+  return 2 * L * LD * sizeof(T) + L * ldv_out<T>() * sizeof(T) +
+         ((L + 1) * LD + kMaxK * kLDS + kThreads) * sizeof(float);
 }
 
 struct Params {
@@ -100,8 +127,11 @@ struct Params {
   float* sfin;
   float* work;                            // (B H, nc, K, V): S_{c+1}
   int* sync;                              // the item counter, then flags
-  int T, H, K, V, Lc, nc, include_current;
+  int T, H, K, V, include_current;
+  int Lc, sub, nsub;                      // chunk, sub-block, sub-blocks
+  int nc;                                 // sub-blocks over T
   int vec, ld_vec;                        // 16-byte loads (see the launch)
+  int vpair;                              // V even: f32 / bf16 pair access
   long long rs[4], ks[4], vs[4], ls[4];   // element strides b, t, h, channel
 };
 
@@ -128,6 +158,10 @@ __device__ __forceinline__ void store2(float* dst, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store1(float* dst, float a) { *dst = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* dst, float a) {
+  *dst = __float2bfloat16(a);
 }
 
 // f32 inputs take the precise variant of three steps below: expf for the
@@ -283,11 +317,12 @@ __device__ __forceinline__ void load_tile(T* dst, int LD, const T* g,
   }
 }
 
-// Rows 1..Lc of the (Lc + 1, kLD) tile Ls hold the raw log-decay of one
+// Rows 1..Lc of the (Lc + 1, LD) tile Ls hold the raw log-decay of one
 // chunk (row 0 zeros): each becomes the inclusive cumulative sum of the
 // decay clamped to [-1, 0].  Row t + 1 is then L_t and row t the exclusive
 // sum.  kThreads / K segments a channel, then the totals of the earlier
 // segments.
+template <int LD>
 __device__ __forceinline__ void cumsum(float* Ls, float* Tot, int Lc,
                                        int K) {
   const int tid = threadIdx.x;
@@ -299,7 +334,7 @@ __device__ __forceinline__ void cumsum(float* Ls, float* Tot, int Lc,
   if (act) {
     float run = 0.f;
     for (int t = lo; t < hi; ++t) {
-      float* q = Ls + (t + 1) * kLD + c;
+      float* q = Ls + (t + 1) * LD + c;
       run += fminf(fmaxf(*q, -1.f), 0.f);
       *q = run;
     }
@@ -310,7 +345,7 @@ __device__ __forceinline__ void cumsum(float* Ls, float* Tot, int Lc,
     float off = 0.f;
     for (int e = 0; e < sg; ++e) off += Tot[e * K + c];
     for (int t = lo; t < hi; ++t) {
-      float* q = Ls + (t + 1) * kLD + c;
+      float* q = Ls + (t + 1) * LD + c;
       *q += off;
     }
   }
@@ -320,9 +355,9 @@ __device__ __forceinline__ void cumsum(float* Ls, float* Tot, int Lc,
 // dS_c = (k exp(L_end - L))^T v over this warp's tile, channels m0 .. m0 +
 // 15 and columns n0 .. n0 + 31 (M = channel, N = column, depth = step):
 // acc[nt] holds (channel m0 + g | + 8, column n0 + 8 nt + 2t | + 1).  Ks,
-// Vs (pitch LDV) and Ls as the loads leave them, zero past the chunk and
-// past K.
-template <typename T, int LDV>
+// Ls (pitch LD), Vs (pitch LDV) as the loads leave them, zero past the
+// chunk and past K.
+template <typename T, int LD, int LDV>
 __device__ __forceinline__ void chunk_state(float (&acc)[4][4], const T* Ks,
                                             const T* Vs, const float* Ls,
                                             int Lc, int m0, int n0, int g,
@@ -330,14 +365,14 @@ __device__ __forceinline__ void chunk_state(float (&acc)[4][4], const T* Ks,
   constexpr bool P = precise<T>();
   const int L8 = (Lc + 7) & ~7;
   const int ca = m0 + g, cb = ca + 8;
-  const float ea = Ls[Lc * kLD + ca], eb = Ls[Lc * kLD + cb];
+  const float ea = Ls[Lc * LD + ca], eb = Ls[Lc * LD + cb];
   for (int s0 = 0; s0 < L8; s0 += 8) {
     const int sa = s0 + t, sb = sa + 4;
     float a[4];
-    a[0] = to_f32(Ks[sa * kLD + ca]) * fexp<P>(ea - Ls[(sa + 1) * kLD + ca]);
-    a[1] = to_f32(Ks[sa * kLD + cb]) * fexp<P>(eb - Ls[(sa + 1) * kLD + cb]);
-    a[2] = to_f32(Ks[sb * kLD + ca]) * fexp<P>(ea - Ls[(sb + 1) * kLD + ca]);
-    a[3] = to_f32(Ks[sb * kLD + cb]) * fexp<P>(eb - Ls[(sb + 1) * kLD + cb]);
+    a[0] = to_f32(Ks[sa * LD + ca]) * fexp<P>(ea - Ls[(sa + 1) * LD + ca]);
+    a[1] = to_f32(Ks[sa * LD + cb]) * fexp<P>(eb - Ls[(sa + 1) * LD + cb]);
+    a[2] = to_f32(Ks[sb * LD + ca]) * fexp<P>(ea - Ls[(sb + 1) * LD + ca]);
+    a[3] = to_f32(Ks[sb * LD + cb]) * fexp<P>(eb - Ls[(sb + 1) * LD + cb]);
     uint32_t ah[4], al[4];
     split4<P>(a, ah, al);
 #pragma unroll
@@ -359,6 +394,12 @@ __device__ __forceinline__ void st_release(int* q, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;" :: "l"(q), "r"(v)
                : "memory");
 }
+__device__ __forceinline__ float ld_relaxed(const float* q) {
+  float v;
+  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];" : "=f"(v) : "l"(q)
+               : "memory");
+  return v;
+}
 __device__ __forceinline__ float2 ld_relaxed2(const float* q) {
   float2 v;
   asm volatile("ld.relaxed.gpu.global.v2.f32 {%0, %1}, [%2];"
@@ -366,15 +407,23 @@ __device__ __forceinline__ float2 ld_relaxed2(const float* q) {
   return v;
 }
 
-// One chunk and 64 V columns: the chunk's state and its outputs.  In the
-// outputs, warp w owns the 16 query rows of sub-block 0, 1, 2, 3, 7, 6, 5,
-// 4 (so warps w and w + 4, on one scheduler, have 9 key blocks between
-// them); this thread owns rows ta = a + g and tb = ta + 8 and, of each
-// 8-column tile, columns 2t, 2t + 1.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
+// One sub-block of a chunk (at most kMaxL steps; the whole chunk where it
+// fits) and 64 V columns: its state and its outputs.  In the outputs, warp
+// w owns the 16 query rows of sub-block 0, 1, 2, 3, 7, 6, 5, 4 (so warps w
+// and w + 4, on one scheduler, have 9 key blocks between them); this
+// thread owns rows ta = a + g and tb = ta + 8 and, of each 8-column tile,
+// columns 2t, 2t + 1.
+template <typename T, int kMaxK>
+__global__ void __launch_bounds__(kThreads,
+                                  sizeof(T) == 2 && kMaxK == 64 ? 2 : 1)
     chunk_scan_kernel(Params p) {
+  constexpr int kMaxL = max_steps<T, kMaxK>();
+  constexpr int kLD = pitch<kMaxK>();     // of the r, k, ld tiles
   constexpr int LDV = ldv_out<T>();
+  constexpr int kMB = kMaxK / 64;         // channel blocks of the state pass
+  // r exp(M - Lref) stays in registers up to 64 channels; above, each use
+  // forms it again from the tiles (kMaxK / 2 registers more would spill)
+  constexpr bool kQReg = kMaxK == 64;
   constexpr bool P = precise<T>();     // f32: v is not exact in TF32
   extern __shared__ __align__(16) unsigned char smem[];
   T* Rs = reinterpret_cast<T*>(smem);
@@ -390,16 +439,20 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
   if (tid == 0) item = atomicAdd(p.sync, 1);
   __syncthreads();
   const int rows = gridDim.x / p.nc;                  // B H nvt
-  const int c = item / rows;
+  const int c = item / rows;                          // the sub-block
   const int bh = (item - c * rows) / nvt;
   const int vt = item - c * rows - bh * nvt;
   const int b = bh / p.H, h = bh - b * p.H;
   const int v0 = vt * kVT, Vw = min(kVT, p.V - v0);
-  const int K = p.K, Lc = p.Lc;
+  const int K = p.K;
+  // sub-block js of chunk cu: steps [t0, t0 + Lc)
+  const int cu = c / p.nsub, js = c - cu * p.nsub;
+  const int Lc = min(p.sub, p.Lc - js * p.sub);
   const int L16 = (Lc + 15) & ~15;
   const int nsb = L16 / kSB;
   const bool rwkv = !p.include_current;
-  const long long t0 = static_cast<long long>(c) * Lc;
+  const long long t0 = static_cast<long long>(cu) * p.Lc +
+                       static_cast<long long>(js) * p.sub;
 
   const float* lg = p.ld + b * p.ls[0] + h * p.ls[2] + t0 * p.ls[1];
   const T* rg = static_cast<const T*>(p.r) + b * p.rs[0] + h * p.rs[2] +
@@ -418,19 +471,24 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
   cp_async_commit();
   cp_async_wait<1>();      // the decay; r, k and v land during the cumsum
   __syncthreads();
-  cumsum(Ls, Tot, Lc, K);
+  cumsum<kLD>(Ls, Tot, Lc, K);
   cp_async_wait<0>();
   __syncthreads();
 
-  // dS_c of this warp's tile, then S_{c+1} = exp(L_end) S_c + dS_c once
-  // chunk c - 1 has published S_c (S_0 = s0): S_c goes to shared memory
-  // for the cross term, S_{c+1} to the workspace (s_fin after the last
-  // chunk), and chunk c + 1 may go on
+  // dS_c of this warp's tiles, then S_{c+1} = exp(L_end) S_c + dS_c once
+  // sub-block c - 1 has published S_c (S_0 = s0): S_c goes to shared
+  // memory for the cross term, S_{c+1} to the workspace (s_fin after the
+  // last sub-block), and sub-block c + 1 may go on
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   {
-    const int m0 = 16 * (warp >> 1), n0 = 32 * (warp & 1);
-    float acc[4][4] = {};
-    if (m0 < K) chunk_state<T, LDV>(acc, Ks, Vs, Ls, Lc, m0, n0, g, t);
+    const int n0 = 32 * (warp & 1);
+    float acc[kMB][4][4] = {};
+#pragma unroll
+    for (int mb = 0; mb < kMB; ++mb) {
+      const int m0 = 64 * mb + 16 * (warp >> 1);
+      if (m0 < K)
+        chunk_state<T, kLD, LDV>(acc[mb], Ks, Vs, Ls, Lc, m0, n0, g, t);
+    }
     int* flag = p.sync + 1 + (static_cast<long long>(bh) * nvt + vt) * p.nc;
     if (c > 0) {
       if (tid == 0)
@@ -444,22 +502,49 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     float* sn = c + 1 < p.nc ? p.work + (static_cast<long long>(bh) * p.nc +
                                          c) * KV + v0
                              : p.sfin + bh * KV + v0;
+    if (p.vpair) {        // columns j, j + 1 both in or both out
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + g + 8 * half;
-      const float dec = row < K ? expf(Ls[Lc * kLD + row]) : 0.f;
+      for (int mb = 0; mb < kMB; ++mb) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int j = n0 + nt * 8 + 2 * t;
-        const bool in = row < K && j < Vw;
-        const float2 sv = in ? ld_relaxed2(sp + row * p.V + j)
-                             : make_float2(0.f, 0.f);
-        Ss[row * kLDS + j] = sv.x;
-        Ss[row * kLDS + j + 1] = sv.y;
-        if (in)
-          __stcg(reinterpret_cast<float2*>(sn + row * p.V + j),
-                 make_float2(fmaf(dec, sv.x, acc[nt][2 * half]),
-                             fmaf(dec, sv.y, acc[nt][2 * half + 1])));
+        for (int half = 0; half < 2; ++half) {
+          const int row = 64 * mb + 16 * (warp >> 1) + g + 8 * half;
+          const float dec = row < K ? expf(Ls[Lc * kLD + row]) : 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int j = n0 + nt * 8 + 2 * t;
+            const bool in = row < K && j < Vw;
+            const float2 sv = in ? ld_relaxed2(sp + row * p.V + j)
+                                 : make_float2(0.f, 0.f);
+            Ss[row * kLDS + j] = sv.x;
+            Ss[row * kLDS + j + 1] = sv.y;
+            if (in)
+              __stcg(reinterpret_cast<float2*>(sn + row * p.V + j),
+                     make_float2(fmaf(dec, sv.x, acc[mb][nt][2 * half]),
+                                 fmaf(dec, sv.y, acc[mb][nt][2 * half + 1])));
+          }
+        }
+      }
+    } else {              // odd V: one element at a time
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = 64 * mb + 16 * (warp >> 1) + g + 8 * half;
+          const float dec = row < K ? expf(Ls[Lc * kLD + row]) : 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = n0 + nt * 8 + 2 * t + e;
+              const bool in = row < K && j < Vw;
+              const float sv = in ? ld_relaxed(sp + row * p.V + j) : 0.f;
+              Ss[row * kLDS + j] = sv;
+              if (in)
+                __stcg(sn + row * p.V + j,
+                       fmaf(dec, sv, acc[mb][nt][2 * half + e]));
+            }
+          }
+        }
       }
     }
     __syncthreads();       // S_c is in; every store of S_{c+1} is issued
@@ -475,23 +560,35 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
   const float* Lref = Ls + a * kLD;                 // exclusive sum at a
   const float* Ma = Ls + (rwkv ? ta : ta + 1) * kLD;
   const float* Mb = Ls + (rwkv ? tb : tb + 1) * kLD;
+  const int nks = (K + 7) / 8;                      // k-steps that hold K
 
   float y[kVT / 8][4] = {};
-  float q[kMaxK / 8][4];  // r exp(M - Lref), (ta|tb, 2t|2t+1) per k-step
+  // r exp(M - Lref), (ta|tb, 2t|2t+1) per k-step, kept when kQReg
+  float qreg[kQReg ? kMaxK / 8 : 1][4];
+  const auto q_of = [&](int ks, float (&q)[4]) {
+    const int cc = ks * 8 + 2 * t;
+    const float2 lr = pair(Lref + cc), ma = pair(Ma + cc), mb = pair(Mb + cc);
+    const float2 ra = pair(Rs + ta * kLD + cc), rb = pair(Rs + tb * kLD + cc);
+    q[0] = ra.x * fexp<P>(ma.x - lr.x);
+    q[1] = rb.x * fexp<P>(mb.x - lr.x);
+    q[2] = ra.y * fexp<P>(ma.y - lr.y);
+    q[3] = rb.y * fexp<P>(mb.y - lr.y);
+  };
 
   // the cross term (r exp(M)) S_c, = (r exp(M - Lref)) exp(Lref) S_c
 #pragma unroll
   for (int ks = 0; ks < kMaxK / 8; ++ks) {
+    if (!kQReg && ks >= nks) break;
     const int cc = ks * 8 + 2 * t;
-    const float2 lr = pair(Lref + cc), ma = pair(Ma + cc), mb = pair(Mb + cc);
-    const float2 ra = pair(Rs + ta * kLD + cc), rb = pair(Rs + tb * kLD + cc);
-    q[ks][0] = ra.x * fexp<P>(ma.x - lr.x);
-    q[ks][1] = rb.x * fexp<P>(mb.x - lr.x);
-    q[ks][2] = ra.y * fexp<P>(ma.y - lr.y);
-    q[ks][3] = rb.y * fexp<P>(mb.y - lr.y);
+    float q[4];
+    q_of(ks, q);
+    if constexpr (kQReg) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qreg[ks][e] = q[e];
+    }
+    const float2 lr = pair(Lref + cc);
     const float e0 = expf(lr.x), e1 = expf(lr.y);
-    const float x[4] = {q[ks][0] * e0, q[ks][1] * e0, q[ks][2] * e1,
-                        q[ks][3] * e1};
+    const float x[4] = {q[0] * e0, q[1] * e0, q[2] * e1, q[3] * e1};
     uint32_t xh[4], xl[4];
     split4<P>(x, xh, xl);
 #pragma unroll
@@ -502,18 +599,28 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     }
   }
 
-  // the bonus r_t * u . k_t of this thread's rows, a warp a row
+  // the bonus r_t * u . k_t of this thread's rows, a warp a row (lane l:
+  // channels 2l, 2l + 1, + 64, ...; r and k are zero past K)
   float da = 0.f, db = 0.f;
   if (rwkv) {
-    const int cc = 2 * lane;
-    const float2 uu = cc < K ? make_float2(__ldg(p.u + h * K + cc),
-                                           __ldg(p.u + h * K + cc + 1))
-                             : make_float2(0.f, 0.f);
+    constexpr int kCC = kMaxK / 64;
+    float2 uu[kCC];
+#pragma unroll
+    for (int q = 0; q < kCC; ++q) {
+      const int cc = 2 * lane + 64 * q;
+      uu[q] = make_float2(cc < K ? __ldg(p.u + h * K + cc) : 0.f,
+                          cc + 1 < K ? __ldg(p.u + h * K + cc + 1) : 0.f);
+    }
     for (int i = 0; i < kSB; ++i) {
       const int row = a + i;
-      const float2 rr = pair(Rs + row * kLD + cc);
-      const float2 kk = pair(Ks + row * kLD + cc);
-      float d = cc < K ? fmaf(rr.x * uu.x, kk.x, rr.y * uu.y * kk.y) : 0.f;
+      float d = 0.f;
+#pragma unroll
+      for (int q = 0; q < kCC; ++q) {
+        const int cc = 2 * lane + 64 * q;
+        const float2 rr = pair(Rs + row * kLD + cc);
+        const float2 kk = pair(Ks + row * kLD + cc);
+        d += fmaf(rr.x * uu[q].x, kk.x, rr.y * uu[q].y * kk.y);
+      }
 #pragma unroll
       for (int o = 16; o; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
       if (i == g) da = d;
@@ -527,10 +634,18 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     float A[2][4] = {}, Ac[2][4] = {};
 #pragma unroll
     for (int ks = 0; ks < kMaxK / 8; ++ks) {
+      if (!kQReg && ks >= nks) break;
       const int cc = ks * 8 + 2 * t;
       const float2 lr = pair(Lref + cc);
+      float qv[4];
+      if constexpr (kQReg) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qv[e] = qreg[ks][e];
+      } else {
+        q_of(ks, qv);
+      }
       uint32_t qh[4], ql[4];
-      split4<P>(q[ks], qh, ql);
+      split4<P>(qv, qh, ql);
 #pragma unroll
       for (int n2 = 0; n2 < 2; ++n2) {
         const int s = s0 + n2 * 8 + g;
@@ -574,44 +689,81 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
   T* yg = static_cast<T*>(p.y) +
           ((static_cast<long long>(b) * p.T + t0) * p.H + h) * p.V + v0;
   const long long y_row = static_cast<long long>(p.H) * p.V;
+  if (p.vpair) {
 #pragma unroll
-  for (int nt = 0; nt < kVT / 8; ++nt) {
-    const int j = nt * 8 + 2 * t;
-    if (j < Vw) {
-      if (ta < Lc) {
-        const float2 va = pair(Vs + ta * LDV + j);
-        store2(yg + ta * y_row + j, fmaf(da, va.x, y[nt][0]),
-               fmaf(da, va.y, y[nt][1]));
+    for (int nt = 0; nt < kVT / 8; ++nt) {
+      const int j = nt * 8 + 2 * t;
+      if (j < Vw) {
+        if (ta < Lc) {
+          const float2 va = pair(Vs + ta * LDV + j);
+          store2(yg + ta * y_row + j, fmaf(da, va.x, y[nt][0]),
+                 fmaf(da, va.y, y[nt][1]));
+        }
+        if (tb < Lc) {
+          const float2 vb = pair(Vs + tb * LDV + j);
+          store2(yg + tb * y_row + j, fmaf(db, vb.x, y[nt][2]),
+                 fmaf(db, vb.y, y[nt][3]));
+        }
       }
-      if (tb < Lc) {
-        const float2 vb = pair(Vs + tb * LDV + j);
-        store2(yg + tb * y_row + j, fmaf(db, vb.x, y[nt][2]),
-               fmaf(db, vb.y, y[nt][3]));
+    }
+  } else {                // odd V: one element at a time
+#pragma unroll
+    for (int nt = 0; nt < kVT / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? ta : tb;
+        const int j = nt * 8 + 2 * t + (e & 1);
+        if (row < Lc && j < Vw)
+          store1(yg + row * y_row + j,
+                 fmaf(e < 2 ? da : db, to_f32(Vs[row * LDV + j]), y[nt][e]));
       }
     }
   }
 }
 
-template <typename T>
+template <typename T, int kMaxK>
 int launch(const Params& p, int BH, cudaStream_t st) {
-  const int bytes = static_cast<int>(smem_bytes<T>());
+  const int bytes = static_cast<int>(smem_bytes<T, kMaxK>());
   // the most shared memory an SM can give, so that two CTAs fit
   cudaError_t e = cudaFuncSetAttribute(
-      chunk_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      chunk_scan_kernel<T, kMaxK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(chunk_scan_kernel<T>,
+    e = cudaFuncSetAttribute(chunk_scan_kernel<T, kMaxK>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              100);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n = BH * p.nc * ((p.V + kVT - 1) / kVT);
-  chunk_scan_kernel<T><<<n, kThreads, bytes, st>>>(p);
+  chunk_scan_kernel<T, kMaxK><<<n, kThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The steps a sub-block holds at K channels (the kernel the launcher
+// picks for K); 0 where K is out of range
+int sub_steps(int dtype, int K) {
+  const bool bf16 = dtype == 1;
+  if (K <= 0 || K > 256) return 0;
+  if (K <= 64) return max_steps<float, 64>();
+  if (K <= 128)
+    return bf16 ? max_steps<__nv_bfloat16, 128>() : max_steps<float, 128>();
+  return bf16 ? max_steps<__nv_bfloat16, 256>() : max_steps<float, 256>();
+}
+
+template <typename T>
+int launch_k(const Params& p, int BH, cudaStream_t st) {
+  if (p.K <= 64) return launch<T, 64>(p, BH, st);
+  if (p.K <= 128) return launch<T, 128>(p, BH, st);
+  return launch<T, 256>(p, BH, st);
 }
 
 }  // namespace
 
 extern "C" {
+
+// The steps of one sub-block at K channels in `dtype` (0: f32, 1: bf16):
+// a chunk longer than this runs as sub-blocks of it, in order (the last
+// one shorter); 0 for a K out of 1..256.
+int chunk_scan_sub_steps(int dtype, int K) { return sub_steps(dtype, K); }
 
 // r, k, ld (B, T, H, K) and v (B, T, H, V) with 16 element strides in
 // `strides` (batch, time, head, channel of r, k, v, ld; ld's channel
@@ -619,21 +771,25 @@ extern "C" {
 // bf16), ld f32 as the model gives it (clamped here).  s0 (B, H, K, V)
 // f32, u (H, K) f32 (read only when !include_current), y (B, T, H, V) in
 // the dtype and s_fin (B, H, K, V) f32, all contiguous on the current
-// device; work (B H, T / Lc, K, V) f32 scratch and sync (1 + B H T / Lc
-// ceil(V / 64) int32) zeroed.  Needs 0 < K <= 64, K and V multiples of 4,
-// 0 < Lc <= 128, T % Lc == 0.  Launches on `stream` and returns the
-// launch's cudaError_t (0 on success); it does not synchronise.
+// device.  Chunks of Lc steps (T % Lc == 0) run as sub-blocks of `sub`
+// steps (0 < sub <= chunk_scan_sub_steps(dtype, K), the last one of a
+// chunk shorter): nc = T / Lc * ceil(Lc / sub) of them.  work (B H, nc, K,
+// V) f32 scratch and sync (1 + B H nc ceil(V / 64) int32) zeroed.  Needs
+// 0 < K <= 256, V > 0.  Launches on `stream` and returns the launch's
+// cudaError_t (0 on success); it does not synchronise.
 int chunk_scan_launch(const void* r, const void* k, const void* v,
                       const void* ld, const void* s0, const void* u,
                       void* y, void* sfin, void* work, void* sync, int dtype,
-                      int B, int T, int H, int K, int V, int Lc,
+                      int B, int T, int H, int K, int V, int Lc, int sub,
                       int include_current, const long long* strides,
                       void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || K <= 0 || K > kMaxK || K % 4 != 0 ||
-      V <= 0 || V % 4 != 0 || Lc <= 0 || Lc > kMaxL || T % Lc != 0 ||
-      (!include_current && u == nullptr) ||
-      static_cast<long long>(B) * H * (T / Lc) * ((V + kVT - 1) / kVT) >
-          2147483647LL)
+  if (B <= 0 || T <= 0 || H <= 0 || K <= 0 || V <= 0 || Lc <= 0 ||
+      T % Lc != 0 || sub <= 0 || sub > sub_steps(dtype, K) ||
+      (!include_current && u == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nsub = (Lc + sub - 1) / sub;
+  if (static_cast<long long>(B) * H * (T / Lc) * nsub *
+          ((V + kVT - 1) / kVT) > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.r = r;
@@ -651,8 +807,11 @@ int chunk_scan_launch(const void* r, const void* k, const void* v,
   p.K = K;
   p.V = V;
   p.Lc = Lc;
-  p.nc = T / Lc;
+  p.sub = sub;
+  p.nsub = nsub;
+  p.nc = T / Lc * nsub;
   p.include_current = include_current;
+  p.vpair = V % 2 == 0;
   for (int i = 0; i < 4; ++i) {
     p.rs[i] = strides[i];
     p.ks[i] = strides[4 + i];
@@ -671,11 +830,11 @@ int chunk_scan_launch(const void* r, const void* k, const void* v,
     p.vec = K % E == 0 && V % E == 0 && al(r) && al(k) && al(v) &&
             rows16(strides, E) && rows16(strides + 4, E) &&
             rows16(strides + 8, E);
-    p.ld_vec = al(ld) && rows16(strides + 12, 4);
+    p.ld_vec = K % 4 == 0 && al(ld) && rows16(strides + 12, 4);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, B * H, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, B * H, st);
+  if (dtype == 0) return launch_k<float>(p, B * H, st);
+  if (dtype == 1) return launch_k<__nv_bfloat16>(p, B * H, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

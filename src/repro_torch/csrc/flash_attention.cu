@@ -67,16 +67,29 @@
 //   does).  P is split into its A fragments only after the wait for the
 //   P V that read the last ones.
 //
-// bf16, hd 32: flash_bf16_kernel, mma.sync.m16n8k16 with 4 warps of 16
-// rows each, K and V staged by cp.async (see its note).
+// bf16 at every other head dim up to 256, and at hd 64, 80 and 128 where
+// TMA cannot map q, k or v (byte strides or a base that are not multiples
+// of 16) or B * H passes grid.y's 65,535: flash_bf16_kernel,
+// mma.sync.m16n8k16 with 4 warps of 16 rows each, K and V staged by
+// cp.async (see its note), instantiated at tile widths 32, 64, 96, 128,
+// 160, 192 and 256.
 //
-// f32 (tests and model-level parity), every hd: flash_f32_kernel, full
-// f32 on the FMA units, never TF32: a CTA of 128 threads owns 32 query
-// rows, four threads to a row, each computing 4 of every 16 keys' scores
-// and a quarter of the row's output dims.  It is there to be exact, not
-// fast.
+// f32 (tests and model-level parity), every hd up to 256: flash_f32_kernel,
+// full f32 on the FMA units, never TF32: a CTA of 128 threads owns 32
+// query rows, four threads to a row, each computing 4 of every 16 keys'
+// scores and a quarter of the row's output dims.  It is there to be
+// exact, not fast.  Tile widths 32, 64, 80, 96, 128, 160, 192 and 256.
 //
-// Instantiated for hd in {32, 64, 80, 128}; anything else is refused.
+// Any head dim from 1 to 256 runs on the smallest tile that holds it: the
+// columns past hd are zero in shared memory, so they add nothing to q.k or
+// to P.V, only hd columns are stored, and the scale is the wrapper's
+// 1/sqrt(hd).  Rows that are not 16-byte aligned (a head dim or a stride
+// that is not a multiple of 16 bytes, or a base that is not aligned) take
+// element loads.  Above 256 the tiles pass shared memory and the
+// accumulators the registers: the launcher refuses them.  B * H above
+// 65,535 strides through grid.y inside the mma.sync and f32 kernels (the
+// wgmma kernel's grid keeps one (batch, head) a row of CTAs; the wrapper
+// sends such a B * H to flash_bf16_kernel).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,6 +99,8 @@ namespace {
 
 constexpr float kNegInf = -1e30f;   // the TPU kernel's finite mask value
 constexpr int kThreads = 128;
+constexpr int kMaxHeadDim = 256;    // the widest tile (shared memory)
+constexpr int kMaxGridY = 65535;    // grid.y's extent
 
 struct Params {
   const void* q;
@@ -93,6 +108,10 @@ struct Params {
   const void* v;
   void* o;
   int Sq, Sk, H, rep;                 // rep = H / KV
+  int BH;                             // B * H: grid.y strides over it
+  int hd;                             // the true head dim (<= the tile's)
+  int vec;                            // 16-byte loads of q, k and v
+  int opair;                          // out's rows take bf16 pair stores
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;   // strides
   int causal, window;
   float scale;
@@ -117,23 +136,34 @@ __device__ __forceinline__ bool allowed(const Params& p, int qpos,
   return ok;
 }
 
-// Copies rows [row0, row0 + ROWS) of a (nrows, HD) f32 matrix with row
-// stride `stride` (elements) into shared memory with row stride LD; rows
-// at or past `nrows` are zero (masked keys must not carry NaN from past
-// the end).  16-byte loads: the wrapper checks the alignment.
+// Copies rows [row0, row0 + ROWS) and columns [0, hd) of an (nrows, hd)
+// f32 matrix with row stride `stride` (elements) into shared memory with
+// row stride LD; rows at or past `nrows` and columns hd..HD are zero (masked
+// keys must not carry NaN from past the end, and the padded columns add
+// nothing to q.k or to P.V).  vec: 16-byte loads (hd a multiple of 4,
+// 16-byte aligned rows); else one element a thread at a time.
 template <int HD, int LD, int ROWS>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               long long stride, int row0,
-                                              int nrows) {
-  constexpr int kChunks = HD / 4;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    const int row = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < nrows)
-      val = __ldg(reinterpret_cast<const float4*>(src + row * stride +
-                                                  c * 4));
-    *reinterpret_cast<float4*>(dst + r * LD + c * 4) = val;
+                                              int nrows, int hd, bool vec) {
+  if (vec) {
+    constexpr int kChunks = HD / 4;
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i - r * kChunks;
+      const int row = row0 + r;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < nrows && c * 4 < hd)
+        val = __ldg(reinterpret_cast<const float4*>(src + row * stride +
+                                                    c * 4));
+      *reinterpret_cast<float4*>(dst + r * LD + c * 4) = val;
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * HD; i += kThreads) {
+      const int r = i / HD, c = i - r * HD;
+      const int row = row0 + r;
+      dst[r * LD + c] = row < nrows && c < hd ? __ldg(src + row * stride + c)
+                                              : 0.f;
+    }
   }
 }
 
@@ -148,7 +178,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, hd 32: tensor cores through mma.sync.m16n8k16
+// bf16 off the wgmma kernel: tensor cores through mma.sync.m16n8k16
 //
 // A CTA of 4 warps owns 64 query rows of one (batch, head), 16 rows a
 // warp, and walks its key range 64 keys at a time: S = Q K^T with Q held
@@ -157,6 +187,14 @@ __device__ __forceinline__ float quad_sum(float x) {
 // in shared memory by cp.async, rows padded by 16 bytes so that each 8-row
 // ldmatrix phase hits 32 distinct banks; V of this block lands while
 // S = Q K^T runs, K of the next block while O += P V runs.
+//
+// HD is the tile's width, a multiple of 32 (two k-steps an ldmatrix.x4);
+// a head dim hd below it is zero-filled to HD in shared memory and only
+// its hd columns are stored.  Above 160 columns Q's fragments would not
+// fit beside O's accumulator (HD / 2 floats a thread): Q stays in shared
+// memory and each k-step reads its fragment there (kQSmem).  The tiles
+// are dynamic shared memory: 64 (HD + 8) bf16 each for K and V, and for
+// Q when kQSmem (101 KB at HD 256).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -225,22 +263,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Starts the copy of rows [row0, row0 + ROWS) of a (nrows, HD) bf16
-// matrix with row stride `stride` into shared memory with row stride LD;
-// rows at or past `nrows` are zero-filled (masked keys must not carry NaN
-// from past the end).
+// Starts the copy of rows [row0, row0 + ROWS) and columns [0, hd) of an
+// (nrows, hd) bf16 matrix with row stride `stride` into shared memory with
+// row stride LD; rows at or past `nrows` and columns hd..HD are zero-filled
+// (masked keys must not carry NaN from past the end; the padded columns
+// add nothing to q.k or P.V).  vec: cp.async in 16-byte pieces (hd a
+// multiple of 8, 16-byte aligned rows); else element loads and stores,
+// synchronous, which the barriers that follow every copy order as they
+// order cp.async's.
 template <int HD, int LD, int ROWS>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
                                                 const __nv_bfloat16* src,
                                                 long long stride, int row0,
-                                                int nrows) {
-  constexpr int kChunks = HD / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    const int row = row0 + r;
-    const bool valid = row < nrows;
-    cp_async16(dst + r * LD + c * 8,
-               src + (valid ? row : 0) * stride + c * 8, valid);
+                                                int nrows, int hd, bool vec) {
+  if (vec) {
+    constexpr int kChunks = HD / 8;
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i - r * kChunks;
+      const int row = row0 + r;
+      const bool valid = row < nrows && c * 8 < hd;
+      cp_async16(dst + r * LD + c * 8,
+                 src + (valid ? row : 0) * stride + (valid ? c * 8 : 0),
+                 valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * HD; i += kThreads) {
+      const int r = i / HD, c = i - r * HD;
+      const int row = row0 + r;
+      dst[r * LD + c] = row < nrows && c < hd ? src[row * stride + c]
+                                              : __float2bfloat16(0.f);
+    }
   }
 }
 
@@ -252,171 +304,222 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Three CTAs an SM: a cap of 168 registers a thread.
-constexpr int kMinBlocksBf16 = 3;
-
+// Three CTAs an SM up to HD 64: a cap of 168 registers a thread; two at 96
+// and 128, where Q's fragments and O's accumulator need more; above, one
+// (O's accumulator alone is HD / 2 registers).
 template <int HD>
-__global__ void __launch_bounds__(kThreads, kMinBlocksBf16)
+struct Bf16Tile {
+  static constexpr int BQ = 64, BK = 64, LD = HD + 8;
+  static constexpr bool kQSmem = HD > 160;
+  static constexpr int kMinBlocks = HD <= 64 ? 3 : HD <= 128 ? 2 : 1;
+  static constexpr int kBytes = ((kQSmem ? BQ : 0) + 2 * BK) * LD * 2;
+};
+
+// The query tiles of (batch, head) blockIdx.y, then of blockIdx.y +
+// gridDim.y, ...: B * H above grid.y's 65,535 strides through the grid,
+// and every head keeps the heaviest-first order of its tiles on grid.x.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, Bf16Tile<HD>::kMinBlocks)
     flash_bf16_kernel(Params p) {
-  constexpr int BQ = 64, BK = 64, LD = HD + 8;
+  using Tl = Bf16Tile<HD>;
+  constexpr int BQ = Tl::BQ, BK = Tl::BK, LD = Tl::LD;
+  constexpr bool kQSmem = Tl::kQSmem;
   constexpr int KSTEPS = HD / 16;     // k-steps of S = Q K^T
   constexpr int NT_S = BK / 8;        // n-tiles of S
   constexpr int NT_O = HD / 8;        // n-tiles of O
-  __shared__ __align__(16) __nv_bfloat16 Ks[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BK * LD];
+  static_assert(HD % 32 == 0, "two k-steps an ldmatrix.x4");
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(flash_smem);
+  __nv_bfloat16* Vs = Ks + BK * LD;
+  __nv_bfloat16* Qs = kQSmem ? Vs + BK * LD : Vs;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int lm = lane >> 3, lr = lane & 7;     // ldmatrix: matrix, row
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest first
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H, kvh = h / p.rep;
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.qb + h * p.qh;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.kb + kvh * p.kh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.vb + kvh * p.vh;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.ob + h * p.oh;
-
-  int lo, hi;
-  key_range(p, q0, BQ, BK, &lo, &hi);
+  const int hd = p.hd;
+  const bool vec = p.vec;
   const float scl = p.scale * 1.4426950408889634f;   // scores in log2 units
-
-  // Q through the V buffer, K's first tile into the K buffer
-  load_tile_async<HD, LD, BQ>(Vs, qg, p.qs, q0, p.Sq);
-  cp_async_commit();
-  if (lo < hi) load_tile_async<HD, LD, BK>(Ks, kg, p.ks, lo, p.Sk);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kt = 0; kt < KSTEPS; ++kt)
-    ldsm_x4<false>(qf[kt], Vs + (warp * 16 + (lm & 1) * 8 + lr) * LD +
-                               kt * 16 + (lm >> 1) * 8);
-
   const int r0 = warp * 16 + g;
   const int qpos[2] = {q0 + r0, q0 + r0 + 8};
-  float o[NT_O][4];
-#pragma unroll
-  for (int d = 0; d < NT_O; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  int lo, hi;
+  key_range(p, q0, BQ, BK, &lo, &hi);
 
-  for (int k0 = lo; k0 < hi; k0 += BK) {
-    cp_async_wait<0>();   // this block's K tile has landed
-    __syncthreads();      // ... for every thread; V (and Q) reads are done
-    load_tile_async<HD, LD, BK>(Vs, vg, p.vs, k0, p.Sk);
+  for (int bh = blockIdx.y; bh < p.BH; bh += gridDim.y) {
+    const int b = bh / p.H, h = bh % p.H, kvh = h / p.rep;
+    const __nv_bfloat16* qg =
+        static_cast<const __nv_bfloat16*>(p.q) + b * p.qb + h * p.qh;
+    const __nv_bfloat16* kg =
+        static_cast<const __nv_bfloat16*>(p.k) + b * p.kb + kvh * p.kh;
+    const __nv_bfloat16* vg =
+        static_cast<const __nv_bfloat16*>(p.v) + b * p.vb + kvh * p.vh;
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.ob + h * p.oh;
+
+    // Q through the V buffer (its own when kQSmem), K's first tile into the
+    // K buffer
+    load_tile_async<HD, LD, BQ>(Qs, qg, p.qs, q0, p.Sq, hd, vec);
     cp_async_commit();
-
-    // S = Q K^T while V lands
-    float s[NT_S][4];
+    if (lo < hi) load_tile_async<HD, LD, BK>(Ks, kg, p.ks, lo, p.Sk, hd, vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    // Q's A fragment of k-step kt: from registers, or read from Qs
+    uint32_t qf[kQSmem ? 1 : KSTEPS][4];
+    const auto q_frag = [&](uint32_t (&f)[4], int kt) {
+      ldsm_x4<false>(f, Qs + (warp * 16 + (lm & 1) * 8 + lr) * LD + kt * 16 +
+                            (lm >> 1) * 8);
+    };
+    if constexpr (!kQSmem) {
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int kt = 0; kt < KSTEPS; kt += 2) {
-        uint32_t kf[4];   // b0, b1 of k-step kt, then of kt + 1
-        ldsm_x4<false>(kf, Ks + (j * 8 + lr) * LD + kt * 16 + lm * 8);
-        mma_bf16(s[j], qf[kt], kf[0], kf[1]);
-        mma_bf16(s[j], qf[kt + 1], kf[2], kf[3]);
-      }
+      for (int kt = 0; kt < KSTEPS; ++kt) q_frag(qf[kt], kt);
     }
 
-    // scale, mask, running max
-    float mx[2] = {m[0], m[1]};
-    // a block that no mask touches (most of a causal prefill) skips the
-    // per-element mask test
-    const bool whole = k0 + BK <= p.Sk && (!p.causal || k0 + BK <= q0 + 1) &&
-                       (!p.window || q0 + BQ - 1 - k0 < p.window);
-    if (whole) {
+    float o[NT_O][4];
+#pragma unroll
+    for (int d = 0; d < NT_O; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    for (int k0 = lo; k0 < hi; k0 += BK) {
+      cp_async_wait<0>();   // this block's K tile has landed
+      __syncthreads();      // ... for every thread; V (and Q) reads are done
+      load_tile_async<HD, LD, BK>(Vs, vg, p.vs, k0, p.Sk, hd, vec);
+      cp_async_commit();
+
+      // S = Q K^T while V lands
+      float s[NT_S][4];
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      if constexpr (kQSmem) {
+#pragma unroll
+        for (int kt = 0; kt < KSTEPS; kt += 2) {
+          uint32_t qa[4], qb[4];
+          q_frag(qa, kt);
+          q_frag(qb, kt + 1);
+#pragma unroll
+          for (int j = 0; j < NT_S; ++j) {
+            uint32_t kf[4];   // b0, b1 of k-step kt, then of kt + 1
+            ldsm_x4<false>(kf, Ks + (j * 8 + lr) * LD + kt * 16 + lm * 8);
+            mma_bf16(s[j], qa, kf[0], kf[1]);
+            mma_bf16(s[j], qb, kf[2], kf[3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+          for (int kt = 0; kt < KSTEPS; kt += 2) {
+            uint32_t kf[4];   // b0, b1 of k-step kt, then of kt + 1
+            ldsm_x4<false>(kf, Ks + (j * 8 + lr) * LD + kt * 16 + lm * 8);
+            mma_bf16(s[j], qf[kt], kf[0], kf[1]);
+            mma_bf16(s[j], qf[kt + 1], kf[2], kf[3]);
+          }
+        }
+      }
+
+      // scale, mask, running max
+      float mx[2] = {m[0], m[1]};
+      // a block that no mask touches (most of a causal prefill) skips the
+      // per-element mask test
+      const bool whole = k0 + BK <= p.Sk && (!p.causal || k0 + BK <= q0 + 1) &&
+                         (!p.window || q0 + BQ - 1 - k0 < p.window);
+      if (whole) {
+#pragma unroll
+        for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[j][c] *= scl;
+            mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int kpos = k0 + j * 8 + 2 * t + (c & 1);
+            const float x = allowed(p, qpos[c >> 1], kpos) ? s[j][c] * scl
+                                                           : kNegInf;
+            s[j][c] = x;
+            mx[c >> 1] = fmaxf(mx[c >> 1], x);
+          }
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = quad_max(mx[i]);
+        corr[i] = exp2_approx(m[i] - mx[i]);
+        m[i] = mx[i];
+      }
+      float rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < NT_S; ++j) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          s[j][c] *= scl;
-          mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+          const float e = exp2_approx(s[j][c] - m[c >> 1]);
+          s[j][c] = e;
+          rs[c >> 1] += e;
         }
       }
-    } else {
 #pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int kpos = k0 + j * 8 + 2 * t + (c & 1);
-          const float x = allowed(p, qpos[c >> 1], kpos) ? s[j][c] * scl
-                                                         : kNegInf;
-          s[j][c] = x;
-          mx[c >> 1] = fmaxf(mx[c >> 1], x);
+      for (int d = 0; d < NT_O; ++d) {
+        o[d][0] *= corr[0];
+        o[d][1] *= corr[0];
+        o[d][2] *= corr[1];
+        o[d][3] *= corr[1];
+      }
+
+      cp_async_wait<0>();   // V has landed
+      __syncthreads();      // ... for every thread; K reads are done
+      if (k0 + BK < hi) {
+        load_tile_async<HD, LD, BK>(Ks, kg, p.ks, k0 + BK, p.Sk, hd, vec);
+        cp_async_commit();
+      }
+
+      // O += P V while the next K lands: S's accumulator tiles 2kt and
+      // 2kt + 1 are P's A fragment, as hi and lo bf16 halves
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt) {
+        uint32_t a[4], a_lo[4];
+        split_bf16(s[2 * kt][0], s[2 * kt][1], &a[0], &a_lo[0]);
+        split_bf16(s[2 * kt][2], s[2 * kt][3], &a[1], &a_lo[1]);
+        split_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1], &a[2], &a_lo[2]);
+        split_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3], &a[3], &a_lo[3]);
+#pragma unroll
+        for (int d = 0; d < NT_O; d += 2) {
+          uint32_t vf[4];   // b0, b1 of n-tile d, then of d + 1
+          ldsm_x4<true>(vf, Vs + (kt * 16 + (lm & 1) * 8 + lr) * LD +
+                                (d + (lm >> 1)) * 8);
+          mma_bf16(o[d], a, vf[0], vf[1]);
+          mma_bf16(o[d], a_lo, vf[0], vf[1]);
+          mma_bf16(o[d + 1], a, vf[2], vf[3]);
+          mma_bf16(o[d + 1], a_lo, vf[2], vf[3]);
         }
       }
     }
-    float corr[2];
+
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      corr[i] = exp2_approx(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-    float rs[2] = {0.f, 0.f};
+      const float denom = fmaxf(quad_sum(l[i]), 1e-30f);
+      if (qpos[i] >= p.Sq) continue;
+      __nv_bfloat16* orow = og + qpos[i] * p.os;
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float e = exp2_approx(s[j][c] - m[c >> 1]);
-        s[j][c] = e;
-        rs[c >> 1] += e;
+      for (int d = 0; d < NT_O; ++d) {
+        const int col = d * 8 + 2 * t;
+        const float x0 = o[d][2 * i] / denom, x1 = o[d][2 * i + 1] / denom;
+        if (p.opair && col + 1 < hd) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (col < hd) orow[col] = __float2bfloat16(x0);
+          if (col + 1 < hd) orow[col + 1] = __float2bfloat16(x1);
+        }
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
-#pragma unroll
-    for (int d = 0; d < NT_O; ++d) {
-      o[d][0] *= corr[0];
-      o[d][1] *= corr[0];
-      o[d][2] *= corr[1];
-      o[d][3] *= corr[1];
-    }
-
-    cp_async_wait<0>();   // V has landed
-    __syncthreads();      // ... for every thread; K reads are done
-    if (k0 + BK < hi) {
-      load_tile_async<HD, LD, BK>(Ks, kg, p.ks, k0 + BK, p.Sk);
-      cp_async_commit();
-    }
-
-    // O += P V while the next K lands: S's accumulator tiles 2kt and
-    // 2kt + 1 are P's A fragment, as hi and lo bf16 halves
-#pragma unroll
-    for (int kt = 0; kt < BK / 16; ++kt) {
-      uint32_t a[4], a_lo[4];
-      split_bf16(s[2 * kt][0], s[2 * kt][1], &a[0], &a_lo[0]);
-      split_bf16(s[2 * kt][2], s[2 * kt][3], &a[1], &a_lo[1]);
-      split_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1], &a[2], &a_lo[2]);
-      split_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3], &a[3], &a_lo[3]);
-#pragma unroll
-      for (int d = 0; d < NT_O; d += 2) {
-        uint32_t vf[4];   // b0, b1 of n-tile d, then of d + 1
-        ldsm_x4<true>(vf, Vs + (kt * 16 + (lm & 1) * 8 + lr) * LD +
-                              (d + (lm >> 1)) * 8);
-        mma_bf16(o[d], a, vf[0], vf[1]);
-        mma_bf16(o[d], a_lo, vf[0], vf[1]);
-        mma_bf16(o[d + 1], a, vf[2], vf[3]);
-        mma_bf16(o[d + 1], a_lo, vf[2], vf[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float denom = fmaxf(quad_sum(l[i]), 1e-30f);
-    if (qpos[i] >= p.Sq) continue;
-    __nv_bfloat16* orow = og + qpos[i] * p.os + 2 * t;
-#pragma unroll
-    for (int d = 0; d < NT_O; ++d) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + d * 8) =
-          __floats2bfloat162_rn(o[d][2 * i] / denom, o[d][2 * i + 1] / denom);
-    }
+    __syncthreads();        // every read of Q, K and V before the next head
   }
 }
 
@@ -960,80 +1063,101 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // ---------------------------------------------------------------------------
 
 template <int HD>
+struct F32Tile {
+  static constexpr int BQ = 32, BK = 16, LD = HD + 4, LDP = BK + 1;
+  static constexpr int kBytes = ((BQ + 2 * BK) * LD + BQ * LDP) * 4;
+};
+
+// HD is the tile's width; a head dim hd below it is zero-filled in shared
+// memory and only its hd columns are stored.  The tiles are dynamic
+// shared memory (67 KB at HD 256).  B * H strides through grid.y as in
+// flash_bf16_kernel.
+template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
-  constexpr int BQ = 32, BK = 16, LD = HD + 4, LDP = BK + 1;
+  using Tl = F32Tile<HD>;
+  constexpr int BQ = Tl::BQ, BK = Tl::BK, LD = Tl::LD, LDP = Tl::LDP;
   constexpr int NS = BK / 4;          // scores per thread per key block
   constexpr int ND = HD / 4;          // output dims per thread
-  __shared__ __align__(16) float Qs[BQ * LD];
-  __shared__ __align__(16) float Ks[BK * LD];
-  __shared__ __align__(16) float Vs[BK * LD];
-  __shared__ float Ps[BQ * LDP];
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  float* Qs = reinterpret_cast<float*>(flash_smem);
+  float* Ks = Qs + BQ * LD;
+  float* Vs = Ks + BK * LD;
+  float* Ps = Vs + BK * LD;
 
   const int r = threadIdx.x >> 2, u = threadIdx.x & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H, kvh = h / p.rep;
-  const float* qg = static_cast<const float*>(p.q) + b * p.qb + h * p.qh;
-  const float* kg = static_cast<const float*>(p.k) + b * p.kb + kvh * p.kh;
-  const float* vg = static_cast<const float*>(p.v) + b * p.vb + kvh * p.vh;
-  float* og = static_cast<float*>(p.o) + b * p.ob + h * p.oh;
-
-  load_tile_f32<HD, LD, BQ>(Qs, qg, p.qs, q0, p.Sq);
+  const int hd = p.hd;
+  const bool vec = p.vec;
   const int qpos = q0 + r;
-  float acc[ND];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) acc[i] = 0.f;
-  float m = kNegInf, l = 0.f;
-
   int lo, hi;
   key_range(p, q0, BQ, BK, &lo, &hi);
-  for (int k0 = lo; k0 < hi; k0 += BK) {
-    __syncthreads();   // every thread is done with the last K/V tiles
-    load_tile_f32<HD, LD, BK>(Ks, kg, p.ks, k0, p.Sk);
-    load_tile_f32<HD, LD, BK>(Vs, vg, p.vs, k0, p.Sk);
-    __syncthreads();
 
-    float s[NS];
+  for (int bh = blockIdx.y; bh < p.BH; bh += gridDim.y) {
+    const int b = bh / p.H, h = bh % p.H, kvh = h / p.rep;
+    const float* qg = static_cast<const float*>(p.q) + b * p.qb + h * p.qh;
+    const float* kg = static_cast<const float*>(p.k) + b * p.kb + kvh * p.kh;
+    const float* vg = static_cast<const float*>(p.v) + b * p.vb + kvh * p.vh;
+    float* og = static_cast<float*>(p.o) + b * p.ob + h * p.oh;
+
+    load_tile_f32<HD, LD, BQ>(Qs, qg, p.qs, q0, p.Sq, hd, vec);
+    float acc[ND];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) s[j] = 0.f;
-    for (int d = 0; d < HD; ++d) {
-      const float qv = Qs[r * LD + d];
+    for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+    float m = kNegInf, l = 0.f;
+
+    for (int k0 = lo; k0 < hi; k0 += BK) {
+      __syncthreads();   // every thread is done with the last K/V tiles
+      load_tile_f32<HD, LD, BK>(Ks, kg, p.ks, k0, p.Sk, hd, vec);
+      load_tile_f32<HD, LD, BK>(Vs, vg, p.vs, k0, p.Sk, hd, vec);
+      __syncthreads();
+
+      float s[NS];
 #pragma unroll
-      for (int j = 0; j < NS; ++j) s[j] = fmaf(qv, Ks[(u + 4 * j) * LD + d], s[j]);
+      for (int j = 0; j < NS; ++j) s[j] = 0.f;
+      for (int d = 0; d < HD; ++d) {
+        const float qv = Qs[r * LD + d];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          s[j] = fmaf(qv, Ks[(u + 4 * j) * LD + d], s[j]);
+      }
+      float mx = m;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[j] = allowed(p, qpos, k0 + u + 4 * j) ? s[j] * p.scale : kNegInf;
+        mx = fmaxf(mx, s[j]);
+      }
+      mx = quad_max(mx);
+      const float corr = expf(m - mx);
+      m = mx;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float e = expf(s[j] - m);
+        Ps[r * LDP + u + 4 * j] = e;
+        rs += e;
+      }
+      l = l * corr + rs;
+      __syncwarp();      // the row's four threads share its probabilities
+#pragma unroll
+      for (int i = 0; i < ND; ++i) acc[i] *= corr;
+      for (int kk = 0; kk < BK; ++kk) {
+        const float pk = Ps[r * LDP + kk];
+#pragma unroll
+        for (int i = 0; i < ND; ++i)
+          acc[i] = fmaf(pk, Vs[kk * LD + u + 4 * i], acc[i]);
+      }
+      __syncwarp();      // read before the next block overwrites them
     }
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j] = allowed(p, qpos, k0 + u + 4 * j) ? s[j] * p.scale : kNegInf;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = quad_max(mx);
-    const float corr = expf(m - mx);
-    m = mx;
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const float e = expf(s[j] - m);
-      Ps[r * LDP + u + 4 * j] = e;
-      rs += e;
-    }
-    l = l * corr + rs;
-    __syncwarp();      // the row's four threads share its probabilities
-#pragma unroll
-    for (int i = 0; i < ND; ++i) acc[i] *= corr;
-    for (int kk = 0; kk < BK; ++kk) {
-      const float pk = Ps[r * LDP + kk];
+
+    const float denom = fmaxf(quad_sum(l), 1e-30f);
+    if (qpos < p.Sq) {
+      float* orow = og + qpos * p.os;
 #pragma unroll
       for (int i = 0; i < ND; ++i)
-        acc[i] = fmaf(pk, Vs[kk * LD + u + 4 * i], acc[i]);
+        if (u + 4 * i < hd) orow[u + 4 * i] = acc[i] / denom;
     }
-    __syncwarp();      // read before the next block overwrites them
+    __syncthreads();     // every read of Q, K and V before the next head
   }
-
-  const float denom = fmaxf(quad_sum(l), 1e-30f);
-  if (qpos >= p.Sq) return;
-  float* orow = og + qpos * p.os;
-#pragma unroll
-  for (int i = 0; i < ND; ++i) orow[u + 4 * i] = acc[i] / denom;
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime, so
@@ -1114,27 +1238,59 @@ int launch_wgmma(const Params& p, const long long* tma, int B,
   return 0;
 }
 
+// One launch of a kernel whose tiles are dynamic shared memory: the
+// attribute is set when they pass the 48 KB a launch gets without it.
+template <typename Kernel>
+int launch_smem(Kernel kernel, dim3 grid, int bytes, const Params& p,
+                cudaStream_t st) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, kThreads, bytes, st>>>(p);
+  return 0;
+}
+
+template <int HD>
+int launch_bf16(const Params& p, int gy, cudaStream_t st) {
+  using Tl = Bf16Tile<HD>;
+  return launch_smem(flash_bf16_kernel<HD>,
+                     dim3((p.Sq + Tl::BQ - 1) / Tl::BQ, gy), Tl::kBytes, p,
+                     st);
+}
+
+template <int HD>
+int launch_f32(const Params& p, int gy, cudaStream_t st) {
+  using Tl = F32Tile<HD>;
+  return launch_smem(flash_f32_kernel<HD>,
+                     dim3((p.Sq + Tl::BQ - 1) / Tl::BQ, gy), Tl::kBytes, p,
+                     st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // q (B, Sq, H, hd), k and v (B, Sk, KV, hd), out (B, Sq, H, hd), all of one
-// dtype (0: f32, 1: bf16) on the current device, head dim contiguous and
-// rows 16-byte aligned.  `strides` holds 12 element strides: batch,
-// sequence and head of q, k, v and out.  `tma` (bf16 at hd 64, 80, 128,
-// else unread) holds the tensor maps of q, k and v, 11 numbers each: dims
-// (hd, S, heads, B), byte strides of S, heads and B, box (box_cols(hd),
-// rows, 1, 1) with 64 rows for q and 128 keys for k and v.  Launches on
-// `stream` and returns the launch's cudaError_t (0 on success), or a
-// tensor-map error (see flash_attention_error_string); it does not
-// synchronise.
+// dtype (0: f32, 1: bf16) on the current device, head dim contiguous, 1 <=
+// hd <= 256.  `strides` holds 12 element strides: batch, sequence and head
+// of q, k, v and out.  `tma` (bf16 at hd 64, 80, 128 with B * H <= 65,535
+// and views TMA can map, else null) holds the tensor maps of q, k and v,
+// 11 numbers each: dims (hd, S, heads, B), byte strides of S, heads and B,
+// box (box_cols(hd), rows, 1, 1) with 64 rows for q and 128 keys for k and
+// v.  Launches on `stream` and returns the launch's cudaError_t (0 on
+// success), or a tensor-map error (see flash_attention_error_string); it
+// does not synchronise.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int dtype, int B, int Sq, int Sk,
                            int H, int KV, int hd, const long long* strides,
                            const long long* tma, int causal, int window,
                            float scale, void* stream) {
+  const long long BH = static_cast<long long>(B) * H;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      window < 0 || static_cast<long long>(B) * H > 65535)
+      window < 0 || hd < 1 || hd > kMaxHeadDim || BH > 2147483647LL ||
+      (tma != nullptr && BH > kMaxGridY))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -1145,6 +1301,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.Sk = Sk;
   p.H = H;
   p.rep = H / KV;
+  p.BH = static_cast<int>(BH);
+  p.hd = hd;
   p.qb = strides[0]; p.qs = strides[1]; p.qh = strides[2];
   p.kb = strides[3]; p.ks = strides[4]; p.kh = strides[5];
   p.vb = strides[6]; p.vs = strides[7]; p.vh = strides[8];
@@ -1152,32 +1310,50 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.window = window;
   p.scale = scale;
+  {   // 16-byte loads: hd and the strides in 16-byte pieces, aligned bases
+    const int e = dtype == 1 ? 8 : 4;
+    const auto al = [](const void* x, int n) {
+      return reinterpret_cast<uintptr_t>(x) % n == 0;
+    };
+    bool vec = hd % e == 0 && al(q, 16) && al(k, 16) && al(v, 16);
+    for (int i = 0; i < 9; ++i) vec = vec && strides[i] % e == 0;
+    p.vec = vec;
+    bool pair = al(out, 4);
+    for (int i = 9; i < 12; ++i) pair = pair && strides[i] % 2 == 0;
+    p.opair = pair;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the only dispatch: by dtype and head dim
-  if (dtype == 1) {
-    const dim3 grid((Sq + 63) / 64, B * H);
-    const int bad = static_cast<int>(cudaErrorInvalidValue);
-    int rc = 0;
+  const int gy = static_cast<int>(BH < kMaxGridY ? BH : kMaxGridY);
+  // the only dispatch: by dtype, head dim and whether TMA can map q, k, v
+  int rc;
+  if (dtype == 1 && tma != nullptr) {
     switch (hd) {
-      case 32: flash_bf16_kernel<32><<<grid, kThreads, 0, st>>>(p); break;
-      case 64: rc = tma ? launch_wgmma<64>(p, tma, B, st) : bad; break;
-      case 80: rc = tma ? launch_wgmma<80>(p, tma, B, st) : bad; break;
-      case 128: rc = tma ? launch_wgmma<128>(p, tma, B, st) : bad; break;
+      case 64: rc = launch_wgmma<64>(p, tma, B, st); break;
+      case 80: rc = launch_wgmma<80>(p, tma, B, st); break;
+      case 128: rc = launch_wgmma<128>(p, tma, B, st); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (rc != 0) return rc;
+  } else if (dtype == 1) {      // the smallest tile that holds hd
+    rc = hd <= 32    ? launch_bf16<32>(p, gy, st)
+         : hd <= 64  ? launch_bf16<64>(p, gy, st)
+         : hd <= 96  ? launch_bf16<96>(p, gy, st)
+         : hd <= 128 ? launch_bf16<128>(p, gy, st)
+         : hd <= 160 ? launch_bf16<160>(p, gy, st)
+         : hd <= 192 ? launch_bf16<192>(p, gy, st)
+                     : launch_bf16<256>(p, gy, st);
   } else if (dtype == 0) {
-    const dim3 grid((Sq + 31) / 32, B * H);
-    switch (hd) {
-      case 32: flash_f32_kernel<32><<<grid, kThreads, 0, st>>>(p); break;
-      case 64: flash_f32_kernel<64><<<grid, kThreads, 0, st>>>(p); break;
-      case 80: flash_f32_kernel<80><<<grid, kThreads, 0, st>>>(p); break;
-      case 128: flash_f32_kernel<128><<<grid, kThreads, 0, st>>>(p); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    rc = hd <= 32    ? launch_f32<32>(p, gy, st)
+         : hd <= 64  ? launch_f32<64>(p, gy, st)
+         : hd <= 80  ? launch_f32<80>(p, gy, st)
+         : hd <= 96  ? launch_f32<96>(p, gy, st)
+         : hd <= 128 ? launch_f32<128>(p, gy, st)
+         : hd <= 160 ? launch_f32<160>(p, gy, st)
+         : hd <= 192 ? launch_f32<192>(p, gy, st)
+                     : launch_f32<256>(p, gy, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,6 +9,12 @@ and the raw log-decay through their strides (a scalar per-head decay with
 a channel stride of 0) and clamps the decay as it loads it, so no clamped
 copy is made.  ``chunk_scan.launches`` counts calls, one a layer: each is
 one kernel launch, after the zeroing of its small sync buffer.
+
+The kernel takes K up to ``MAX_K``, any V and any chunk that divides T: a
+chunk longer than a sub-block of the kernel (``chunk_scan_sub_steps``:
+128 steps at K <= 64, fewer at wider K, where the tiles take more shared
+memory) runs as sub-blocks of it, in order; K or V that is not a multiple
+of 16 bytes takes the kernel's element loads.
 """
 from __future__ import annotations
 
@@ -20,8 +26,9 @@ from repro_torch import kernels
 from repro_torch.kernels.chunk_scan.ref import chunk_scan_ref
 from repro_torch.models.scan_ops import check_chunk
 
-MAX_K = 64                     # the kernel's shared-memory tiles
-MAX_CHUNK = 128
+# The widest K: above it the r, k and decay tiles of a sub-block pass the
+# 227 KB of shared memory a CTA can hold
+MAX_K = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR = ctypes.c_void_p
@@ -29,7 +36,8 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "chunk_scan_launch": ([_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                            _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
-                           _INT, _INT, _PTR, _PTR], _INT),
+                           _INT, _INT, _INT, _PTR, _PTR], _INT),
+    "chunk_scan_sub_steps": ([_INT, _INT], _INT),
 }
 
 
@@ -44,12 +52,13 @@ def _check(r, k, v, log_decay, state0, bonus, include_current, chunk):
     if tuple(log_decay.shape) not in ((B, T, H), (B, T, H, K)):
         raise ValueError(f"chunk_scan: log_decay must be (B, T, H) or (B, T, "
                          f"H, K), got {tuple(log_decay.shape)}")
-    if not 0 < K <= MAX_K or K % 4 or V == 0 or V % 4:
-        raise ValueError(f"chunk_scan: need 0 < K <= {MAX_K} and K, V "
-                         f"multiples of 4, got K={K}, V={V}")
-    if T == 0 or not 0 < min(chunk, T) <= MAX_CHUNK:
-        raise ValueError(f"chunk_scan: need T > 0 and a chunk of 1.."
-                         f"{MAX_CHUNK} steps, got T={T}, chunk={chunk}")
+    if not 0 < K <= MAX_K or V == 0:
+        raise ValueError(f"chunk_scan: need 0 < K <= {MAX_K} (the kernel's "
+                         f"widest tiles: shared memory) and V > 0, got "
+                         f"K={K}, V={V}")
+    if T == 0 or chunk < 1:
+        raise ValueError(f"chunk_scan: need T > 0 and a chunk of at least "
+                         f"one step, got T={T}, chunk={chunk}")
     check_chunk(T, min(chunk, T))
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
         raise ValueError(f"chunk_scan: r, k, v must all be float32 or all "
@@ -96,21 +105,25 @@ def chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     u = None if include_current else bonus.float().contiguous()
     y = torch.empty((B, T, H, V), dtype=v.dtype, device=dev)
     s_fin = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
-    # the state after each chunk, handed to the next chunk's CTA; the
-    # kernel's work-item counter and one flag per (chunk, head, 64 columns)
-    nc = T // Lc
+    lib = kernels.library("chunk_scan", _SIGNATURES)
+    # chunks as sub-blocks of at most the kernel's steps at this K, in order
+    sub = min(Lc, lib.chunk_scan_sub_steps(_DTYPES[r.dtype], K))
+    nc = T // Lc * -(-Lc // sub)
+    # the state after each sub-block, handed to the next sub-block's CTA;
+    # the kernel's work-item counter and one flag per (sub-block, head, 64
+    # columns)
     work = torch.empty((B * H, nc, K, V), dtype=torch.float32, device=dev)
     sync = torch.zeros(1 + B * H * nc * -(-V // 64), dtype=torch.int32,
                        device=dev)
     strides = (ctypes.c_longlong * 16)(*r.stride(), *k.stride(),
                                        *v.stride(), *ld_strides)
-    lib = kernels.library("chunk_scan", _SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.chunk_scan_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), ld.data_ptr(),
             s0.data_ptr(), None if u is None else u.data_ptr(),
             y.data_ptr(), s_fin.data_ptr(), work.data_ptr(), sync.data_ptr(),
-            _DTYPES[r.dtype], B, T, H, K, V, Lc, int(bool(include_current)),
+            _DTYPES[r.dtype], B, T, H, K, V, Lc, sub,
+            int(bool(include_current)),
             ctypes.cast(strides, _PTR),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -46,12 +46,17 @@ def _check_vector(name: str, t: torch.Tensor, n: int,
                          f"{device}")
 
 
-def _check_stack(name: str, t: torch.Tensor) -> None:
+def _stack(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A (C, N) stack as the kernel reads it: contiguous float32, cast
+    once when it is not (as the reference's ``fed_agg_flat_ref`` casts;
+    bf16 rows, a transposed view)."""
     if t.dim() != 2:
         raise ValueError(f"fed_agg: {name} must be 2-D (C, N), got "
                          f"{tuple(t.shape)}")
-    if t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"fed_agg: {name} must be contiguous float32")
+    if not t.is_floating_point():
+        raise ValueError(f"fed_agg: {name} must be floating point, got "
+                         f"{t.dtype}")
+    return t.to(torch.float32).contiguous()
 
 
 def _span(t: torch.Tensor):
@@ -71,15 +76,17 @@ def fed_agg(stack: torch.Tensor, gamma: torch.Tensor,
             gamma2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out = base_weight * base + gamma @ stack + gamma2 @ stack2``.
 
-    ``stack`` (C, N), ``gamma`` (C,), ``base`` and ``out`` (N,): contiguous
-    float32 on one device.  ``stack2`` (C2, N) with ``gamma2`` (C2,) is an
-    optional second segment (the epoch's carried stragglers beside its
-    bank), summed in the same launch; both or neither are given.
+    ``stack`` (C, N), ``gamma`` (C,), ``base`` and ``out`` (N,) on one
+    device; ``gamma``, ``base`` and ``out`` contiguous float32, the stacks
+    any floating dtype and layout (cast once to contiguous float32).
+    ``stack2`` (C2, N) with ``gamma2`` (C2,) is an optional second segment
+    (the epoch's carried stragglers beside its bank), summed in the same
+    launch; both or neither are given.
     ``base=None`` drops the base term.  ``out`` may be ``base`` itself (an
     in-place update) but must not overlap anything else; ``out=None``
     allocates the result.  C = C2 = 0 gives ``base_weight * base``.
     """
-    _check_stack("stack", stack)
+    stack = _stack("stack", stack)
     C, N = stack.shape
     dev = stack.device
     _check_vector("gamma", gamma, C, dev)
@@ -87,7 +94,7 @@ def fed_agg(stack: torch.Tensor, gamma: torch.Tensor,
         raise ValueError("fed_agg: stack2 and gamma2 come together")
     C2 = 0
     if stack2 is not None:
-        _check_stack("stack2", stack2)
+        stack2 = _stack("stack2", stack2)
         C2 = stack2.shape[0]
         if stack2.shape[1] != N:
             raise ValueError(f"fed_agg: stack2 has {stack2.shape[1]} "

@@ -18,3 +18,13 @@ def fed_agg_ref(stack: torch.Tensor, gamma: torch.Tensor,
     if base is not None:
         out = base_weight * base + out
     return out
+
+
+def fed_agg_flat_ref(stack: torch.Tensor, gamma: torch.Tensor,
+                     base: torch.Tensor, base_weight: float) -> torch.Tensor:
+    """The JAX package's oracle of the kernel: ``base_weight * base +
+    gamma @ stack`` in float32, every operand cast to float32 first."""
+    stack = stack.to(torch.float32)
+    return (torch.as_tensor(base_weight, dtype=torch.float32)
+            * base.to(torch.float32)
+            + torch.einsum("c,cn->n", gamma.to(torch.float32), stack))

@@ -11,6 +11,10 @@ launches.
 bf16 at hd 64, 80 and 128 runs the warp-specialised wgmma kernel, which loads
 q, k and v by TMA through 4-D tensor maps; ``tensor_map_spec`` computes
 their dims, byte strides and boxes here, and the launcher encodes them.
+Every other head dim up to ``MAX_HEAD_DIM``, a view TMA cannot map, and a
+B * H above grid.y's 65,535 run the mma.sync kernel (bf16) or the f32
+kernel on the smallest tile that holds hd, zero-filled past it in shared
+memory; rows that are not 16-byte aligned take its element loads.
 """
 from __future__ import annotations
 
@@ -22,12 +26,14 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 
-HEAD_DIMS = (32, 64, 80, 128)  # the kernel's instantiations
+# The widest head dim: above it the tiles pass the 227 KB of shared memory
+# a CTA can hold and O's accumulator the registers a thread can hold
+MAX_HEAD_DIM = 256
 TMA_HEAD_DIMS = (64, 80, 128)  # bf16 through the wgmma kernel's tensor maps
 TMA_Q_ROWS = 64                # query rows of one consumer warpgroup
 TMA_KV_ROWS = 128              # keys of one K or V stage
+TMA_MAX_BH = 65535             # the wgmma kernel's grid.y: one (b, h) a row
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BH = 65535                # the grid's y extent
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -60,6 +66,19 @@ def tensor_map_spec(t: torch.Tensor, rows: int):
     return (hd, S, heads, B), strides, (tma_box_cols(hd), rows, 1, 1)
 
 
+def takes_tma(q, k, v) -> bool:
+    """Whether the wgmma kernel takes these operands: bf16 at a head dim
+    of ``TMA_HEAD_DIMS``, B * H within its grid, and views whose bases and
+    byte strides are multiples of 16 (what TMA maps)."""
+    B, _, H, hd = q.shape
+    if q.dtype != torch.bfloat16 or hd not in TMA_HEAD_DIMS \
+            or B * H > TMA_MAX_BH:
+        return False
+    return all(t.stride(3) == 1 and t.data_ptr() % 16 == 0
+               and not any(s * t.element_size() % 16 for s in t.stride()[:3])
+               for t in (q, k, v))
+
+
 def _check(q, k, v, window):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q must be (B, Sq, H, hd) and k, "
@@ -70,9 +89,10 @@ def _check(q, k, v, window):
     if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
                          f"q {tuple(q.shape)} (same B and hd, H % KV == 0)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in "
-                         f"{HEAD_DIMS}")
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {hd} not in 1.."
+                         f"{MAX_HEAD_DIM} (the kernel's widest tile: shared "
+                         f"memory and registers)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must all be float32 or "
                          f"all bfloat16, got {q.dtype}, {k.dtype}, "
@@ -83,21 +103,17 @@ def _check(q, k, v, window):
     if Sk == 0 or window < 0:
         raise ValueError(f"flash_attention: need Sk > 0 and window >= 0, got "
                          f"Sk={Sk}, window={window}")
-    per = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.stride(3) != 1 or t.data_ptr() % 16
-                or any(s % per for s in t.stride()[:3])):
+        if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} needs a contiguous "
-                             f"head dim and 16-byte aligned rows (strides "
-                             f"{t.stride()})")
-    if B * H > _MAX_BH:
-        raise ValueError(f"flash_attention: B * H = {B * H} > {_MAX_BH}")
+                             f"head dim (strides {t.stride()})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0, all
-    float32 or all bfloat16, hd in ``HEAD_DIMS``, the head dim contiguous.
+    float32 or all bfloat16, 1 <= hd <= ``MAX_HEAD_DIM``, the head dim
+    contiguous.
     Returns (B, Sq, H, hd) in q's dtype: softmax(q k^T / sqrt(hd)) v under
     the causal (kpos <= qpos) and window (qpos - kpos < window) masks, by
     row and column index.  Forward only: with grad mode on and an input
@@ -119,7 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3])
     tma = None
-    if q.dtype == torch.bfloat16 and hd in TMA_HEAD_DIMS:
+    if takes_tma(q, k, v):
         specs = [tensor_map_spec(t, rows) for t, rows in (
             (q, TMA_Q_ROWS), (k, TMA_KV_ROWS), (v, TMA_KV_ROWS))]
         tma = (ctypes.c_longlong * 33)(

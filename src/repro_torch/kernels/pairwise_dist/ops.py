@@ -9,11 +9,12 @@ per call: the tiled design's three launches count once).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import kernels
+from repro_torch.core.modelbank import flatten_tree
 from repro_torch.kernels.pairwise_dist.ref import pairwise_dist_sq_ref
 
 _PTR = ctypes.c_void_p
@@ -38,16 +39,21 @@ def _counter(dev: torch.device, stream: int) -> torch.Tensor:
     return c
 
 
-def _check_f32(name: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"pairwise_dist_sq: {name} must be contiguous "
-                         "float32")
+def _f32(name: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel reads it: contiguous float32, cast once when it
+    is not (as the reference casts its stacks; bf16 rows, a transposed
+    view)."""
+    if not t.is_floating_point():
+        raise ValueError(f"pairwise_dist_sq: {name} must be floating point, "
+                         f"got {t.dtype}")
+    return t.to(torch.float32).contiguous()
 
 
 def pairwise_dist_sq(x: torch.Tensor, *,
                      ref: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(M, N) contiguous float32 -> (M, M) squared distances
-    ``max(n_i + n_j - 2 x_i·x_j, 0)``, M >= 1.
+    """(M, N) -> (M, M) squared distances ``max(n_i + n_j - 2 x_i·x_j,
+    0)`` in float32, M >= 1; a stack that is not contiguous float32 is cast
+    once.
 
     With ``ref`` (N,), the rows are ``ref`` then the rows of ``x``: the
     result is (M + 1, M + 1) and the kernel reads ``ref`` in place (the CPU
@@ -57,13 +63,13 @@ def pairwise_dist_sq(x: torch.Tensor, *,
     if x.dim() != 2:
         raise ValueError(f"pairwise_dist_sq: x must be (M, N), got "
                          f"{tuple(x.shape)}")
-    _check_f32("x", x)
+    x = _f32("x", x)
     dev = x.device
     if ref is not None:
         if ref.dim() != 1 or ref.shape[0] != x.shape[1]:
             raise ValueError(f"pairwise_dist_sq: ref must have shape "
                              f"({x.shape[1]},), got {tuple(ref.shape)}")
-        _check_f32("ref", ref)
+        ref = _f32("ref", ref)
         if ref.device != dev:
             raise ValueError(f"pairwise_dist_sq: ref is on {ref.device}, x "
                              f"on {dev}")
@@ -95,6 +101,13 @@ def pairwise_dist_sq(x: torch.Tensor, *,
 pairwise_dist_sq.launches = 0
 
 
+def pairwise_dist(x: torch.Tensor, *, squared: bool = False) -> torch.Tensor:
+    """(M, N) stacked flat models -> (M, M) L2 distances (squared with
+    ``squared``) through ``pairwise_dist_sq``."""
+    d2 = pairwise_dist_sq(x)
+    return d2 if squared else torch.sqrt(d2)
+
+
 def dist_to_ref(stack: torch.Tensor, ref: torch.Tensor, *,
                 squared: bool = False) -> torch.Tensor:
     """L2 distance of each row of an (M, N) stack to one (N,) reference
@@ -109,3 +122,10 @@ def dist_to_ref(stack: torch.Tensor, ref: torch.Tensor, *,
     else:
         d2 = pairwise_dist_sq(stack, ref=ref)[0, 1:]
     return d2 if squared else torch.sqrt(d2)
+
+
+def model_pairwise_dist(models: Sequence) -> torch.Tensor:
+    """(M, M) L2 distances between parameter trees: each flattened in the
+    reference's leaf order (sorted keys at every level) to float32, the
+    rows stacked, one ``pairwise_dist`` call."""
+    return pairwise_dist(torch.stack([flatten_tree(m) for m in models]))

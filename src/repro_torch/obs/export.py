@@ -144,10 +144,9 @@ def add_runtime_tracks(tracer: Tracer, rt) -> None:
     if ctn is not None and ctn.channels is not None:
         for direction, pool in (("tx", ctn.tx), ("rx", ctn.rx)):
             for ps in range(ctn.num_ps):
-                for c, iv in enumerate(pool.res[ps]):
-                    for s, e in iv:
-                        tracer.span(SPAN_CHANNEL, s, e, track=f"ps {ps}",
-                                    direction=direction, channel=c)
+                for c, s, e in pool.intervals(ps):
+                    tracer.span(SPAN_CHANNEL, s, e, track=f"ps {ps}",
+                                direction=direction, channel=c)
     outages = getattr(rt, "_outages", None)
     if outages is not None:
         for ps, s, e in outages.events():

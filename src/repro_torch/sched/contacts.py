@@ -145,6 +145,13 @@ class ChannelPool:
         return float(sum(max(0.0, e - max(s, t))
                          for iv in self.res[ps] for (s, e) in iv))
 
+    def intervals(self, ps: int) -> List[Tuple[int, float, float]]:
+        """All (channel, start, end) reservations at ``ps``, channel by
+        channel in reservation order: invariant checks and the trace
+        exporter's channel spans; not on the hot path."""
+        return [(c, s, e) for c, iv in enumerate(self.res[ps])
+                for (s, e) in iv]
+
     def stats(self, horizon_s: float) -> Dict:
         cap = self.channels if self.channels is not None else 1
         denom = max(float(horizon_s) * cap, 1e-12)

@@ -142,9 +142,13 @@ def test_fed_agg_second_segment_checks():
     with pytest.raises(ValueError):
         fed_agg(stack, g, stack2=carry[:, :1000].contiguous(), gamma2=g2)
     with pytest.raises(ValueError):
-        fed_agg(stack, g, stack2=carry[:, ::2], gamma2=g2)      # strided
+        fed_agg(stack, g, stack2=carry[:, ::2], gamma2=g2)   # 501 columns
     two = fed_agg(stack, g, stack2=carry, gamma2=g2)
     assert torch.allclose(two, g @ stack + g2 @ carry, atol=1e-6)
+    # a second stack that is not contiguous f32 is cast once, as the first
+    view = carry.T.contiguous().T
+    assert not view.is_contiguous()
+    assert torch.equal(fed_agg(stack, g, stack2=view, gamma2=g2), two)
 
 
 def test_fed_agg_edge_cases_and_checks():
@@ -160,9 +164,13 @@ def test_fed_agg_edge_cases_and_checks():
     with pytest.raises(ValueError):
         fed_agg(stack, torch.zeros(2))                    # wrong C
     with pytest.raises(ValueError):
-        fed_agg(stack.double(), g.double())               # not f32
-    with pytest.raises(ValueError):
-        fed_agg(stack[:, ::2], g)                         # not contiguous
+        fed_agg(stack.double(), g.double())               # gamma not f32
+    # stacks that are not contiguous f32 are cast once (the reference's
+    # fed_agg_flat_ref casts its stack)
+    assert torch.equal(fed_agg(stack.double(), g),
+                       fed_agg_ref(stack, g, None, 0.0))
+    assert torch.equal(fed_agg(stack[:, ::2], g),
+                       fed_agg_ref(stack[:, ::2].contiguous(), g, None, 0.0))
     with pytest.raises(ValueError):
         fed_agg(stack, g, out=stack[0])                   # out overlaps stack
     with pytest.raises(ValueError):

@@ -5,11 +5,15 @@ heads, flatten, ``attention_ref``); it is held against the JAX package's
 ``flash_attention`` run through its Pallas kernel in interpret mode, on a
 subset of that package's sweep (``tests/test_kernels.py``) that keeps the
 ragged S = 200 with one KV head, the hd = 128 case, all three mask modes
-and both dtypes, plus hubert-xlarge's head dim 80 at a small S.  Tolerances are the sweep's: f32 differs only in the
-order of the sums (1e-5); bf16 outputs round to bf16, whose spacing near
-the outputs' magnitude (about 0.5) is 2e-3, and both sides accumulate in
-f32 (2e-2).  The CUDA kernel itself is held against the same plain
-version on the card by ``chip_smoke.py``.
+and both dtypes, plus hubert-xlarge's head dim 80 at a small S, and the
+kernel's whole domain (head dims 1 to ``MAX_HEAD_DIM`` = 256: 1, 8, 36,
+40, 96, 192 and 256 at S = 200).  Tolerances are the sweep's: f32 differs
+only in the order of the sums (2e-6); bf16 outputs round to bf16, whose
+spacing near the outputs' magnitude (about 0.5) is 2e-3, and both sides
+accumulate in f32 (2e-2).  The CUDA kernel itself is held against the
+same plain version on the card by ``chip_smoke.py``.  The wrapper refuses
+head dims past the cap on every device, and ``takes_tma`` sends to the
+wgmma kernel only what TMA can map.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +23,12 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as jflash
 from repro.kernels.flash_attention.ref import attention_ref as jref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ops import tensor_map_spec
+from repro_torch.kernels.flash_attention.ops import (MAX_HEAD_DIM,
+                                                     takes_tma,
+                                                     tensor_map_spec)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
 
 def _inputs(B, Sq, Sk, H, KV, hd, seed=0):
@@ -42,6 +48,9 @@ def _both(arrs, dtype):
     (1, 200, 4, 1, 32),      # non-multiple-of-block seq, strong GQA
     (2, 64, 8, 8, 128),
     (1, 72, 2, 1, 80),       # hubert-xlarge's head dim (1280 / 16)
+    # the whole domain: head dims off the serving ones, on the kernels'
+    # padded tiles (1, 8 on the 32-wide; 36, 40 on 64; 96; 192; 256)
+    *((1, 200, 4, 2, hd) for hd in (1, 8, 36, 40, 96, 192, 256)),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
                                            (False, 0)])
@@ -55,6 +64,26 @@ def test_flash_attention_matches_jax_kernel(B, S, H, KV, hd, causal, window,
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("make,wgmma", [
+    (lambda: torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16), True),
+    (lambda: torch.zeros((2, 8, 4, 128), dtype=torch.bfloat16), True),
+    (lambda: torch.zeros((2, 8, 4, 80), dtype=torch.bfloat16), True),
+    (lambda: torch.zeros((2, 8, 4, 96), dtype=torch.bfloat16), False),
+    (lambda: torch.zeros((2, 8, 4, 64)), False),           # f32
+    # the base 2 bytes off 16
+    (lambda: torch.zeros(2 * 8 * 4 * 64 + 1, dtype=torch.bfloat16)[1:]
+     .view(2, 8, 4, 64), False),
+    # a sequence stride of 264 bytes
+    (lambda: torch.zeros((2, 8, 4 * 64 + 4), dtype=torch.bfloat16)[
+        ..., :256].view(2, 8, 4, 64), False),
+    # B * H = 65,600 past the wgmma kernel's grid.y
+    (lambda: torch.zeros((1025, 1, 64, 64), dtype=torch.bfloat16), False),
+])
+def test_takes_tma_routes_only_what_tma_maps(make, wgmma):
+    t = make()
+    assert takes_tma(t, t, t) is wgmma
 
 
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
@@ -90,7 +119,7 @@ def test_wrapper_reads_strided_views():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(hd=96), "head dim"),
+    (dict(hd=MAX_HEAD_DIM + 8), "head dim"),
     (dict(dtype=torch.float16), "float32 or all bfloat16"),
     (dict(kv_dtype=torch.bfloat16), "float32 or all bfloat16"),
     (dict(KV=3), "H % KV"),

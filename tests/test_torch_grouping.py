@@ -178,14 +178,17 @@ def test_pairwise_dist_checks():
     got = pairwise_dist_sq(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got / max(float(want.max()), 1.0),
                                want / max(float(want.max()), 1.0), atol=1e-5)
+    # rows that are not contiguous f32 are cast once, as the reference
+    # casts its stacks: the result is that of the cast rows
+    xt = torch.from_numpy(x[:3])
+    assert torch.equal(pairwise_dist_sq(xt.double()), pairwise_dist_sq(xt))
+    assert torch.equal(pairwise_dist_sq(xt[:, ::2]),
+                       pairwise_dist_sq(xt[:, ::2].contiguous()))
     with pytest.raises(ValueError):
-        pairwise_dist_sq(torch.zeros((3, 10), dtype=torch.float64))
-    with pytest.raises(ValueError):
-        pairwise_dist_sq(torch.zeros((3, 10))[:, ::2])
+        pairwise_dist_sq(torch.zeros((3, 10), dtype=torch.int32))
     with pytest.raises(ValueError):
         pairwise_dist_sq(torch.zeros((0, 10)))            # no rows
     with pytest.raises(ValueError):
         pairwise_dist_sq(torch.zeros((3, 10)), ref=torch.zeros(9))
-    with pytest.raises(ValueError):
-        pairwise_dist_sq(torch.zeros((3, 10)),
-                         ref=torch.zeros(10, dtype=torch.float64))
+    assert torch.equal(pairwise_dist_sq(xt, ref=xt[0].double()),
+                       pairwise_dist_sq(xt, ref=xt[0]))
