@@ -309,11 +309,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      its FLOPs to ``FlopCounterMode``'s count of one real step on the
      card, its predicted peak within 5 % of phase 27's measured peak
      (above what the process held before each run) for remat off and on,
-     and the arguments alone (the known-bad control) outside it; (b) ``dryrun --arch qwen3-4b --shape train_4k`` with and
-     without ``--multi-pod``, ``ep_dryrun --arch kimi-k2-1t-a32b`` and
-     ``fl_dryrun`` over fake worlds of 256 and 512 ranks, each its own
-     process, all at once: each exits 0, prints its row and never
-     initialises CUDA; the phase's wall is printed;
+     and the arguments alone (the known-bad control) outside it; (b)
+     ``dryrun --arch qwen3-4b --shape train_4k`` with and without
+     ``--multi-pod``, qwen3-4b prefill_32k, llama3-8b and internvl2-1b
+     train_4k, ``ep_dryrun --arch kimi-k2-1t-a32b`` and ``fl_dryrun``
+     over fake worlds of 256 and 512 ranks, each its own process, all at
+     once: each exits 0, prints its row and never initialises CUDA; each
+     ``dryrun`` row's temp within 0.5-2x the reference's (constants from
+     its CPU run) and no ``view``, ``_unsafe_view``, ``flip`` or
+     ``index_put`` replicated; the phase's wall is printed;
  32. one JSON line of per-kernel numbers (the two LM kernels also at
      zamba2's shapes, as ``flash_attention:zamba2`` and
      ``chunk_scan:zamba2``, with phase 23's launches; ``fed_agg:lm`` and
@@ -4441,9 +4445,34 @@ print(json.dumps({"rows": rows, "cuda_initialized":
 DRYRUN_CLIS = (
     ("dryrun", ["--arch", "qwen3-4b", "--shape", "train_4k"]),
     ("dryrun", ["--arch", "qwen3-4b", "--shape", "train_4k", "--multi-pod"]),
+    ("dryrun", ["--arch", "qwen3-4b", "--shape", "prefill_32k"]),
+    ("dryrun", ["--arch", "llama3-8b", "--shape", "train_4k"]),
+    ("dryrun", ["--arch", "internvl2-1b", "--shape", "train_4k"]),
     ("ep_dryrun", ["--arch", "kimi-k2-1t-a32b"]),
     ("fl_dryrun", []),
 )
+# the reference's per-device temp bytes (``memory.temp_size_bytes``) of
+# the same rows, (arch, shape, multi-pod): ``PYTHONPATH=src
+# JAX_PLATFORMS=cpu python -m repro.launch.dryrun --arch A --shape S
+# [--multi-pod]`` on a CPU (jax 0.9.0), the JAX package as of commit
+# 2caf50e.  This host has no JAX.  Each dry-run row's temp is held within
+# DRYRUN_TEMP_RATIO of its reference, and its ``replicated`` names none of
+# the ops that once replicated the step's activations
+DRYRUN_REF_TEMP = {
+    ("qwen3-4b", "train_4k", False): 38000395600,
+    ("qwen3-4b", "train_4k", True): 18673173776,
+    ("qwen3-4b", "prefill_32k", False): 43565236528,
+    ("llama3-8b", "train_4k", False): 53687354608,
+    ("internvl2-1b", "train_4k", False): 125977478064,
+}
+DRYRUN_TEMP_RATIO = 2.0
+# and at least this share of it: every row here is a train or prefill
+# step, where the port's temp reads 0.58-1.51x the reference's
+# (``scripts/dryrun_parity.py``, torch 2.11 and 2.13); a trace that lost
+# storages would size a run too small
+DRYRUN_TEMP_FLOOR = 0.5
+DRYRUN_REPLICATED_OPS = ("aten.view.", "aten._unsafe_view.", "aten.flip.",
+                         "aten.index_put")
 DRYRUN_CLI = """
 import importlib, sys, torch
 mod = importlib.import_module("repro_torch.launch." + sys.argv[1])
@@ -4468,15 +4497,48 @@ def storage_bytes(trees) -> int:
     return sum(seen.values())
 
 
+def dryrun_parity(name, lines) -> dict:
+    """Phase 31 (b)'s gate on a ``launch.dryrun`` CLI's row (its JSON
+    line and its ``memory_analysis:`` line): temp between
+    ``DRYRUN_TEMP_FLOOR`` and ``DRYRUN_TEMP_RATIO`` times the
+    reference's, no op of
+    ``DRYRUN_REPLICATED_OPS`` replicated."""
+    import ast
+    [row] = [json.loads(line) for line in lines if line.startswith("{")]
+    [mem] = [ast.literal_eval(line.split(":", 1)[1].strip())
+             for line in lines if line.startswith("memory_analysis:")]
+    ref = DRYRUN_REF_TEMP[(row["arch"], row["shape"], row["multi_pod"])]
+    ratio = mem["temp_size_bytes"] / ref
+    bad = [r for r in row["replicated"]
+           if any(op in r for op in DRYRUN_REPLICATED_OPS)]
+    print(f"  {row['arch']} {row['shape']}{' multi-pod' * row['multi_pod']}: "
+          f"temp {mem['temp_size_bytes'] / 1e9:.2f} GB a device, the "
+          f"reference's {ref / 1e9:.2f} GB: {ratio:.3f}x (limits "
+          f"{DRYRUN_TEMP_FLOOR}, {DRYRUN_TEMP_RATIO}); replicated "
+          f"{row['replicated']}; largest live at the peak "
+          f"{row['peak_holders'][:4]}")
+    if not DRYRUN_TEMP_FLOOR <= ratio <= DRYRUN_TEMP_RATIO:
+        fail(f"phase 31 (b): {name}: temp {ratio:.3f}x the reference's, "
+             f"outside [{DRYRUN_TEMP_FLOOR}, {DRYRUN_TEMP_RATIO}]")
+    if bad:
+        fail(f"phase 31 (b): {name} replicated {bad}")
+    return dict(temp_bytes=mem["temp_size_bytes"], ref_temp_bytes=ref,
+                ratio=ratio, replicated=row["replicated"],
+                argument_bytes=mem["argument_size_bytes"],
+                lower_s=row["lower_s"])
+
+
 def dryrun_path(torch, dev, report) -> None:
     """Phase 31: the dry-run tools (``launch.dryrun``, ``ep_dryrun``,
     ``fl_dryrun``; no kernel on their path).  (a) the dry-run of
     ``launch.train``'s step at one rank in phase 27's configuration: its
     argument bytes and FLOPs exactly the card's for one real step, its
     predicted peak within ``DRYRUN_PEAK_REL`` of phase 27's measured peak
-    for remat off and on, the arguments alone outside it; (b) the four
+    for remat off and on, the arguments alone outside it; (b) the
     production-mesh CLIs over fake worlds of 256 and 512 ranks, each its
-    own process: exit 0, a row, CUDA never initialised."""
+    own process: exit 0, a row, CUDA never initialised; each
+    ``launch.dryrun`` row's temp within ``DRYRUN_TEMP_FLOOR`` and
+    ``DRYRUN_TEMP_RATIO`` of the reference's (``dryrun_parity``)."""
     import os
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
@@ -4586,6 +4648,8 @@ def dryrun_path(torch, dev, report) -> None:
         print(f"{name}: {wall:.1f} s; " + " | ".join(
             line[:600] for line in lines[:-1]))
         out["b"][name] = dict(wall_s=wall, rows=lines[:-1])
+        if mod == "dryrun":
+            out["b"][name]["parity"] = dryrun_parity(name, lines[:-1])
     out["b_wall_s"] = time.perf_counter() - t0
     out["wall_s"] = time.perf_counter() - t_phase
     card = report.get("card", "")

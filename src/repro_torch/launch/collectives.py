@@ -15,11 +15,17 @@ rank issues while it runs:
     on this rank, the reference's convention (``hlo_analysis.py:39-56``);
   * the FLOPs of this rank's local operations, by ``FlopCounterMode``'s
     formulas (``torch.utils.flop_counter``), and its matrix products;
+    ``global_flops``, those of the whole program: each DTensor operation
+    at its global shapes, and each local operation outside one times the
+    ranks that share its work (``local_region``, which the model's local
+    regions enter, ``models/spmd.py``; one otherwise);
   * the live bytes of this rank's storages: every tensor an operation
     makes is tracked until its storage dies, each storage rounded up to
     the CUDA caching allocator's 512-byte unit, so the trace's peak is
     what ``torch.cuda.max_memory_allocated`` would read for the same
-    program.
+    program; ``holders`` names what holds the bytes live at the peak:
+    the storages made at one site (the operation that made them and the
+    model's line that called it), largest total first.
 
 An operation on DTensors is not recorded itself: the mode declines it, so
 DTensor runs it, and the local operations and collectives it issues come
@@ -32,7 +38,11 @@ to hand every rank data row 0's aux loss) is counted under its own key.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import heapq
+import sys
 import weakref
 from collections import defaultdict
 from typing import Dict, Iterable, List
@@ -75,6 +85,17 @@ _KINDS = {
 MATMULS = ("mm", "bmm", "addmm", "baddbmm")
 
 ALLOC_UNIT = 512        # bytes: the CUDA caching allocator rounds up to it
+HOLDERS = 12            # the sites holding most bytes at the peak, kept
+# a new snapshot of the holders when the live bytes pass the last one's
+# by this share: the holders are those of a moment within it of the peak
+HOLDERS_STEP = 0.01
+# a storage counts while it is reachable: before the live bytes set a peak
+# more than this share above those after the last collection, garbage in
+# reference cycles is collected (torch 2.11's DTensor leaves the MoE
+# dispatch's buffers in such cycles, and the peak moved run to run by up
+# to 4x with the collector's timing)
+GC_STEP = 0.01
+MODELS_DIR = "repro_torch/models/"
 
 
 def alloc_bytes(nbytes: int) -> int:
@@ -101,6 +122,23 @@ def _nbytes(tensors: Iterable[torch.Tensor]) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def call_site() -> str:
+    """``file:line`` of the innermost frame of the model code
+    (``repro_torch/models/``) on the stack, or "" outside it."""
+    f = sys._getframe(1)
+    while f is not None:
+        path = f.f_code.co_filename.replace("\\", "/")
+        at = path.rfind(MODELS_DIR)
+        if at >= 0:
+            return f"{path[at + len('repro_torch/'):]}:{f.f_lineno}"
+        f = f.f_back
+    return ""
+
+
+def _site() -> str:
+    return call_site() or "no model frame (autograd's backward)"
+
+
 def _fake_mode_active() -> bool:
     return torch._C._get_dispatch_mode(
         torch._C._TorchDispatchModeKey.FAKE) is not None
@@ -119,25 +157,65 @@ class StepTrace(TorchDispatchMode):
     arguments) as live from the start; ``peak_bytes`` is the most bytes
     live at once, ``live_bytes`` those live now.  Only storages on
     ``device`` (a device type) are tracked: "meta" in a dry-run, where
-    host tensors are not the card's memory."""
+    host tensors are not the card's memory.  A storage counts while it is
+    reachable (``GC_STEP``): the objects made before the trace are frozen
+    out of the collector (``gc.freeze``) so that a collection is quick.
+
+    ``holders``: the ``HOLDERS`` sites whose storages hold the most bytes
+    live at (within ``HOLDERS_STEP`` of) the peak, ``(bytes, "op at
+    file:line xN")`` each, N storages (the op's name alone where no model
+    code is on the stack, as in autograd's backward; "argument" for those
+    ``hold`` counts).
+    Each entry of ``replicated`` ends with the model's line that issued
+    the operation."""
 
     def __init__(self, device: str = "meta"):
         super().__init__()
         self.device = device
         self.collectives: List[Collective] = []
         self.flops = 0
+        self.global_flops = 0
         self.matmuls = 0
         self.bytes_accessed = 0
         self.ops = 0
         self.live_bytes = 0
         self.peak_bytes = 0
         self.replicated: List[str] = []
+        self.holders: List[tuple] = []
+        self._holders_at = 0
         self._live: Dict[int, int] = {}     # storage key -> bytes
+        self._made: Dict[int, str] = {}     # storage key -> op at file:line
         self._in_dtensor = False
         self._paused = False
+        self._depth = 0                     # nested ``with self``
+        self._scale = [1]                   # ranks sharing the local work
+        self._collected_at = 0
+
+    def __enter__(self):
+        if self._depth == 0:
+            gc.collect()
+            gc.freeze()
+        self._depth += 1
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._depth -= 1
+        if self._depth == 0:
+            gc.unfreeze()
+        return super().__exit__(*exc)
+
+    @contextlib.contextmanager
+    def local_region(self, scale: int):
+        """The local operations in this block are one rank's share of
+        work split ``scale`` ways (``global_flops`` counts them so)."""
+        self._scale.append(scale)
+        try:
+            yield
+        finally:
+            self._scale.pop()
 
     # ---- storages -----------------------------------------------------
-    def _track(self, t: torch.Tensor) -> int:
+    def _track(self, t: torch.Tensor, made_by: str = "argument") -> int:
         """Start tracking ``t``'s storage if it is new; its bytes."""
         st = t.untyped_storage()
         key = st._cdata
@@ -145,12 +223,34 @@ class StepTrace(TorchDispatchMode):
             return 0
         n = alloc_bytes(st.nbytes())
         self._live[key] = n
+        self._made[key] = made_by
         self.live_bytes += n
         weakref.finalize(st, self._free, key)
         return n
 
     def _free(self, key: int) -> None:
         self.live_bytes -= self._live.pop(key)
+        del self._made[key]
+
+    def _new_peak(self) -> None:
+        if self.live_bytes <= self.peak_bytes:
+            return
+        if self.live_bytes > self._collected_at * (1 + GC_STEP):
+            gc.collect()            # unreachable storages' finalizers free
+            self._collected_at = self.live_bytes
+            if self.live_bytes <= self.peak_bytes:
+                return
+        self.peak_bytes = self.live_bytes
+        if self.live_bytes > self._holders_at * (1 + HOLDERS_STEP):
+            self._holders_at = self.live_bytes
+            sites = defaultdict(lambda: [0, 0])
+            for k, n in self._live.items():
+                site = sites[self._made[k]]
+                site[0] += n
+                site[1] += 1
+            self.holders = [(n, f"{what} x{count}") for what, (n, count)
+                            in heapq.nlargest(HOLDERS, sites.items(),
+                                              key=lambda kv: kv[1][0])]
 
     def hold(self, tensors) -> int:
         """Track the storages of ``tensors`` (nested lists or dicts of
@@ -160,7 +260,7 @@ class StepTrace(TorchDispatchMode):
         for t in map(_local, _leaf_tensors(tensors)):
             if t.device.type == self.device:
                 n += self._track(t)
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        self._new_peak()
         return n
 
     # ---- dispatch -----------------------------------------------------
@@ -182,18 +282,23 @@ class StepTrace(TorchDispatchMode):
             self.collectives.append(
                 Collective(kind, name, _nbytes(_tensors(result))))
         if packet in flop_registry:
-            self.flops += int(flop_registry[packet](*args, **kwargs,
-                                                    out_val=out))
+            n = int(flop_registry[packet](*args, **kwargs, out_val=out))
+            self.flops += n
+            if not self._in_dtensor:        # a rank's share of local work
+                self.global_flops += n * self._scale[-1]
         if packet.__name__ in MATMULS:
             self.matmuls += 1
         if not func.is_view:
             self.bytes_accessed += sum(
                 _nbytes([t]) for t in _tensors(list(args) + [out])
                 if t.device.type == self.device)
-        for t in _tensors(out):
-            if t.device.type == self.device:
-                self._track(t)
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        made = [t for t in _tensors(out) if t.device.type == self.device]
+        if made:
+            site = call_site()
+            site = f"{name} at {site}" if site else name
+            for t in made:
+                self._track(t, site)
+        self._new_peak()
         return out
 
     def _dtensor_op(self, func, args, kwargs):
@@ -208,12 +313,17 @@ class StepTrace(TorchDispatchMode):
         try:
             with self:
                 try:
-                    return func(*args, **kwargs)
+                    out = func(*args, **kwargs)
                 except Exception as e:          # no sharding: see _resolve
                     why = str(e).strip().splitlines()[0][:160]
-                return self._resolve(func, args, kwargs, why)
+                    out = self._resolve(func, args, kwargs, why)
         finally:
             self._in_dtensor = False
+        packet = func._overloadpacket
+        if packet in flop_registry:             # at the global shapes
+            self.global_flops += int(flop_registry[packet](
+                *args, **kwargs, out_val=out))
+        return out
 
     def _resolve(self, func, args, kwargs, why: str):
         """First, one mesh axis of one DTensor argument replicated, the
@@ -249,13 +359,14 @@ class StepTrace(TorchDispatchMode):
             finally:
                 self._paused = False
             self.replicated.append(f"{func}: {why} [argument {i}, mesh "
-                                   f"axis {m} replicated]")
+                                   f"axis {m} replicated; {_site()}]")
             flat = list(flat)
             flat[i] = one_axis(flat[i], m)
             a, k = tree_unflatten(flat, spec)
             return func(*a, **k)
 
-        self.replicated.append(f"{func}: {why} [every argument replicated]")
+        self.replicated.append(f"{func}: {why} [every argument replicated; "
+                               f"{_site()}]")
         first = flat[0]
         if mutable and not (isinstance(first, DTensor) and all(
                 p.is_replicate() for p in first.placements)):

@@ -37,8 +37,10 @@ is split over the pods too, 32-way where the reference's is 16-way.
 
 The row.  The reference's keys where they have a counterpart:
 
-  * ``flops``: ``FlopCounterMode``'s count over the step's DTensor
-    operations, i.e. every traced layer at its global shapes (the
+  * ``flops``: ``FlopCounterMode``'s formulas over the step's DTensor
+    operations at their global shapes, and over the model's local regions
+    (``models/spmd.py``) times the ranks that share them
+    (``StepTrace.global_flops``), i.e. every traced layer whole (the
     reference's ``cost_analysis()`` counts a scanned layer once; a trace
     runs every layer); ``flops_per_device``: the same formulas over rank
     0's local operations;
@@ -58,7 +60,10 @@ There is no ``compile_s``, ``generated_code_size_bytes`` or
 ``hlo_bytes``: nothing is compiled (the port runs eagerly), so there is
 no program to time or measure.  Added: ``flops_per_device``,
 ``matmuls`` (``remat_duplication``), ``ops`` (local operations traced),
-``peak_size_bytes`` and ``replicated``.
+``peak_size_bytes``, ``replicated`` (each entry ending with the model's
+line that issued the operation) and ``peak_holders`` (the sites that
+hold the most bytes live at the peak: bytes, the operation and model
+line that made the storages, and their count; ``StepTrace.holders``).
 
 Flags that have no counterpart: ``--mesh DxM`` or ``PxDxM`` replaces the
 production mesh by a smaller fake one, ``--reduced`` runs each arch's
@@ -198,7 +203,6 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     the registry's config and shape (``arch`` and ``shape_name`` then
     only name the row); ``mesh_shape`` replaces the production mesh."""
     from torch.distributed.tensor.experimental import implicit_replication
-    from torch.utils.flop_counter import FlopCounterMode
     if donate:
         raise ValueError(DONATE_REFUSED)
     cfg = (cfg or get_config(arch)).replace(remat=remat)
@@ -242,9 +246,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     arg_bytes = trace.hold(args)
     held = _storages(args)
     t0 = time.perf_counter()
-    # FlopCounterMode innermost: it sees each DTensor operation first
-    with trace, FlopCounterMode(display=False) as fc, \
-            implicit_replication():
+    with trace, implicit_replication():
         out = step(*args)
     t_lower = time.perf_counter() - t0
     out_bytes = sum(n for key, n in _storages(out).items()
@@ -263,7 +265,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "cache_len": (cache_len_for(cfg, shape) if shape.kind == "decode"
                       else 0),
         "lower_s": round(t_lower, 2),
-        "flops": float(fc.get_total_flops()),
+        "flops": float(trace.global_flops),
         "flops_per_device": float(trace.flops),
         "bytes_accessed": float(trace.bytes_accessed),
         "collective_bytes": collective_bytes(trace.collectives),
@@ -278,6 +280,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "matmuls": remat_duplication(trace),
         "ops": trace.ops,
         "replicated": sorted(set(trace.replicated)),
+        "peak_holders": [[n, what] for n, what in trace.holders],
         "skipped": False,
     }
     if verbose:

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import spmd
 from repro_torch.models.scan_ops import IMPLS, acc_dtype
 
 UNWRITTEN_POS = 10 ** 9         # position of a ring slot never written
@@ -130,7 +131,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *, device,
 def _mask_bias(q_pos, k_pos, causal: bool, window: int, dtype):
     """Additive mask bias (..., Sq, Sk) from query/key positions."""
     diff = q_pos[..., :, None] - k_pos[..., None, :]
-    ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    ok = torch.ones_like(diff, dtype=torch.bool)
     if causal:
         ok &= diff >= 0
     if window:
@@ -140,18 +141,19 @@ def _mask_bias(q_pos, k_pos, causal: bool, window: int, dtype):
 
 def attention_scores(q, k, v, q_pos, k_pos, *, causal, window, kv_groups):
     """Plain attention. q:(B,Sq,H,hd) k,v:(B,Sk,KV,hd).  In bf16 the
-    scores and probabilities round to bf16, as in the JAX package."""
-    B, Sq, H, hd = q.shape
-    KV = k.shape[2]
-    q = q.reshape(B, Sq, KV, kv_groups, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float()
-    scores = scores / math.sqrt(hd)
-    bias = _mask_bias(q_pos, k_pos, causal, window, torch.float32)
-    bias = bias.reshape(bias.shape[:-2] + (1,) * (scores.dim() - bias.dim())
-                        + bias.shape[-2:])
-    probs = torch.softmax(scores + bias, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
-    return out.reshape(B, Sq, H, hd)
+    scores and probabilities round to bf16, as in the JAX package.  On
+    DTensors (the dry-runs) each rank attends with its own heads and batch
+    rows (``models/spmd.py``)."""
+    k, v, kv_groups = spmd.kv_for_local_heads(q, k, v, kv_groups)
+    q_pos, k_pos = spmd.along_batch(q_pos, q), spmd.along_batch(k_pos, q)
+
+    def bias():
+        b = _mask_bias(q_pos, k_pos, causal, window, torch.float32)
+        # broadcast over the scores' (B, KV, G, Sq, Sk)
+        return b.reshape(b.shape[:-2] + (1,) * (5 - b.dim()) + b.shape[-2:])
+    if spmd.split(q):
+        return spmd.local_attention(q, k, v, bias(), kv_groups)
+    return spmd.attend(q, k, v, bias, kv_groups)
 
 
 def ring_positions(index: int, cache_len: int, device) -> torch.Tensor:
@@ -281,7 +283,7 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, *, device):
 def embed(p, cfg: ModelConfig, tokens, dtype):
     """Gathers the rows, then casts them: the same numbers as the JAX
     package's cast-then-gather, without casting the whole table."""
-    return p["embedding"][tokens].to(dtype)
+    return spmd.take_rows(p["embedding"], tokens).to(dtype)
 
 
 def unembed(p, cfg: ModelConfig, x):

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models import scan_ops
+from repro_torch.models import scan_ops, spmd
 
 CONV_K = 4           # depthwise conv kernel size
 N_GROUPS = 1         # B/C groups
@@ -99,6 +99,7 @@ def block(p, cfg: ModelConfig, x, state, *, impl="kernel"):
     H, hd, d_inner, N = _dims(cfg)
     dt_ = x.dtype
     acc = scan_ops.acc_dtype(x)
+    x = spmd.batch_only(x)
     h = L.rms_norm(x, p["ln"])
     z, xc, dt_raw = _split_proj(cfg, h @ p["in_proj"].to(dt_))
     xc, conv_state = _causal_conv(xc, p["conv_w"], p["conv_b"], state["conv"])
@@ -123,7 +124,9 @@ def block(p, cfg: ModelConfig, x, state, *, impl="kernel"):
         y = y1[:, None]
 
     y = y + v * p["D"].to(dt_)[None, None, :, None]
-    y = y.reshape(Bsz, S, d_inner) * F.silu(z)
+    # on DTensors the flattened y's gradient comes back placed as y is
+    # (split over d_inner, it could not unflatten 40 heads on 16 ranks)
+    y = spmd.grad_like(y.reshape(Bsz, S, d_inner)) * F.silu(z)
     y = L.rms_norm(y, p["out_norm"])
     out = y @ p["out_proj"].to(dt_)
     return x + out, {"conv": conv_state, "ssm": ssm}
@@ -162,9 +165,10 @@ def shared_attn_block(p, cfg: ModelConfig, x, positions, kv_cache=None, *,
     """The shared block; ``impl="kernel"`` runs the prefill's attention
     through flash_attention (the JAX package's block always takes its XLA
     route; the two agree within the route-parity tolerance)."""
+    x = spmd.batch_only(x)
     h = L.rms_norm(x, p["ln_a"])
     att, new_cache = L.attention(p["attn"], cfg, h, positions, kv_cache,
                                  window=window, impl=impl)
-    x = x + att
+    x = spmd.batch_only(x + att)
     x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln_m"]))
     return x, new_cache

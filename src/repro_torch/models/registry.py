@@ -29,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models import rwkv as RW
+from repro_torch.models import spmd
 from repro_torch.models import transformer as TF
 from repro_torch.tree import tree_leaves
 
@@ -79,27 +80,29 @@ def apply(params, cfg: ModelConfig, batch, *, window: int = 0,
     if cfg.family == "ssm":
         dtype = getattr(torch, cfg.dtype)
         x, _ = TF._embed_inputs(params, cfg, batch, dtype)
-        state = RW.init_state(cfg, x.shape[0], dtype, device=x.device)
+        state = spmd.batch_state(
+            lambda b: RW.init_state(cfg, b, dtype, device=x.device), x, 1)
         layers = params["layers"]
         for l in range(cfg.num_layers):
             x, _ = TF.remat_call(cfg, RW.block, TF.layer_view(layers, l), cfg,
                                  x, TF.layer_view(state, l), impl=impl)
-        x = L.rms_norm(x, params["final_norm"])
+        x = L.rms_norm(spmd.batch_only(x), params["final_norm"])
         return (L.unembed(params["embed"], cfg, x),
                 torch.zeros((), dtype=torch.float32, device=x.device))
     if cfg.family == "hybrid":
         dtype = getattr(torch, cfg.dtype)
         x, positions = TF._embed_inputs(params, cfg, batch, dtype)
         G, A = _groups(cfg)
-        state = MB.init_state(cfg, x.shape[0], dtype, device=x.device,
-                              lead=(G, A))
+        state = spmd.batch_state(
+            lambda b: MB.init_state(cfg, b, dtype, device=x.device,
+                                    lead=(G, A)), x, 2)
         shared, mamba = params["shared"], params["mamba"]
         for g in range(G):
             x = TF.remat_call(cfg, _hybrid_group, shared,
                               TF.layer_view(mamba, g),
                               TF.layer_view(state, g), cfg, x, positions,
                               window=window, impl=impl)
-        x = L.rms_norm(x, params["final_norm"])
+        x = L.rms_norm(spmd.batch_only(x), params["final_norm"])
         return (L.unembed(params["embed"], cfg, x),
                 torch.zeros((), dtype=torch.float32, device=x.device))
     return TF.forward(params, cfg, batch, window=window, impl=impl,
@@ -183,13 +186,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, *, window: int = 0):
 # --------------------------------------------------------------------------
 
 def _ce(logits, labels, mask=None):
-    logits = logits.float()
-    # the trailing unit dim is dropped after the subtraction: DTensor
-    # carries a vocab-sharded gather's mask through ``[..., 0]`` at the
-    # wrong rank, so the dry-run's subtraction would fail to reduce it
-    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
-    gold = torch.gather(logits, -1, labels[..., None].long())
-    nll = (logz - gold)[..., 0]
+    nll = spmd.token_nll(logits, labels)
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models import scan_ops
+from repro_torch.models import scan_ops, spmd
 
 TM_LORA = 32     # time-mix lora rank (5 heads of it)
 TD_LORA = 64     # decay lora rank
@@ -128,17 +128,21 @@ def channel_mix(p, x, prev_x):
     xr = x + dx * p["cm_mu_r"].to(dt)
     xk = x + dx * p["cm_mu_k"].to(dt)
     h = torch.relu(xk @ p["cm_wk"].to(dt)).square()
-    out = torch.sigmoid(xr @ p["cm_wr"].to(dt)) * (h @ p["cm_wv"].to(dt))
+    # on DTensors the row-parallel product is reduced and its gradient
+    # gathered whole, as GSPMD does, before the gate split by columns
+    out = torch.sigmoid(xr @ p["cm_wr"].to(dt)) * spmd.batch_only(
+        h @ p["cm_wv"].to(dt))
     return out, x[:, -1]
 
 
 def block(p, cfg: ModelConfig, x, state, *, impl="kernel"):
     """One RWKV layer. state = dict(tm_x, cm_x, wkv). Returns (x,
     new_state)."""
+    x = spmd.batch_only(x)
     h = L.rms_norm(x, p["ln1"])
     att, tm_x, wkv = time_mix(p, cfg, h, state["tm_x"], state["wkv"],
                               chunked=x.shape[1] > 1, impl=impl)
-    x = x + att
+    x = spmd.batch_only(x + att)
     h = L.rms_norm(x, p["ln2"])
     ffn, cm_x = channel_mix(p, h, state["cm_x"])
     x = x + ffn

@@ -35,6 +35,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import spmd
+
 LOG_DECAY_CLAMP = 1.0   # per-step |log decay| cap for the factorized form
 SUB_BLOCK = 16          # query rows sharing one exponent reference
 # the routes of every family: the JAX package's "jnp"/"xla" and "pallas"
@@ -71,6 +73,12 @@ def recurrent_scan(r, k, v, log_decay, state0=None, *, include_current=True,
     Returns (y (B,T,H,V), final_state (B,H,K,V) in ``acc_dtype``)."""
     B, T, H, K = r.shape
     V = v.shape[-1]
+    if spmd.split(r):               # the dry-runs: each rank's own heads
+        return spmd.heads_call(
+            _recurrent_scan_args, [r, k, v, log_decay, state0, bonus],
+            [(True, 2)] * 4 + [(True, 1), (False, 0)],
+            [(True, 2), (True, 1)], [(B, T, H, V), (B, H, K, V)],
+            include_current=include_current)
     acc = acc_dtype(r)
     ld = _prep_decay(log_decay, K)
     S = (torch.zeros((B, H, K, V), dtype=acc, device=r.device)
@@ -114,6 +122,12 @@ def chunked_scan(r, k, v, log_decay, state0=None, *, include_current=True,
     B, T, H, K = r.shape
     V = v.shape[-1]
     check_chunk(T, chunk)
+    if spmd.split(r):               # the dry-runs: each rank's own heads
+        return spmd.heads_call(
+            _chunked_scan_args, [r, k, v, log_decay, state0, bonus],
+            [(True, 2)] * 4 + [(True, 1), (False, 0)],
+            [(True, 2), (True, 1)], [(B, T, H, V), (B, H, K, V)],
+            include_current=include_current, chunk=chunk)
     nc, Lc = T // chunk, chunk
     dev = r.device
     acc = acc_dtype(r)
@@ -160,6 +174,13 @@ def recurrent_step(r, k, v, log_decay, state, *, include_current=True,
                    bonus=None):
     """Single decode step. r,k:(B,H,K) v:(B,H,V) state:(B,H,K,V) f32;
     log_decay (B,H,K) or (B,H)."""
+    if spmd.split(r):               # the dry-runs: each rank's own heads
+        B, H, K = r.shape
+        return spmd.heads_call(
+            _recurrent_step_args, [r, k, v, log_decay, state, bonus],
+            [(True, 1)] * 5 + [(False, 0)], [(True, 1), (True, 1)],
+            [(B, H, v.shape[-1]), (B, H, K, v.shape[-1])],
+            include_current=include_current)
     K = r.shape[-1]
     ld = _prep_decay(log_decay[:, None], K)[:, 0]    # add/strip a time axis
     acc = acc_dtype(r)
@@ -173,3 +194,15 @@ def recurrent_step(r, k, v, log_decay, state, *, include_current=True,
         y = y + torch.einsum("bhk,bhk->bh", r32 * bonus.to(acc),
                              k32)[..., None] * v32
     return y.to(v.dtype), S_new
+
+
+def _recurrent_scan_args(r, k, v, log_decay, state0, bonus, **kwargs):
+    return recurrent_scan(r, k, v, log_decay, state0, bonus=bonus, **kwargs)
+
+
+def _chunked_scan_args(r, k, v, log_decay, state0, bonus, **kwargs):
+    return chunked_scan(r, k, v, log_decay, state0, bonus=bonus, **kwargs)
+
+
+def _recurrent_step_args(r, k, v, log_decay, state, bonus, **kwargs):
+    return recurrent_step(r, k, v, log_decay, state, bonus=bonus, **kwargs)

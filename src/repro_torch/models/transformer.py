@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import spmd
 from repro_torch.tree import tree_map
 
 MAX_POS_EMBED = 32768     # learned abs-pos table for non-RoPE encoders
@@ -81,6 +82,7 @@ def _layer_apply(lp, cfg: ModelConfig, x, positions, cache, *, window: int,
     """One layer; returns (x, new_cache, the MoE aux loss or None).  The
     layer is an MoE layer when its FFN has a router, as in the JAX
     package's decode."""
+    x = spmd.batch_only(x)
     h = L.rms_norm(x, lp["ln1"])
     if cfg.use_mla:
         att, new_cache = MOE.mla_attention(lp["attn"], cfg, h, positions,
@@ -90,7 +92,7 @@ def _layer_apply(lp, cfg: ModelConfig, x, positions, cache, *, window: int,
         att, new_cache = L.attention(lp["attn"], cfg, h, positions, cache,
                                      window=window, impl=impl,
                                      q_chunks=q_chunks)
-    x = x + att
+    x = spmd.batch_only(x + att)
     h = L.rms_norm(x, lp["ln2"])
     if "router" in lp["ffn"]:
         f, aux = MOE.moe_ffn(lp["ffn"], cfg, h)
@@ -112,7 +114,8 @@ def _embed_inputs(params, cfg: ModelConfig, batch, dtype):
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if "pos_embed" in params:
-        x = x + params["pos_embed"][positions].to(dtype)
+        x = x + spmd.take_rows(params["pos_embed"],
+                               spmd.along_batch(positions, x)).to(dtype)
     return x, positions
 
 
@@ -129,7 +132,7 @@ def forward(params, cfg: ModelConfig, batch, *, window: int = 0,
                                q_chunks=q_chunks)
         if aux is not None:
             aux_total = aux_total + aux
-    x = L.rms_norm(x, params["final_norm"])
+    x = L.rms_norm(spmd.batch_only(x), params["final_norm"])
     logits = L.unembed(params["embed"], cfg, x)
     return logits, aux_total
 

@@ -339,3 +339,89 @@ def simulation_case(rank, n, w0, table, scheme, epochs, kw, sim_kw,
                 groups=sim.grouping.groups,
                 pend=[m[:2] for m in sim._pend_meta],
                 steps=(prog.dispatches, prog.fallback_dispatches))
+
+
+# ---- models/spmd.py: the dry-run's local regions on real data ----------------
+
+def spmd_case(rank, n):
+    """On a (2, n/2) ("data", "model") mesh of CPU ranks: the loss, the
+    embedding lookup, GQA attention (1 kv head under 4 query heads; also
+    under ``torch.utils.checkpoint``), the chunked and sequential scans
+    and a decode step on DTensors placed as the dry-run places them, and
+    on the same plain tensors: each output and gradient, whole, as numpy
+    (rank 0's; the others return None)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import layers as L
+    from repro_torch.models import scan_ops, spmd
+    mesh = DeviceMesh("cpu", torch.arange(n).view(2, n // 2),
+                      mesh_dim_names=("data", "model"))
+    gen = torch.Generator().manual_seed(0)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def both(fn, plain, placements):
+        """fn's outputs and the gradients of their weighted sum, on the
+        plain tensors and on their DTensors."""
+        out = {}
+        for name, xs in (("plain", plain),
+                         ("split", [distribute_tensor(t, mesh, p)
+                                    for t, p in zip(plain, placements)])):
+            leaves = [t.detach().requires_grad_(t.is_floating_point())
+                      for t in xs]
+            got = fn(*leaves)
+            got = [g.full_tensor() if spmd.is_dtensor(g) else g
+                   for g in (got if isinstance(got, tuple) else (got,))]
+            total = sum((g * torch.linspace(0.5, 1.5, g.numel()).view(
+                g.shape)).sum() for g in got)
+            total.backward()
+            grads = [t.grad.full_tensor() if spmd.is_dtensor(t.grad)
+                     else t.grad for t in leaves if t.requires_grad]
+            out[name] = [_np(t) for t in got + grads]
+        return out
+
+    S0, R = Shard(0), Replicate()
+    B, T, V, d = 4, 8, 12, 6
+    res = {}
+    labels = torch.randint(0, V, (B, T), generator=gen)
+    res["token_nll"] = both(lambda x, y: spmd.token_nll(x, y),
+                            [draw(B, T, V), labels],
+                            [[S0, Shard(2)], [S0, R]])
+    res["take_rows"] = both(lambda w, i: spmd.take_rows(w, i),
+                            [draw(V, d), labels], [[R, S0], [S0, R]])
+    H, KV, hd = 4, 1, 8
+    pos = torch.arange(T)[None].expand(B, T)
+    qkv = [draw(B, T, H, hd), draw(B, T, KV, hd), draw(B, T, KV, hd)]
+
+    def attention(q, k, v):
+        return L.attention_scores(q, k, v, pos, pos, causal=True, window=3,
+                                  kv_groups=H // KV)
+    res["attention"] = both(attention, qkv,
+                            [[S0, Shard(2)], [S0, R], [S0, R]])
+    # under remat, as the dry-run's train step runs it: the local graph's
+    # saved tensors dropped with the layer's and recomputed
+    res["attention_remat"] = both(
+        lambda *a: checkpoint(attention, *a, use_reentrant=False), qkv,
+        [[S0, Shard(2)], [S0, R], [S0, R]])
+    Hs, K, Vd = 2, 4, 3
+    res["scan"] = both(
+        lambda r, k, v, ld, u: scan_ops.chunked_scan(
+            r, k, v, ld, None, include_current=False, bonus=u, chunk=4),
+        [draw(B, T, Hs, K), draw(B, T, Hs, K), draw(B, T, Hs, Vd),
+         -draw(B, T, Hs, K).abs(), draw(Hs, K)],
+        [[S0, Shard(2)]] * 4 + [[R, S0]])
+    res["recurrent"] = both(
+        lambda r, k, v, ld, st, u: scan_ops.recurrent_scan(
+            r, k, v, ld, st, include_current=False, bonus=u),
+        [draw(B, 2, Hs, K), draw(B, 2, Hs, K), draw(B, 2, Hs, Vd),
+         -draw(B, 2, Hs, K).abs(), draw(B, Hs, K, Vd), draw(Hs, K)],
+        [[S0, Shard(2)]] * 4 + [[S0, Shard(1)], [R, S0]])
+    res["step"] = both(
+        lambda r, k, v, ld, st: scan_ops.recurrent_step(
+            r, k, v, ld, st, include_current=True),
+        [draw(B, Hs, K), draw(B, Hs, K), draw(B, Hs, Vd),
+         -draw(B, Hs).abs(), draw(B, Hs, K, Vd)],
+        [[S0, Shard(1)]] * 5)
+    return res if rank == 0 else None
