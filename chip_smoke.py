@@ -79,7 +79,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      other kernels never, in the entry point's run and in the warm one;
      the logits must be finite.  Prefill wall, decode
      ms/token (warm), the device busy share and the top device ops of one
-     prefill plus decode; the qwen3-4b weights are freed after it;
+     prefill plus 4 decode steps (``PROFILED_STEPS``); the qwen3-4b
+     weights are freed after it;
  10. ``flash_attention`` timed at the prefill shape (causal, window
      512), at hubert-xlarge's, at zamba2-2.7b's, and at head dims 96
      ([4, 2048, 32, 32, 96], Phi-3-mini's heads) and 256 ([4, 2048, 16, 8,
@@ -318,6 +319,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``dryrun`` row's temp within 0.5-2x the reference's (constants from
      its CPU run) and no ``view``, ``_unsafe_view``, ``flip`` or
      ``index_put`` replicated; the phase's wall is printed;
+ 33. SSM and hybrid training, after phase 31 (the kernel line stays last):
+     (a) ``repro_torch.launch.train.train`` on zamba2-2.7b at full width
+     cut to one group (6 Mamba2 layers and the shared attention block) and
+     on rwkv6-7b cut to 2 layers, f32, 3 AdamW steps of B 4 x 2048 with
+     remat off and on, through the plain chunked scan
+     (``scan_ops._ChunkedScan``, which saves its operands and one state a
+     chunk and recomputes a chunk at a time in its backward).  None of the
+     four kernels may launch; the losses must be finite and the two runs
+     equal (phase 27's rule); step walls and peak memory printed, beside
+     the same run (remat off) through the form before.  (b) the
+     bytes one ``chunked_scan`` call saves for its backward
+     (``saved_tensors_hooks``) at zamba2's Mamba2 layer [4, 2048, 40, 64,
+     128] and rwkv6-7b's [4, 2048, 64, 64, 64], chunk 128, f32: at most its
+     operands' storages, T / chunk + 1 states and 1 MB; autograd's own
+     graph of the same sub-block form printed beside it.  (c) one step's
+     gradient at B 2 x 256 (two chunks), per leaf within 1e-3 of its max
+     (phase 27's limit): through the chunked scan against through the
+     sequential recurrence, both in float64, a limit that the known-bad
+     control (the state handed between chunks detached in the scan's
+     backward) must fail; zamba2's f32 gradient against float64 too.
+     rwkv6-7b's f32 gradient against float64 is printed beside the same
+     figure through the sub-block form under autograd's own graph (the
+     form before): at this width it is ill-conditioned (phase 12);
  32. one JSON line of per-kernel numbers (the two LM kernels also at
      zamba2's shapes, as ``flash_attention:zamba2`` and
      ``chunk_scan:zamba2``, with phase 23's launches; ``fed_agg:lm`` and
@@ -326,9 +350,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
 repository beside it, it exits non-zero and prints no result.  A run
-takes 14 to 18 minutes on an H100, most of the spread in its host-bound
-phases (the CPU references of phases 4, 16-18 and 28, the serving
-paths' host).
+takes under 20 minutes on an H100 (its walls: PERF.md §5), most of the
+spread in its host-bound phases (the CPU references of phases 4, 16-18
+and 28, the profiler traces' processing on the host).
 ``--report PATH`` also writes every number of the run there as JSON,
 with the seconds at which each phase started.
 """
@@ -1009,6 +1033,9 @@ def main() -> None:
 
     # ---- 31. the dry-run tools -------------------------------------------
     dryrun_path(torch, dev, report)
+
+    # ---- 33. SSM and hybrid training ----------------------------------------
+    ssm_train_path(torch, dev, report, lm_wrappers)
 
     # ---- 32. the kernel line ----------------------------------------------
     phase("phase 32: the kernel line")
@@ -2666,6 +2693,14 @@ def route_parity(torch, dev, report) -> None:
     torch.cuda.empty_cache()
 
 
+# decode steps in the serving phases' profiled run (after a prefill): the
+# trace's processing takes the card's host about 0.75 s a thousand device
+# operations (phase 9's prefill and 32 steps of qwen3-4b, 132,652
+# operations, took ~100 s), most of a serving phase's wall when it
+# profiled 32 steps
+PROFILED_STEPS = 4
+
+
 def serving_path(torch, dev, report, *, arch, phase_no, expected,
                  extra_argv=(), cfg=None, after=None) -> dict:
     """Phases 9, 13, 23 and 25: the serving entry point at full width of
@@ -2730,31 +2765,39 @@ def serving_path(torch, dev, report, *, arch, phase_no, expected,
         fail(f"the warm {arch} run launched {warm_launches}, not {want}")
     steps_ms = sorted(x * 1e3 for x in warm["step_s"][1:])
     decode_ms = steps_ms[len(steps_ms) // 2]
+    # the profile: one prefill and PROFILED_STEPS decode steps, beside the
+    # same run unprofiled
+    short = dict(kw, tokens=PROFILED_STEPS)
+    t0 = time.perf_counter()
+    serve(params, cfg, **short)
+    short_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(params, cfg, **kw)
+        serve(params, cfg, **short)
         prof_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, n_kernels, top = top_device_ops(prof)
-    share = busy_ms / wall_ms if busy_ms else float("nan")
+    share = busy_ms / short_ms if busy_ms else float("nan")
     print(f"warm: prefill {warm['prefill_s'] * 1e3:.1f} ms ({B}x{P} "
           f"tokens, {B * P / warm['prefill_s']:.0f} tok/s); decode median "
           f"{decode_ms:.2f} ms/token-step (min {steps_ms[0]:.2f}, max "
           f"{steps_ms[-1]:.2f}; {B / decode_ms * 1e3:.1f} tok/s at B={B}); "
-          f"prefill + {T} steps {wall_ms:.1f} ms unprofiled "
-          f"({prof_ms:.1f} ms profiled)")
-    print(f"profile of one prefill + {T} decode steps: device busy "
-          f"{busy_ms:.1f} ms over {n_kernels} kernel launches, busy share "
-          f"of the unprofiled wall {share:.3f}"
+          f"prefill + {T} steps {wall_ms:.1f} ms")
+    print(f"profile of one prefill + {PROFILED_STEPS} decode steps: device "
+          f"busy {busy_ms:.1f} ms over {n_kernels} kernel launches, busy "
+          f"share of the unprofiled wall ({short_ms:.1f} ms; "
+          f"{prof_ms:.1f} ms profiled) {share:.3f}"
           + ("" if busy_ms else " — no device time recorded: not measured"))
     for t in top:
         print(f"  {t['ms']:9.3f} ms x{t['count']:<6d} {t['name']}")
     out = dict(
         first_run_s=first_s, prefill_ms_first=res["prefill_s"] * 1e3,
         prefill_ms=warm["prefill_s"] * 1e3, decode_ms_median=decode_ms,
-        decode_ms_steps=steps_ms, wall_ms=wall_ms, wall_ms_profiled=prof_ms,
-        busy_ms=busy_ms, busy_share=share, kernel_launches=n_kernels,
-        top=top, launches=launches, peak_gb=peak_gb)
+        decode_ms_steps=steps_ms, wall_ms=wall_ms,
+        profiled_steps=PROFILED_STEPS, wall_ms_short=short_ms,
+        wall_ms_profiled=prof_ms, busy_ms=busy_ms, busy_share=share,
+        kernel_launches=n_kernels, top=top, launches=launches,
+        peak_gb=peak_gb)
     report[f"serving_{arch}"] = out
     if after is not None:
         after(torch, params, cfg, out)
@@ -3231,10 +3274,9 @@ def scan_timings(torch, dev, gen, report) -> dict:
 
     out = {}
     m = SCAN_MAMBA2
-    for key, cfg, make, plain_reps in (
-            ("rwkv6", c, rwkv_inputs, 3),
-            ("zamba2", z, lambda: mamba_inputs(z), 1),
-            ("mamba2", m, lambda: mamba_inputs(m), 1)):
+    for key, cfg, make in (("rwkv6", c, rwkv_inputs),
+                           ("zamba2", z, lambda: mamba_inputs(z)),
+                           ("mamba2", m, lambda: mamba_inputs(m))):
         B, T, H, K, V, Lc = (cfg[x] for x in ("B", "T", "H", "K", "V",
                                               "chunk"))
         rwkv = key == "rwkv6"
@@ -3257,7 +3299,9 @@ def scan_timings(torch, dev, gen, report) -> dict:
         k_ms, q_ms, host_ms, _ = time_device(torch, kernel, sets,
                                              only="chunk_scan_kernel")
         w_ms, *_ = time_device(torch, kernel, sets)
-        p_ms, *_ = time_device(torch, plain, sets, reps=plain_reps)
+        # one call of the plain version: its 2048 steps launch ~30,000
+        # device operations, whose trace takes the host ~20 s to process
+        p_ms, *_ = time_device(torch, plain, sets, reps=1)
         # query-key pairs a chunk: s < t (RWKV6, the bonus apart) or
         # s <= t (Mamba2)
         pairs = Lc * (Lc - 1) // 2 if rwkv else Lc * (Lc + 1) // 2
@@ -4414,6 +4458,254 @@ def mesh_runtime(torch, dev, report, main_sim, main_hist, wrappers) -> None:
                                 launches=r["launches"]) for r in ranks])
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 30: {out['wall_s']:.1f} s ({card})")
+
+
+# ---- SSM and hybrid training: phase 33 --------------------------------------
+
+# launch.train at published width cut in depth, f32, 3 AdamW steps of B 4 x
+# 2048 with remat off and on: zamba2-2.7b cut to one group (6 Mamba2 layers
+# and the shared attention block), rwkv6-7b cut to 2 layers
+SSM_TRAIN = (("zamba2-2.7b", 6), ("rwkv6-7b", 2))
+SSM_STEPS = dict(B=4, S=2048, steps=3, lr=1e-3)
+# one step's gradients at B 2 x 256, two chunks of 128, so that the control
+# (the state handed between chunks detached in the scan's backward) has a
+# state to lose; per leaf within phase 27's GRAD64_LIMIT of its max: the
+# chunked scan's float64 gradient against the sequential recurrence's, and
+# zamba2's f32 gradient against float64.  rwkv6-7b's f32 gradient is
+# printed, not gated: at this width the per-head group norm over a
+# near-zero WKV state at the first positions turns f32 rounding into
+# gradient differences of ~2e-3 of a leaf's max whichever form of the scan
+# computes it (phase 12; tests/test_torch_train.py holds it in float64)
+SSM_GRAD64 = dict(B=2, S=256)
+SSM_F32_GATED = ("zamba2-2.7b",)
+# one chunked_scan call's saved bytes under autograd, at zamba2's Mamba2
+# layer (B, T, H, K, V; chunk 128) and rwkv6-7b's layer, in f32: at most
+# its operands' storages, T / chunk + 1 states and SCAN_SAVED_SLACK
+SCAN_SAVED_SHAPES = (("zamba2-2.7b", "mamba", (4, 2048, 40, 64, 128)),
+                     ("rwkv6-7b", "rwkv", (4, 2048, 64, 64, 64)))
+SCAN_SAVED_SLACK = 1 << 20
+
+
+def scan_saved_bytes(torch, dev, report) -> dict:
+    """Phase 33 (b): the bytes one ``scan_ops.chunked_scan`` call saves for
+    its backward (``launch.collectives.saved_bytes``) at each of
+    ``SCAN_SAVED_SHAPES``, against its bound; autograd's own graph of the
+    same sub-block form (``scan_ops._scan`` without the Function, the form
+    before it) printed beside it."""
+    from repro_torch.launch.collectives import saved_bytes
+    from repro_torch.models import scan_ops
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for arch, mode, (B, T, H, K, V) in SCAN_SAVED_SHAPES:
+        chunk = 128
+        rwkv = mode == "rwkv"
+
+        def leaf(*shape, scale=0.3):
+            return (torch.randn(*shape, generator=gen, device=dev)
+                    * scale).requires_grad_(True)
+        ops = [leaf(B, T, H, K), leaf(B, T, H, K), leaf(B, T, H, V),
+               (-torch.rand(*((B, T, H, K) if rwkv else (B, T, H)),
+                            generator=gen, device=dev)).requires_grad_(True),
+               leaf(B, H, K, V, scale=0.1),
+               leaf(H, K, scale=0.2) if rwkv else None]
+        kw = dict(include_current=not rwkv, chunk=chunk)
+        inputs = sum(t.untyped_storage().nbytes() for t in ops
+                     if t is not None)
+        state = B * H * K * V * 4
+        bound = inputs + (T // chunk + 1) * state + SCAN_SAVED_SLACK
+        new, res = saved_bytes(scan_ops.chunked_scan, *ops[:5],
+                               bonus=ops[5], **kw)
+        del res
+        old, res = saved_bytes(scan_ops._scan, *ops, **kw)
+        del res
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        print(f"  {arch} [{B}, {T}, {H}, {K}, {V}] chunk {chunk}: saved "
+              f"{new / 1e6:.1f} MB = operands {inputs / 1e6:.1f} MB + "
+              f"{(new - inputs) / 1e6:.1f} MB (bound {bound / 1e6:.1f} MB: "
+              f"{T // chunk + 1} states of {state / 1e6:.2f} MB and 1 MB); "
+              f"autograd's own graph of the same form {old / 1e6:.1f} MB")
+        if not new <= bound:
+            fail(f"phase 33 (b): one {arch} scan saves {new} B, above its "
+                 f"bound {bound}")
+        out[arch] = dict(shape=[B, T, H, K, V], chunk=chunk, saved=new,
+                         operands=inputs, bound=bound, graph_saved=old)
+        del ops
+    return out
+
+
+def ssm_train_path(torch, dev, report, wrappers) -> None:
+    """Phase 33: SSM and hybrid training on the card through the plain
+    chunked scan (``scan_ops._ChunkedScan``): (a) ``launch.train.train``
+    on each of ``SSM_TRAIN`` at published width cut in depth, f32, remat
+    off and on: finite losses, no kernel launched, the two runs equal (bit
+    for bit, or within phase 27's bound), and remat off through the form
+    before (autograd's own graph of ``scan_ops._scan``) for its step wall
+    and peak; (b) one scan call's saved bytes
+    at the layers' shapes within their bound; (c) one step's float64
+    gradient through the chunked scan against through the sequential
+    recurrence per leaf within ``GRAD64_LIMIT``, which the known-bad
+    control (the state between chunks detached in the scan's backward)
+    must fail, and the f32 gradient against float64 (gated for
+    ``SSM_F32_GATED``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.modelbank import flatten_tree
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import make_batch, train
+    from repro_torch.models import registry as R
+    from repro_torch.models import scan_ops
+    T = SSM_STEPS
+    t_phase = time.perf_counter()
+    phase(f"phase 33: SSM and hybrid training — launch.train.train on "
+          f"{', '.join(f'{a} cut to {n} layers' for a, n in SSM_TRAIN)} at "
+          f"full width, f32, {T['steps']} AdamW steps of B {T['B']} x "
+          f"{T['S']}, remat off and on; a scan's saved bytes; f32 "
+          f"gradients against float64")
+    for w in wrappers:
+        w.launches = 0
+    out = {"train": {}, "grad64": {}}
+    for arch, layers in SSM_TRAIN:
+        cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+        n = R.analytic_param_count(cfg)
+        runs = {}
+        for remat in (False, True):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            res = train(cfg.replace(remat=remat), steps=T["steps"],
+                        batch=T["B"], seq=T["S"], lr=T["lr"], device=dev,
+                        log=None)
+            wall = time.perf_counter() - t0
+            runs[remat] = dict(
+                losses=res["losses"], step_s=res["step_s"], wall_s=wall,
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                flat=flatten_tree(res["params"]))
+            del res
+            r = runs[remat]
+            print(f"  {arch} ({n:,} parameters) remat={remat}: losses "
+                  f"{[round(x, 5) for x in r['losses']]}; step wall (s) "
+                  f"{[round(x, 3) for x in r['step_s']]} (the first with "
+                  f"the allocator's warm-up); peak memory "
+                  f"{r['peak_gb']:.1f} GB; {wall:.1f} s with init")
+        # what the recompute costs: the same run (remat off) through
+        # autograd's own graph of the sub-block form, the form before
+        real = scan_ops._ChunkedScan.apply
+        scan_ops._ChunkedScan.apply = staticmethod(scan_ops._scan)
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            res = train(cfg, steps=T["steps"], batch=T["B"], seq=T["S"],
+                        lr=T["lr"], device=dev, log=None)
+        finally:
+            scan_ops._ChunkedScan.apply = real
+        before = dict(losses=res["losses"], step_s=res["step_s"],
+                      peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        del res
+        print(f"  {arch} through the form before (remat off): losses "
+              f"{[round(x, 5) for x in before['losses']]}; step wall (s) "
+              f"{[round(x, 3) for x in before['step_s']]}; peak memory "
+              f"{before['peak_gb']:.1f} GB")
+        if not all(math.isfinite(x) for r in runs.values()
+                   for x in r["losses"]):
+            fail(f"phase 33: a non-finite {arch} training loss")
+        a, b = runs[False], runs[True]
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                            b["losses"]))
+        w_max, w_beyond, _ = flips(torch, a["flat"], b["flat"], REMAT_W_TOL)
+        bit_equal = a["losses"] == b["losses"] and torch.equal(a["flat"],
+                                                               b["flat"])
+        print(f"  {arch} remat against no remat: "
+              f"{'bit-equal' if bit_equal else 'not bit-equal'}; losses "
+              f"{loss_rel:.3e} apart, weights max {w_max:.3e}, {w_beyond} "
+              f"beyond {REMAT_W_TOL}")
+        if not bit_equal and not (loss_rel <= REMAT_LOSS_REL
+                                  and w_beyond <= FLIP_SHARE * n):
+            fail(f"phase 33: remat changed {arch}'s training beyond its "
+                 f"bound")
+        for r in runs.values():
+            del r["flat"]
+        out["train"][arch] = dict(
+            layers=layers, params=n, runs={str(k): v for k, v in runs.items()},
+            remat_bit_equal=bit_equal, remat_loss_rel=loss_rel,
+            remat_w_max=w_max, remat_w_beyond=w_beyond, form_before=before)
+        torch.cuda.empty_cache()
+    launches = {w.__name__: w.launches for w in wrappers}
+    if any(launches.values()):
+        fail(f"phase 33's training launched kernels: {launches}")
+    out["launches"] = launches
+
+    out["saved"] = scan_saved_bytes(torch, dev, report)
+
+    B2, S2 = SSM_GRAD64["B"], SSM_GRAD64["S"]
+    real_chunk, real_scan = scan_ops._chunk, scan_ops.chunked_scan
+
+    def grads(params, cfg, dtype, scan=None, chunk=None):
+        """One step's gradients, in ``dtype``, with ``chunked_scan`` or
+        ``_chunk`` replaced while it runs."""
+        cfg = cfg.replace(dtype=dtype)
+        scan_ops.chunked_scan = scan or real_scan
+        scan_ops._chunk = chunk or real_chunk
+        try:
+            return loss_and_grads(
+                to_double(params) if dtype == "float64" else params, cfg,
+                make_batch(cfg, B2, S2, seed=0, device=dev))[2]
+        finally:
+            scan_ops.chunked_scan, scan_ops._chunk = real_scan, real_chunk
+
+    def recurrence(r, k, v, ld, state0=None, *, include_current=True,
+                   bonus=None, **_):
+        return scan_ops.recurrent_scan(r, k, v, ld, state0, bonus=bonus,
+                                       include_current=include_current)
+
+    def detached(rq, kq, vq, ldq, S, *a):
+        return real_chunk(rq, kq, vq, ldq, S.detach(), *a)
+
+    def form_before(*a, impl="plain", **kw):
+        return scan_ops._scan(*a[:4], a[4] if len(a) > 4 else None,
+                              kw.get("bonus"), kw["include_current"],
+                              kw["chunk"])
+    for arch, layers in SSM_TRAIN:
+        cfg = get_config(arch).replace(num_layers=layers)
+        params = R.init_params(0, cfg, device=dev)
+        g64 = grads(params, cfg, "float64")
+        want = grads(params, cfg, "float64", scan=recurrence)
+        errs = {
+            # the gate: the chunked scan's backward against autograd
+            # through the sequential recurrence, both in float64
+            "float64": leaf_errors(torch, g64, want),
+            "control": leaf_errors(torch, grads(
+                params, cfg, "float64", chunk=detached), want),
+            # phase 27's rule: the f32 gradient against float64
+            "f32": leaf_errors(torch, grads(params, cfg, "float32"), g64),
+            "f32_before": leaf_errors(torch, grads(
+                params, cfg, "float32", scan=form_before), g64)}
+        del params, g64, want
+        torch.cuda.empty_cache()
+        worst = {k: max(e, key=e.get) for k, e in errs.items()}
+        line = "; ".join(f"{k} {errs[k][w]:.3e} ({w})"
+                         for k, w in worst.items())
+        print(f"  {arch} gradients at B {B2} x {S2}, per leaf max|g - "
+              f"want| / max|want| (limit {GRAD64_LIMIT}), worst: {line}; "
+              f"{sum(v > GRAD64_LIMIT for v in errs['control'].values())} "
+              f"of {len(errs['control'])} control leaves beyond the limit")
+        if not errs["float64"][worst["float64"]] <= GRAD64_LIMIT:
+            fail(f"phase 33: {arch}'s float64 gradient through the chunked "
+                 f"scan is {errs['float64'][worst['float64']]} from the "
+                 f"recurrence's")
+        if not errs["control"][worst["control"]] > GRAD64_LIMIT:
+            fail(f"phase 33: the limit does not reject {arch}'s detached "
+                 f"state")
+        if arch in SSM_F32_GATED and not (
+                errs["f32"][worst["f32"]] <= GRAD64_LIMIT):
+            fail(f"phase 33: {arch}'s f32 gradient of {worst['f32']} is "
+                 f"{errs['f32'][worst['f32']]} from float64")
+        out["grad64"][arch] = {k: dict(worst=worst[k], errors=e)
+                               for k, e in errs.items()}
+    if launches != {w.__name__: w.launches for w in wrappers}:
+        fail("phase 33 launched a kernel after its training runs")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 33: {out['wall_s']:.1f} s ({report.get('card', '')})")
+    report["ssm_train"] = out
 
 
 # ---- the dry-run tools: phase 31 --------------------------------------------

@@ -16,12 +16,22 @@ port's per-device memory against the reference's.
 ``arch:shape``; ``--meshes`` names the production meshes, ``single`` (16
 x 16) and ``multi`` (2 x 16 x 16, ``--multi-pod``).  Each
 row's result, its wall seconds and its exit code go to ``--out`` as JSON
-(the memory keys of the row, ``replicated`` and ``peak_holders`` where
-the port has them, ``lower_s``).  With ``--against`` (such a file from the
-other side, here ``scripts/dryrun_reference.json``: the reference's rows
-on 16 x 16 and 2 x 16 x 16, taken on a CPU with jax 0.9.0), a table of
-temp bytes, their ratio and the argument bytes' difference is printed, a
-row at a time as each ends.
+(the memory keys of the row, its FLOPs, bytes accessed and collective
+bytes by kind, ``replicated`` and ``peak_holders`` where the port has
+them, ``lower_s``).  With ``--against`` (such a file from the other side,
+here ``scripts/dryrun_reference.json``: the reference's rows on 16 x 16
+and 2 x 16 x 16, taken on a CPU with jax 0.9.0), a table of temp bytes,
+their ratio, the argument bytes' difference, and the ratios of FLOPs a
+device and of each collective kind's bytes is printed, a row at a time as
+each ends.  The two sides count differently: XLA's ``cost_analysis``
+counts every operation of the partitioned program (elementwise work too)
+on one device; the port counts the matrix products' 2 m n k
+(``FlopCounterMode``) of one rank's share.  Collective bytes are each
+kind's output bytes on one device on both sides.  The reference scans its
+layer stacks (``lax.scan``), and both its counts hold a loop's body once,
+so a full row's ratios grow with the layer count;
+``tests/test_torch_dryrun_parity.py`` (b) holds the port's row cut to one
+layer to them.
 """
 from __future__ import annotations
 
@@ -43,8 +53,8 @@ SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 MODULES = {"port": "repro_torch.launch.dryrun",
            "reference": "repro.launch.dryrun"}
 KEEP = ("arch", "shape", "multi_pod", "mesh_shape", "skipped", "memory",
-        "replicated", "peak_holders", "lower_s", "flops_per_device",
-        "error")
+        "replicated", "peak_holders", "lower_s", "flops", "flops_per_device",
+        "bytes_accessed", "collective_bytes", "error")
 
 
 def key(arch: str, shape: str, multi_pod: bool) -> str:
@@ -80,6 +90,21 @@ def run_row(side: str, arch: str, shape: str, multi_pod: bool,
     return row
 
 
+def ratios(row: dict, other: dict) -> dict:
+    """The port's (``row``) FLOPs a device and each collective kind's
+    bytes over the reference's (``other``; XLA counts the partitioned
+    program, one device's), None where the reference has none."""
+    want = other["flops"]
+    out = {"flops": row["flops_per_device"] / want if want > 0 else None}
+    mine = row.get("collective_bytes") or {}
+    theirs = other.get("collective_bytes") or {}
+    for kind in sorted(set(mine) | set(theirs)):
+        if not kind.startswith("_"):
+            want = theirs.get(kind, 0)
+            out[f"coll {kind}"] = mine.get(kind, 0) / want if want else None
+    return out
+
+
 def line(row: dict, ref: dict) -> str:
     name = key(row["arch"], row["shape"], row["multi_pod"])
     if row.get("skipped"):
@@ -95,6 +120,13 @@ def line(row: dict, ref: dict) -> str:
                 - other["memory"]["argument_size_bytes"])
         text += (f", reference {want / 1e9:.2f} GB, ratio "
                  f"{temp / want:.3f}; arguments {darg:+d} B")
+        if "flops" in other:
+            text += "; " + ", ".join(
+                f"{k} {'-' if v is None else f'{v:.3f}'}"
+                for k, v in ratios(row, other).items())
+            coll = (other.get("collective_bytes") or {}).get("total", 0)
+            text += (f" (reference {other['flops']:.4g} FLOPs, "
+                     f"{coll / 1e9:.3f} GB collectives a device)")
     text += (f"; replicated {row.get('replicated', [])}; "
              f"{row.get('lower_s')} s traced, {row['wall_s']} s wall")
     return text

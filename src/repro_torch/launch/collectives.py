@@ -103,6 +103,20 @@ def alloc_bytes(nbytes: int) -> int:
     return -(-int(nbytes) // ALLOC_UNIT) * ALLOC_UNIT
 
 
+def saved_bytes(fn, *args, **kwargs):
+    """(the bytes of the distinct storages that autograd saves for the
+    backward while ``fn(*args, **kwargs)`` runs, its result)."""
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen[st._cdata] = st.nbytes()
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn(*args, **kwargs)
+    return sum(seen.values()), out
+
+
 @dataclasses.dataclass(frozen=True)
 class Collective:
     kind: str           # the reference's HLO name, or "broadcast"

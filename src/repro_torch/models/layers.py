@@ -287,6 +287,33 @@ def embed(p, cfg: ModelConfig, tokens, dtype):
 
 
 def unembed(p, cfg: ModelConfig, x):
-    if cfg.tie_embeddings:
-        return x @ p["embedding"].to(x.dtype).T
-    return x @ p["unembed"].to(x.dtype)
+    """Logits of ``x`` (B, S, d) against the vocab table (the embedding
+    when tied).  Where the table must be cast to ``x``'s dtype and no
+    gradient is taken (serving), it is cast and multiplied
+    ``VOCAB_BLOCK`` vocab rows at a time, so that at most one block's copy
+    is live (XLA fuses the cast into the product); on DTensors, on each
+    rank's own rows and vocab shard (``spmd.vocab_call``)."""
+    tied = cfg.tie_embeddings
+    table = p["embedding"] if tied else p["unembed"]
+    if table.dtype == x.dtype or (torch.is_grad_enabled() and (
+            x.requires_grad or table.requires_grad)):
+        w = table.to(x.dtype)
+        return x @ (w.T if tied else w)
+    if spmd.is_dtensor(table):
+        return spmd.vocab_call(_unembed_blocks, x, table, 0 if tied else 1)
+    return _unembed_blocks(x, table, 0 if tied else 1)
+
+
+VOCAB_BLOCK = 8192      # vocab rows of the table cast at a time
+
+
+def _unembed_blocks(x, table, vocab_dim: int):
+    """``x @ table`` (its vocab along ``vocab_dim``), the table cast to
+    ``x``'s dtype one ``VOCAB_BLOCK`` of vocab rows at a time."""
+    V = table.shape[vocab_dim]
+    out = torch.empty(x.shape[:-1] + (V,), dtype=x.dtype, device=x.device)
+    for a in range(0, V, VOCAB_BLOCK):
+        w = table.narrow(vocab_dim, a, min(VOCAB_BLOCK, V - a)).to(x.dtype)
+        out[..., a:a + w.shape[vocab_dim]] = x @ (w.T if vocab_dim == 0
+                                                  else w)
+    return out

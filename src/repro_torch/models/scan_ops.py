@@ -110,7 +110,10 @@ def chunked_scan(r, k, v, log_decay, state0=None, *, include_current=True,
     ``impl="kernel"`` (the JAX package's ``"pallas"``) routes the chunk
     compute through ``kernels.chunk_scan`` (the CUDA kernel for a CUDA
     tensor, its plain version for a CPU one); ``impl="plain"`` (its
-    ``"jnp"``) is the sub-block form above in PyTorch ops.
+    ``"jnp"``) is the sub-block form above in PyTorch ops.  Under autograd
+    the plain route is ``_ChunkedScan``: it saves its operands as passed
+    and the state entering each chunk, and recomputes one chunk at a time
+    in its backward.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -128,46 +131,138 @@ def chunked_scan(r, k, v, log_decay, state0=None, *, include_current=True,
             [(True, 2)] * 4 + [(True, 1), (False, 0)],
             [(True, 2), (True, 1)], [(B, T, H, V), (B, H, K, V)],
             include_current=include_current, chunk=chunk)
-    nc, Lc = T // chunk, chunk
+    operands = (r, k, v, log_decay, state0, bonus)
+    if T and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        return _ChunkedScan.apply(*operands, include_current, chunk)
+    return _scan(*operands, include_current, chunk)
+
+
+def _keep(Lc: int, include_current: bool, device) -> torch.Tensor:
+    """The intra-chunk mask (Lc, Lc): s <= t (include_current) or s < t."""
+    rows = torch.arange(Lc, device=device)
+    return (rows[:, None] >= rows[None, :] if include_current
+            else rows[:, None] > rows[None, :])
+
+
+def _chunk(rq, kq, vq, ldq, S, u, keep, include_current: bool):
+    """One chunk of the sub-block form: ``rq``, ``kq`` (B, Lc, H, K),
+    ``vq`` (B, Lc, H, V) and the log-decay ``ldq`` (B, Lc, H[, K]) as
+    passed, ``S`` (B, H, K, V) the state entering it and ``u`` the bonus,
+    both in ``acc_dtype``.  Returns (y (B, Lc, H, V), the state leaving
+    it), both in ``acc_dtype``."""
+    acc = S.dtype
+    rq, kq, vq = rq.to(acc), kq.to(acc), vq.to(acc)
+    L = torch.cumsum(_prep_decay(ldq, rq.shape[-1]), dim=1)   # (B,Lc,H,K)
+    excl = torch.cat([torch.zeros_like(L[:, :1]), L[:, :-1]], dim=1)
+    M = L if include_current else excl
+    L_end = L[:, -1]                                          # (B,H,K)
+
+    y = torch.einsum("blhk,bhkv->blhv", rq * torch.exp(M), S)
+    parts = []
+    Lc = rq.shape[1]
+    for a in range(0, Lc, SUB_BLOCK):
+        b = min(a + SUB_BLOCK, Lc)
+        ref = excl[:, a:a + 1]                                # (B,1,H,K)
+        q_t = rq[:, a:b] * torch.exp(M[:, a:b] - ref)
+        k_t = kq[:, :b] * torch.exp(ref - L[:, :b])
+        A = torch.einsum("blhk,bshk->bhls", q_t, k_t)
+        A = torch.where(keep[a:b, :b], A, 0.0)
+        parts.append(torch.einsum("bhls,bshv->blhv", A, vq[:, :b]))
+    y = y + torch.cat(parts, dim=1)
+    if not include_current:
+        diag = torch.einsum("blhk,blhk->blh", rq * u, kq)
+        y = y + diag[..., None] * vq
+    k_carry = kq * torch.exp(L_end[:, None] - L)
+    S = (torch.exp(L_end)[..., None] * S
+         + torch.einsum("blhk,blhv->bhkv", k_carry, vq))
+    return y, S
+
+
+def _scan(r, k, v, log_decay, state0, bonus, include_current: bool,
+          chunk: int, states=None):
+    """The sub-block form over every chunk, (y in v's dtype, the final
+    state in ``acc_dtype``); the state entering each chunk is appended to
+    ``states`` when it is given."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
     dev = r.device
     acc = acc_dtype(r)
-    ld = _prep_decay(log_decay, K)
     S = (torch.zeros((B, H, K, V), dtype=acc, device=dev)
          if state0 is None else state0.to(acc))
     u = None if include_current else bonus.to(acc)
-    rows = torch.arange(Lc, device=dev)
-    keep = (rows[:, None] >= rows[None, :] if include_current
-            else rows[:, None] > rows[None, :])                # (Lc, Lc)
+    keep = _keep(chunk, include_current, dev)
     ys = []
-    for c in range(nc):
-        sl = slice(c * Lc, (c + 1) * Lc)
-        rq, kq, vq = r[:, sl].to(acc), k[:, sl].to(acc), v[:, sl].to(acc)
-        L = torch.cumsum(ld[:, sl], dim=1)                     # (B,Lc,H,K)
-        excl = torch.cat([torch.zeros_like(L[:, :1]), L[:, :-1]], dim=1)
-        M = L if include_current else excl
-        L_end = L[:, -1]                                       # (B,H,K)
-
-        y = torch.einsum("blhk,bhkv->blhv", rq * torch.exp(M), S)
-        parts = []
-        for a in range(0, Lc, SUB_BLOCK):
-            b = min(a + SUB_BLOCK, Lc)
-            ref = excl[:, a:a + 1]                             # (B,1,H,K)
-            q_t = rq[:, a:b] * torch.exp(M[:, a:b] - ref)
-            k_t = kq[:, :b] * torch.exp(ref - L[:, :b])
-            A = torch.einsum("blhk,bshk->bhls", q_t, k_t)
-            A = torch.where(keep[a:b, :b], A, 0.0)
-            parts.append(torch.einsum("bhls,bshv->blhv", A, vq[:, :b]))
-        y = y + torch.cat(parts, dim=1)
-        if not include_current:
-            diag = torch.einsum("blhk,blhk->blh", rq * u, kq)
-            y = y + diag[..., None] * vq
-        k_carry = kq * torch.exp(L_end[:, None] - L)
-        S = (torch.exp(L_end)[..., None] * S
-             + torch.einsum("blhk,blhv->bhkv", k_carry, vq))
+    for c in range(T // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        if states is not None:
+            states.append(S)
+        y, S = _chunk(r[:, sl], k[:, sl], v[:, sl], log_decay[:, sl], S, u,
+                      keep, include_current)
         ys.append(y)
     y = (torch.cat(ys, dim=1) if ys
          else torch.zeros((B, 0, H, V), device=dev))
     return y.to(v.dtype), S
+
+
+class _ChunkedScan(torch.autograd.Function):
+    """``_scan`` under autograd, holding its operands as passed and one
+    state a chunk where autograd's own graph of ``_scan`` would hold every
+    sub-block's products (copies that grow with the chunk's square).  The
+    backward walks the chunks from last to first: it recomputes a chunk's
+    forward from its operands and entering state (the same ``_chunk``, so
+    the same sub-block exponents) and takes the gradients of (y, the state
+    leaving it), handing the state's on to the chunk before.  Its peak is
+    one chunk's graph."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_decay, state0, bonus, include_current,
+                chunk):
+        states = []
+        y, S = _scan(r, k, v, log_decay, state0, bonus, include_current,
+                     chunk, states)
+        ctx.save_for_backward(r, k, v, log_decay, bonus, *states)
+        ctx.meta = (include_current, chunk,
+                    None if state0 is None else state0.dtype)
+        ctx.set_materialize_grads(False)    # an unused output's is None
+        return y, S
+
+    @staticmethod
+    def backward(ctx, gy, gS):
+        r, k, v, log_decay, bonus, *states = ctx.saved_tensors
+        include_current, chunk, state0_dtype = ctx.meta
+        need = ctx.needs_input_grad
+        acc = acc_dtype(r)
+        u = (None if include_current
+             else bonus.detach().to(acc).requires_grad_(need[5]))
+        keep = _keep(chunk, include_current, r.device)
+        parts, gu = [], None            # each chunk's (gr, gk, gv, gld)
+        for c in reversed(range(len(states))):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            with torch.enable_grad():
+                ins = [t[:, sl].detach().requires_grad_(want)
+                       for t, want in zip((r, k, v, log_decay), need)]
+                S = states[c].detach().requires_grad_(c > 0 or need[4])
+                y, S_out = _chunk(*ins, S, u, keep, include_current)
+            outs, cots = zip(*[(o, g) for o, g in (
+                (y, None if gy is None else gy[:, sl].to(acc)), (S_out, gS))
+                if g is not None])
+            wrt = [t for t in (*ins, S, u) if t is not None
+                   and t.requires_grad]
+            # an operand with no path to the outputs (r without y's
+            # gradient) gets zeros
+            got = dict(zip(map(id, wrt), torch.autograd.grad(
+                outs, wrt, cots, materialize_grads=True)))
+            parts.append([got.get(id(t)) for t in ins])
+            gS, g = got.get(id(S)), got.get(id(u))
+            if g is not None:
+                gu = g if gu is None else gu + g
+            del y, S_out, outs, ins, got
+        grads = [torch.cat([p[i] for p in reversed(parts)], dim=1)
+                 if need[i] else None for i in range(4)]
+        g0 = gS.to(state0_dtype) if need[4] else None
+        gb = gu.to(bonus.dtype) if gu is not None else None
+        return (*grads, g0, gb, None, None)
 
 
 def recurrent_step(r, k, v, log_decay, state, *, include_current=True,

@@ -30,6 +30,8 @@ caller computed before, so no result of the port moves.
   how many ranks share it, so that a global FLOP count stays whole.
   (``local_map`` would splice the local graph into the step's, where its
   backward runs outside any region and cannot be counted so.)
+* ``vocab_call``: the unembedding's blocked cast and product
+  (``layers.unembed`` in serving) on each rank's rows and vocab shard.
 * ``token_nll``: the loss's per-token negative log-likelihood; over more
   than one rank each rank takes its rows and vocab shard, and the max,
   the sum of exponentials and the gold logit are reduced over the
@@ -406,6 +408,25 @@ def local_call(fn, args, placements, out_placements, out_shapes,
     meta = [(mesh, p, s) for p, s in zip(out_placements, out_shapes)]
     return _LocalCall.apply(fn, kwargs, meta,
                             _shards(mesh, out_placements[0]), *placed)
+
+
+def vocab_call(fn, x, table, vocab_dim: int):
+    """``fn(x, table, vocab_dim)``, logits (B, ..., V) of ``x`` (B, ...,
+    d) against a DTensor ``table`` whose vocab is its dim ``vocab_dim``, on
+    each rank's local tensors: ``x`` split by its batch alone, the table
+    by its vocab alone but on an axis that splits the batch, the logits as
+    both."""
+    from torch.distributed.tensor import Replicate, Shard
+    xp = _batch_placements(x)
+    tp = tuple(p if p == Shard(vocab_dim) and q != Shard(0) else Replicate()
+               for p, q in zip(table.placements, xp))
+    op = tuple(Shard(0) if q == Shard(0) else Shard(x.dim() - 1)
+               if p == Shard(vocab_dim) else Replicate()
+               for p, q in zip(tp, xp))
+    [out] = local_call(lambda a, b: (fn(a, b, vocab_dim),), [x, table],
+                       [xp, tp], [op],
+                       [tuple(x.shape[:-1]) + (table.shape[vocab_dim],)])
+    return out
 
 
 def heads_call(fn, args, specs, out_specs, out_shapes, **kwargs):

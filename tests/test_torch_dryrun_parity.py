@@ -15,14 +15,21 @@
     package in a process of its own: argument bytes equal but for the
     port's 512-byte rounding of each leaf, and the port's temp memory
     within [0.5, 2] x the reference's (a trace that loses storages would
-    size a run too small).
+    size a run too small).  FLOPs a device and all-reduce bytes a device
+    of the port's step cut to one layer (the reference's counts hold its
+    scanned layer loop's body once) within ``REF_BOUNDS`` of the
+    reference's, bounds that one rank's count doubled or the all-reduce
+    left out would miss.
 (c) On plain tensors, attention and the loss give the same bits as the
     versions before the dry-run placed them (frozen below), forward and
-    backward, at three GQA shapes in f32 and bf16.
+    backward, at three GQA shapes in f32 and bf16; serving's unembedding,
+    its table cast a vocab block at a time, the bits of one cast and
+    product.
 (d) On a real 4-rank gloo world of the CPU, the dry-run's local regions
     (``models/spmd.py``: the vocab-parallel loss and lookup, attention
     on each rank's heads with 2 ranks over 1 kv head, the chunked and
-    sequential scans and a decode step on each rank's heads) give the
+    sequential scans and a decode step on each rank's heads, serving's
+    blocked unembedding on each rank's rows and vocab shard) give the
     plain route's outputs and gradients, so the trace holds the same
     program.
 
@@ -35,6 +42,7 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+import types
 
 import numpy as np
 import pytest
@@ -55,6 +63,17 @@ SCAN_ARCHS = ("rwkv6-7b", "zamba2-2.7b")
 SCAN_MESHES = ((1, 1), (2, 2))
 ALLOC_UNIT = 512
 FLOPS_REL = 0.01
+# (b): the port's FLOPs a device and all-reduce bytes a device over the
+# reference's.  The reference scans its layers (``lax.scan``), and XLA's
+# ``cost_analysis`` and its HLO text count a loop's body once, so its
+# figures are those of the step with one layer: the port's one-layer row
+# is held against them.  The bounds lie about 20 % around this CPU's
+# readings (torch 2.13, jax 0.9.0): FLOPs 1.164 (train) and 1.083 (prefill;
+# XLA counts elementwise work, the port only the products, which remat
+# and the loss's f32 logits add to), all-reduce bytes 0.425 and 0.667
+REF_BOUNDS = {"train_4k": {"flops": (0.95, 1.4), "all-reduce": (0.34, 0.52)},
+              "prefill_32k": {"flops": (0.9, 1.3),
+                              "all-reduce": (0.53, 0.8)}}
 
 # (a): every kind on each mesh, in one process (a fake world is replaced
 # when the next mesh asks for another size)
@@ -107,6 +126,11 @@ PORT_SCRIPT = textwrap.dedent("""
     if shp.kind == "train":
         trees.append(opt_state_specs(cfg, trees[0]))
     row["n_leaves"] = sum(len(tree_leaves(t)) for t in trees)
+    # the same step with one layer: what the reference's counts hold
+    one = dryrun_one(arch, shape, cfg=cfg.replace(num_layers=1),
+                     verbose=False)
+    row["one_layer"] = {k: one[k] for k in ("flops_per_device",
+                                            "collective_bytes")}
     print(json.dumps(row))
 """)
 
@@ -221,6 +245,30 @@ def test_full_width_matches_reference(runs, shape):
                                                      ref["memory"])
 
 
+def _within(bounds, got, want) -> bool:
+    lo, hi = bounds
+    return want > 0 and lo <= got / want <= hi
+
+
+@pytest.mark.parametrize("shape", FULL_SHAPES)
+def test_flops_and_collectives_match_reference(runs, shape):
+    port, ref = runs[f"port {shape}"], runs[f"ref {shape}"]
+    one, bounds = port["one_layer"], REF_BOUNDS[shape]
+    got = {"flops": one["flops_per_device"],
+           "all-reduce": one["collective_bytes"].get("all-reduce", 0)}
+    want = {"flops": ref["flops"],
+            "all-reduce": ref["collective_bytes"].get("all-reduce", 0)}
+    for name in bounds:
+        assert _within(bounds[name], got[name], want[name]), \
+            (name, got[name], want[name])
+        # known-bad controls: one rank's count doubled, the collective
+        # left out
+        assert not _within(bounds[name], 2 * got[name], want[name])
+        assert not _within(bounds[name], 0, want[name])
+    # the full row counts every layer where the reference counts one
+    assert port["flops_per_device"] > 10 * one["flops_per_device"]
+
+
 # ---- (c) --------------------------------------------------------------------
 
 def _mask_bias_before(q_pos, k_pos, causal, window, dtype):
@@ -319,6 +367,29 @@ def test_loss_bits_unchanged(case, dtype):
     assert torch.equal(loss, loss0) and torch.equal(g, g0)
 
 
+# serving's unembedding: bf16 activations against an f32 table over two
+# vocab blocks and a ragged third, tied and not
+UNEMBED_V = 2 * L.VOCAB_BLOCK + 7
+
+
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+def test_unembed_bits_unchanged(tied):
+    """Without a gradient the table is cast a vocab block at a time; the
+    logits keep the bits of the one cast and product before."""
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    shape = (UNEMBED_V, 64) if tied else (64, UNEMBED_V)
+    w = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    p = {"embedding" if tied else "unembed": w}
+    cfg = types.SimpleNamespace(tie_embeddings=tied)
+    with torch.no_grad():
+        got = L.unembed(p, cfg, x)
+    cast = w.to(torch.bfloat16)
+    want = x @ (cast.T if tied else cast)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
 # ---- (d) ----------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -329,7 +400,7 @@ def world():
 
 @pytest.mark.parametrize("name", ["token_nll", "take_rows", "attention",
                                   "attention_remat", "scan", "recurrent",
-                                  "step"])
+                                  "step", "unembed"])
 def test_local_regions_compute_the_plain_route(world, name):
     got = world[name]
     assert len(got["split"]) == len(got["plain"])

@@ -14,6 +14,7 @@ import os
 import queue as queue_mod
 import tempfile
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -346,8 +347,9 @@ def simulation_case(rank, n, w0, table, scheme, epochs, kw, sim_kw,
 def spmd_case(rank, n):
     """On a (2, n/2) ("data", "model") mesh of CPU ranks: the loss, the
     embedding lookup, GQA attention (1 kv head under 4 query heads; also
-    under ``torch.utils.checkpoint``), the chunked and sequential scans
-    and a decode step on DTensors placed as the dry-run places them, and
+    under ``torch.utils.checkpoint``), the chunked and sequential scans,
+    a decode step and serving's unembedding on DTensors placed as the
+    dry-run places them, and
     on the same plain tensors: each output and gradient, whole, as numpy
     (rank 0's; the others return None)."""
     from torch.distributed.device_mesh import DeviceMesh
@@ -424,4 +426,26 @@ def spmd_case(rank, n):
         [draw(B, Hs, K), draw(B, Hs, K), draw(B, Hs, Vd),
          -draw(B, Hs).abs(), draw(B, Hs, K, Vd)],
         [[S0, Shard(1)]] * 5)
+    # serving's unembedding (no gradient: the table cast in vocab blocks,
+    # 5 rows a block) on each rank's rows and vocab shard, tied and not
+    block, L.VOCAB_BLOCK = L.VOCAB_BLOCK, 5
+    x, w = draw(B, T, d), draw(V, d).double()
+    res["unembed"] = {}
+    try:
+        with torch.no_grad():
+            for name, (xs, tied, untied) in (
+                    ("plain", (x, w, w.T.contiguous())),
+                    ("split", (distribute_tensor(x, mesh, [S0, R]),
+                               distribute_tensor(w, mesh, [R, S0]),
+                               distribute_tensor(w.T.contiguous(), mesh,
+                                                 [R, Shard(1)])))):
+                got = [L.unembed({"embedding": tied}, types.SimpleNamespace(
+                           tie_embeddings=True), xs),
+                       L.unembed({"unembed": untied}, types.SimpleNamespace(
+                           tie_embeddings=False), xs)]
+                res["unembed"][name] = [_np(g.full_tensor()
+                                            if spmd.is_dtensor(g) else g)
+                                        for g in got]
+    finally:
+        L.VOCAB_BLOCK = block
     return res if rank == 0 else None
