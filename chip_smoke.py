@@ -439,6 +439,15 @@ def phase(msg: str) -> None:
     print(f"# {msg} [{t:.1f} s]", flush=True)
 
 
+def phase_walls(total_s: float) -> list:
+    """[(phase heading, seconds from its heading to the next heading or
+    the run's end)] in the order the phases ran (a heading is printed
+    when its phase starts, but phase 1's once the build is done)."""
+    ends = [t for t, _ in PHASE_STARTS[1:]] + [total_s]
+    return [(name, max(end - t, 0.0))
+            for (t, name), end in zip(PHASE_STARTS, ends)]
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -463,12 +472,14 @@ def time_device(torch, fn, sets, reps: int = 200, only=None,
     queue ms: CUDA events around the queued calls, which include the gaps
     when the host enqueues slower than the card runs; host ms: the wall
     time of one enqueue; device operations, kernels and copies, from the
-    same trace).  ``per_call``, where given, is the number of those
-    operations one call launches: a trace has come back without some of
-    them, and its time was then too low, so a trace that does not hold
-    exactly ``per_call * reps`` is taken again, and the run fails after
-    three."""
-    from torch.profiler import ProfilerActivity, profile
+    same trace).  The trace is the active step of a profiler schedule
+    whose warm-up step runs the same ``reps`` calls first, so that
+    neither edge of the recorded window falls on a counted call (a trace
+    that starts or stops around them has come back one launch short).
+    ``per_call``, where given, is the number of those operations one call
+    launches: a trace that does not hold exactly ``per_call * reps`` is
+    taken again, and the run fails after three."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     for s in sets[:2]:
         fn(*s)
     torch.cuda.synchronize()
@@ -484,12 +495,18 @@ def time_device(torch, fn, sets, reps: int = 200, only=None,
     queue = start.elapsed_time(end) / reps
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(reps):
-                fn(*sets[i % len(sets)])
-            torch.cuda.synchronize()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _step in range(2):          # warm-up, then recorded
+                for i in range(reps):
+                    fn(*sets[i % len(sets)])
+                torch.cuda.synchronize()
+                prof.step()
+        # the schedule's step marker spans the device too: not an op
         ops = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")
+               and not e.key.startswith("ProfilerStep")
                and (only is None or only in e.key)]
         count = sum(e.count for e in ops)
         if per_call is None or count == per_call * reps:
@@ -1103,6 +1120,9 @@ def main() -> None:
     report["kernels"] = kernel_line["kernels"]
     total_s = time.perf_counter() - T0
     report["phase_starts_s"] = PHASE_STARTS + [(round(total_s, 1), "end")]
+    report["phase_walls_s"] = phase_walls(total_s)
+    print("phase walls (s): " + ", ".join(
+        f"{name} {wall:.1f}" for name, wall in report["phase_walls_s"]))
     print(f"chip_smoke: every phase passed in {total_s:.1f} s ({card}; "
           f"phase 30, the mesh runtime, "
           f"{report['mesh_runtime']['wall_s']:.1f} s of it)")
@@ -4774,6 +4794,84 @@ sys.exit(rc)
 """
 
 
+# phase 31 (c): qwen3-4b's step cut to one layer (what the reference's
+# counts hold: XLA counts its scanned layer loop's body once) over the
+# fake 256-rank world, in a process of its own; each of its collectives
+# paired with the reference program's (``scripts/dryrun_reference.json``,
+# its rows' ``collectives`` at the program's dtypes, written on a CPU by
+# ``scripts/dryrun_reference_row.py``: the card's host has no JAX) of
+# the same kind and type.  The run fails if a collective of at least the
+# residual stream's bytes a rank (B/16 x S x d in bf16) is left unpaired
+DRYRUN_PAIR_ARCH = "qwen3-4b"
+DRYRUN_PAIR_SHAPES = ("train_4k", "prefill_32k")
+DRYRUN_PAIRS = """
+import json, sys, torch
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import dryrun_one, quiet_dtensor
+quiet_dtensor()
+arch, shapes = sys.argv[1], sys.argv[2:]
+cfg = get_config(arch).replace(num_layers=1)
+rows = {}
+for shape in shapes:
+    row = dryrun_one(arch, shape, cfg=cfg, verbose=False)
+    rows[shape] = {k: row[k] for k in ("collectives", "collective_bytes",
+                                       "lower_s")}
+print(json.dumps({"rows": rows, "cuda_initialized":
+                  torch.cuda.is_initialized()}))
+"""
+
+
+def dryrun_pairs(proc, wall) -> dict:
+    """Phase 31 (c): the paired table of ``DRYRUN_PAIRS``'s rows (its
+    finished process ``proc``) against the reference program's."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.collectives import pair_with_reference
+    stdout, stderr = proc
+    lines = stdout.strip().splitlines()
+    if not lines or not lines[-1].startswith("{"):
+        fail(f"phase 31 (c): the one-layer dry-runs printed no rows:\n"
+             f"{stderr[-3000:]}")
+    got = json.loads(lines[-1])
+    if got["cuda_initialized"]:
+        fail("phase 31 (c): the dry-run initialised CUDA")
+    ref = {(r["arch"], r["shape"], r["multi_pod"]): r for r in json.loads(
+        (ROOT / "scripts" / "dryrun_reference.json").read_text())}
+    out = {"wall_s": wall}
+    cfg = get_config(DRYRUN_PAIR_ARCH)
+    for shape, row in got["rows"].items():
+        theirs = ref[(DRYRUN_PAIR_ARCH, shape, False)]
+        shp = get_shape(shape)
+        least = shp.global_batch // 16 * shp.seq_len * cfg.d_model * 2
+        pairs = pair_with_reference(row["collectives"],
+                                    theirs["collectives"], least)
+        mine = row["collective_bytes"].get("all-reduce", 0)
+        want = theirs["collective_bytes_program"].get("all-reduce", 0)
+        print(f"  {DRYRUN_PAIR_ARCH} {shape}, one layer on 16 x 16 (traced "
+              f"in {row['lower_s']} s): all-reduce {mine:,} B a device, "
+              f"the reference program's {want:,} B ({mine / want:.4f}x; "
+              f"XLA's CPU bytes "
+              f"{theirs['collective_bytes'].get('all-reduce', 0):,}); "
+              f"each collective, the residual stream's {least:,} B or "
+              f"more gated:")
+        for p in pairs:
+            if p["ref"] is None:
+                pair = "UNPAIRED" if p["gated"] else "no pair"
+            else:
+                pair = (f"{p['ref']['op_name'].rsplit('/', 2)[-2:]} over "
+                        f"{p['ref']['ranks']}")
+            print(f"    {'*' if p['gated'] else ' '} {p['kind']} "
+                  f"{p['shape']} {p['bytes']:,} B over {p['ranks']} at "
+                  f"{p['site']} <-> {pair}")
+        unpaired = [p for p in pairs if p["gated"] and p["ref"] is None]
+        if unpaired:
+            fail(f"phase 31 (c): {DRYRUN_PAIR_ARCH} {shape}: collectives "
+                 f"the reference's program does not make: {unpaired}")
+        out[shape] = dict(all_reduce=mine, ref_all_reduce_program=want,
+                          gated=sum(p["gated"] for p in pairs),
+                          pairs=pairs, lower_s=row["lower_s"])
+    return out
+
+
 def storage_bytes(trees) -> int:
     """The bytes of the distinct storages of the tensors in ``trees``, each
     in the caching allocator's 512-byte units: what the card holds for
@@ -4830,7 +4928,9 @@ def dryrun_path(torch, dev, report) -> None:
     production-mesh CLIs over fake worlds of 256 and 512 ranks, each its
     own process: exit 0, a row, CUDA never initialised; each
     ``launch.dryrun`` row's temp within ``DRYRUN_TEMP_FLOOR`` and
-    ``DRYRUN_TEMP_RATIO`` of the reference's (``dryrun_parity``)."""
+    ``DRYRUN_TEMP_RATIO`` of the reference's (``dryrun_parity``); (c)
+    qwen3-4b's step cut to one layer, its collectives paired with the
+    reference program's (``dryrun_pairs``), started beside (b)."""
     import os
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
@@ -4842,7 +4942,9 @@ def dryrun_path(torch, dev, report) -> None:
     phase(f"phase 31: the dry-run tools — (a) launch.dryrun of "
           f"launch.train's step at one rank ({TRAIN_ARCH}, {T['layers']} "
           f"layers, f32, B {T['B']} x {T['S']}) against the card; (b) the "
-          f"production-mesh dry-runs, each its own process")
+          f"production-mesh dry-runs, each its own process; (c) "
+          f"{DRYRUN_PAIR_ARCH}'s one-layer collectives against the "
+          f"reference program's")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run(
         [sys.executable, "-c", DRYRUN_ONE_RANK, TRAIN_ARCH,
@@ -4920,6 +5022,10 @@ def dryrun_path(torch, dev, report) -> None:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    pairs_proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_PAIRS, DRYRUN_PAIR_ARCH,
+         *DRYRUN_PAIR_SHAPES], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
     procs = [(mod, argv, time.perf_counter(), subprocess.Popen(
         [sys.executable, "-c", DRYRUN_CLI, mod] + argv, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -4943,6 +5049,12 @@ def dryrun_path(torch, dev, report) -> None:
         if mod == "dryrun":
             out["b"][name]["parity"] = dryrun_parity(name, lines[:-1])
     out["b_wall_s"] = time.perf_counter() - t0
+    print(f"phase 31 (c): {DRYRUN_PAIR_ARCH}'s step cut to one layer, its "
+          "collectives paired with the reference program's")
+    out["c"] = dryrun_pairs(pairs_proc.communicate(timeout=600),
+                            time.perf_counter() - t0)
+    if pairs_proc.returncode != 0:
+        fail(f"phase 31 (c) exited {pairs_proc.returncode}")
     out["wall_s"] = time.perf_counter() - t_phase
     card = report.get("card", "")
     print(f"phase 31: {out['wall_s']:.1f} s, (b) {out['b_wall_s']:.1f} s "

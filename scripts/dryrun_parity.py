@@ -9,21 +9,25 @@ port's per-device memory against the reference's.
         --meshes single,multi --out scripts/dryrun_reference.json
 
 ``--side port`` runs ``python -m repro_torch.launch.dryrun`` (no JAX),
-``--side reference`` the JAX package's ``python -m repro.launch.dryrun``
-(with ``JAX_PLATFORMS=cpu``), one process a row (arch, shape, mesh),
+``--side reference`` the JAX package's dry-run through
+``scripts/dryrun_reference_row.py`` (with ``JAX_PLATFORMS=cpu``; its row
+is ``python -m repro.launch.dryrun``'s with each collective listed at the
+dtype its program gives it, ``collectives``, and their totals,
+``collective_bytes_program``), one process a row (arch, shape, mesh),
 ``--jobs`` at once, each cut at ``--timeout`` seconds.  ``--rows`` is
 ``all`` (every arch at every shape) or a comma-separated list of
 ``arch:shape``; ``--meshes`` names the production meshes, ``single`` (16
 x 16) and ``multi`` (2 x 16 x 16, ``--multi-pod``).  Each
 row's result, its wall seconds and its exit code go to ``--out`` as JSON
 (the memory keys of the row, its FLOPs, bytes accessed and collective
-bytes by kind, ``replicated`` and ``peak_holders`` where the port has
-them, ``lower_s``).  With ``--against`` (such a file from the other side,
+bytes by kind, each collective, ``replicated`` and ``peak_holders`` where
+the port has them, ``lower_s``).  With ``--against`` (such a file from the other side,
 here ``scripts/dryrun_reference.json``: the reference's rows on 16 x 16
 and 2 x 16 x 16, taken on a CPU with jax 0.9.0), a table of temp bytes,
 their ratio, the argument bytes' difference, and the ratios of FLOPs a
-device and of each collective kind's bytes is printed, a row at a time as
-each ends.  The two sides count differently: XLA's ``cost_analysis``
+device and of each collective kind's bytes is printed (against the
+reference's program dtypes where its row has them: XLA's CPU compile
+widens bf16 all-reduces to f32), a row at a time as each ends.  The two sides count differently: XLA's ``cost_analysis``
 counts every operation of the partitioned program (elementwise work too)
 on one device; the port counts the matrix products' 2 m n k
 (``FlopCounterMode``) of one rank's share.  Collective bytes are each
@@ -50,11 +54,12 @@ ARCHS = ("qwen3-4b", "llama3-8b", "granite-8b", "internvl2-1b",
          "hubert-xlarge", "starcoder2-3b", "zamba2-2.7b", "rwkv6-7b",
          "deepseek-v2-236b", "kimi-k2-1t-a32b")
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
-MODULES = {"port": "repro_torch.launch.dryrun",
-           "reference": "repro.launch.dryrun"}
+COMMANDS = {"port": ["-m", "repro_torch.launch.dryrun"],
+            "reference": [str(ROOT / "scripts" / "dryrun_reference_row.py")]}
 KEEP = ("arch", "shape", "multi_pod", "mesh_shape", "skipped", "memory",
         "replicated", "peak_holders", "lower_s", "flops", "flops_per_device",
-        "bytes_accessed", "collective_bytes", "error")
+        "bytes_accessed", "collective_bytes", "collective_bytes_program",
+        "collectives", "error")
 
 
 def key(arch: str, shape: str, multi_pod: bool) -> str:
@@ -70,7 +75,7 @@ def run_row(side: str, arch: str, shape: str, multi_pod: bool,
     env.pop("XLA_FLAGS", None)
     if side == "reference":
         env["JAX_PLATFORMS"] = "cpu"
-    cmd = [sys.executable, "-m", MODULES[side], "--arch", arch, "--shape",
+    cmd = [sys.executable, *COMMANDS[side], "--arch", arch, "--shape",
            shape, "--out", str(out)] + (["--multi-pod"] if multi_pod else [])
     t0 = time.perf_counter()
     try:
@@ -93,11 +98,13 @@ def run_row(side: str, arch: str, shape: str, multi_pod: bool,
 def ratios(row: dict, other: dict) -> dict:
     """The port's (``row``) FLOPs a device and each collective kind's
     bytes over the reference's (``other``; XLA counts the partitioned
-    program, one device's), None where the reference has none."""
+    program, one device's, its collectives at the program's dtypes where
+    the row has them), None where the reference has none."""
     want = other["flops"]
     out = {"flops": row["flops_per_device"] / want if want > 0 else None}
     mine = row.get("collective_bytes") or {}
-    theirs = other.get("collective_bytes") or {}
+    theirs = (other.get("collective_bytes_program")
+              or other.get("collective_bytes") or {})
     for kind in sorted(set(mine) | set(theirs)):
         if not kind.startswith("_"):
             want = theirs.get(kind, 0)
@@ -124,9 +131,11 @@ def line(row: dict, ref: dict) -> str:
             text += "; " + ", ".join(
                 f"{k} {'-' if v is None else f'{v:.3f}'}"
                 for k, v in ratios(row, other).items())
-            coll = (other.get("collective_bytes") or {}).get("total", 0)
+            coll = (other.get("collective_bytes_program")
+                    or other.get("collective_bytes") or {}).get("total", 0)
             text += (f" (reference {other['flops']:.4g} FLOPs, "
-                     f"{coll / 1e9:.3f} GB collectives a device)")
+                     f"{coll / 1e9:.3f} GB collectives a device at its "
+                     "program's dtypes)")
     text += (f"; replicated {row.get('replicated', [])}; "
              f"{row.get('lower_s')} s traced, {row['wall_s']} s wall")
     return text
@@ -134,7 +143,7 @@ def line(row: dict, ref: dict) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--side", required=True, choices=sorted(MODULES))
+    ap.add_argument("--side", required=True, choices=sorted(COMMANDS))
     ap.add_argument("--rows", default="all")
     ap.add_argument("--meshes", default="single")
     ap.add_argument("--jobs", type=int, default=8)

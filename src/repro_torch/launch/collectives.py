@@ -12,7 +12,9 @@ rank issues while it runs:
     redistributes, and the ``c10d`` ops that ``torch.distributed`` calls
     make (``fl/sharded.py``'s all-reduce, ``models/moe_ep.py``'s
     all-to-alls, all-gathers and broadcast), each with its output bytes
-    on this rank, the reference's convention (``hlo_analysis.py:39-56``);
+    on this rank, the reference's convention (``hlo_analysis.py:39-56``),
+    its outputs' types, its group's size and where it was issued
+    (``collective_site``);
   * the FLOPs of this rank's local operations, by ``FlopCounterMode``'s
     formulas (``torch.utils.flop_counter``), and its matrix products;
     ``global_flops``, those of the whole program: each DTensor operation
@@ -35,6 +37,8 @@ mode, to propagate shapes, are run but not recorded.
 ``collective_bytes(records)`` returns the reference's dict; a kind the
 reference's HLO has no name for (``broadcast``, which ``moe_ep`` uses
 to hand every rank data row 0's aux loss) is counted under its own key.
+``pair_with_reference`` pairs a row's collectives with the reference
+program's (``scripts/dryrun_reference_row.py``) by kind and type.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ import contextlib
 import dataclasses
 import gc
 import heapq
+import math
 import sys
 import weakref
 from collections import defaultdict
@@ -122,6 +127,54 @@ class Collective:
     kind: str           # the reference's HLO name, or "broadcast"
     op: str             # the operation, e.g. "c10d.allreduce_"
     nbytes: int         # its output bytes on this rank
+    # each output's type on this rank in HLO's notation, "bf16[16,4096,2560]"
+    shapes: tuple = ()
+    ranks: int = 0      # the group's size (0: not read)
+    site: str = ""      # ``collective_site()`` where it was issued
+
+    def row(self) -> dict:
+        """The record as a row of ``dryrun_one``'s ``collectives``."""
+        return {"kind": self.kind, "shapes": list(self.shapes),
+                "bytes": self.nbytes, "ranks": self.ranks, "site": self.site}
+
+
+# torch dtype -> HLO's name of it
+_HLO_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16", torch.float64: "f64",
+               torch.int32: "s32", torch.int64: "s64", torch.int16: "s16",
+               torch.int8: "s8", torch.uint8: "u8", torch.bool: "pred",
+               torch.complex64: "c64"}
+_HLO_BYTES = {"pred": 1, "s8": 1, "u8": 1, "s16": 2, "f16": 2, "bf16": 2,
+              "s32": 4, "f32": 4, "s64": 8, "f64": 8, "c64": 8}
+
+
+def type_bytes(hlo: str) -> int:
+    """The bytes of a type in HLO's notation (``bf16[16,4096,2560]``)."""
+    name, dims = hlo.rstrip("]").split("[")
+    return math.prod(int(d) for d in dims.split(",") if d) * _HLO_BYTES.get(
+        name, 4)
+
+
+def hlo_type(t: torch.Tensor) -> str:
+    """``t``'s dtype and shape as HLO prints them: ``bf16[16,4096,2560]``."""
+    name = _HLO_DTYPES.get(t.dtype, str(t.dtype).replace("torch.", ""))
+    return f"{name}[{','.join(str(n) for n in t.shape)}]"
+
+
+def _group_size(args) -> int:
+    """The size of the process group a collective's arguments name (a
+    functional collective's group name, a c10d op's group), 0 if none."""
+    from torch.distributed import ProcessGroup
+    from torch.distributed import distributed_c10d as c10d
+    for a in args:
+        if isinstance(a, ProcessGroup):
+            return a.size()
+        if isinstance(a, str):
+            try:
+                return c10d._resolve_process_group(a).size()
+            except (KeyError, RuntimeError, ValueError):
+                continue
+    return 0
 
 
 def _tensors(x) -> List[torch.Tensor]:
@@ -151,6 +204,34 @@ def call_site() -> str:
 
 def _site() -> str:
     return call_site() or "no model frame (autograd's backward)"
+
+
+def collective_site() -> str:
+    """Where a collective is issued: the innermost model line on the stack
+    outside ``models/spmd.py`` ("via" that module's line where it is the
+    innermost), or else the innermost line of the port (the optimizer's);
+    in autograd's backward, the node it runs (``in MmBackward0``), whose
+    forward's model line a custom Function of ``models/spmd.py`` keeps as
+    ``ctx.site``."""
+    model = helper = other = None
+    f = sys._getframe(1)
+    while f is not None and model is None:
+        path = f.f_code.co_filename.replace("\\", "/")
+        at = path.rfind("repro_torch/")
+        if at >= 0 and not path.endswith("launch/collectives.py"):
+            where = f"{path[at + len('repro_torch/'):]}:{f.f_lineno}"
+            if where.startswith("models/spmd.py"):
+                helper = helper or where
+            elif where.startswith("models/"):
+                model = where
+            else:
+                other = other or where
+        f = f.f_back
+    node = torch._C._current_autograd_node()
+    site = getattr(node, "site", None) or model or other or "no port line"
+    if helper and site is model:
+        site += f" via {helper}"
+    return site + (f" in {node.name()}" if node is not None else "")
 
 
 def _fake_mode_active() -> bool:
@@ -292,9 +373,12 @@ class StepTrace(TorchDispatchMode):
         name = f"{packet._qualified_op_name.replace('::', '.')}"
         kind = _KINDS.get(name)
         if kind is not None:
-            result = args[0] if name.startswith("c10d.") else out
-            self.collectives.append(
-                Collective(kind, name, _nbytes(_tensors(result))))
+            result = _tensors(args[0] if name.startswith("c10d.") else out)
+            self.collectives.append(Collective(
+                kind, name, _nbytes(result),
+                tuple(hlo_type(t) for t in result),
+                _group_size(list(args) + list(kwargs.values())),
+                collective_site()))
         if packet in flop_registry:
             n = int(flop_registry[packet](*args, **kwargs, out_val=out))
             self.flops += n
@@ -434,6 +518,45 @@ def collective_bytes(records: Iterable[Collective]) -> Dict[str, int]:
     result["_counts"] = dict(counts)
     result["total"] = int(sum(out.values()))
     return result
+
+
+def pair_with_reference(port: List[dict], reference: List[dict],
+                        min_bytes: int) -> List[dict]:
+    """Each result of each of the port's collectives (``dryrun_one``'s
+    ``collectives``) paired with an unused result of one of the
+    reference's (a row of ``scripts/dryrun_reference_row.py``) of the same
+    kind and type at the reference program's dtype (``program_shapes``),
+    in the order of each list: ``kind``, ``shape``, ``bytes``, ``ranks``,
+    ``site``, ``gated`` (``bytes`` >= ``min_bytes``) and ``ref`` (the
+    reference's ``op_name`` and ``ranks``, or None where none is left).
+    The reference's results come from XLA's tuples one by one.  Among the
+    candidates, one on the same side of the step (the backward: an
+    autograd node in the port's site, ``transpose(`` in the reference's
+    op_name) and over as many ranks comes first, then one on the same
+    side: the pairs read as the ops they follow where the types alone
+    leave a choice."""
+    pool = [dict(kind=r["kind"], shape=s, op_name=r.get("op_name", ""),
+                 ranks=r.get("ranks", 0))
+            for r in reference for s in r.get("program_shapes", r["shapes"])]
+    rows = []
+    for c in port:
+        back = " in " in c.get("site", "")
+
+        def rank(p):
+            side = ("transpose(" in p["op_name"]) == back
+            return (not side, p["ranks"] != c.get("ranks", 0))
+        for shape in c["shapes"]:
+            match = min((p for p in pool if p["kind"] == c["kind"]
+                         and p["shape"] == shape), key=rank, default=None)
+            if match is not None:
+                pool.remove(match)
+            n = type_bytes(shape)
+            rows.append(dict(kind=c["kind"], shape=shape, bytes=n,
+                             ranks=c.get("ranks", 0), site=c.get("site", ""),
+                             gated=n >= min_bytes,
+                             ref=match and {"op_name": match["op_name"],
+                                            "ranks": match["ranks"]}))
+    return rows
 
 
 def remat_duplication(trace: StepTrace) -> float:

@@ -48,6 +48,10 @@ The row.  The reference's keys where they have a counterpart:
     write (each operation's tensor arguments and outputs, views
     excluded): an eager program's traffic, with no fusion;
   * ``collective_bytes``: rank 0's collectives (``collective_bytes``);
+    ``collectives``: each of them, in the order issued (kind, each
+    output's type in HLO's notation, bytes, the group's ranks and the
+    model line it follows: ``Collective.row``), which
+    ``collectives.pair_with_reference`` pairs with the reference's;
   * ``memory``: per device, rank 0's storages in the caching allocator's
     512-byte units: ``argument_size_bytes`` (the shards of params,
     optimizer state, batch and cache), ``output_size_bytes`` (the
@@ -269,6 +273,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         "flops_per_device": float(trace.flops),
         "bytes_accessed": float(trace.bytes_accessed),
         "collective_bytes": collective_bytes(trace.collectives),
+        "collectives": [c.row() for c in trace.collectives],
         "memory": {
             "argument_size_bytes": arg_bytes,
             "output_size_bytes": out_bytes,

@@ -14,6 +14,7 @@ import torch
 from repro_torch.configs.base import (LONG_CONTEXT_WINDOW, ModelConfig,
                                       ShapeConfig)
 from repro_torch.models import registry as R
+from repro_torch.models import spmd
 from repro_torch.optim import Optimizer, adamw, apply_updates
 from repro_torch.tree import tree_paths, tree_unflatten
 
@@ -53,10 +54,12 @@ def loss_and_grads(params, cfg: ModelConfig, batch, *, window: int = 0,
                                      impl=impl, q_chunks=q_chunks)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # a leaf the loss does not reach (an encoder's token table) gets zeros,
-    # as jax.grad gives it
-    grads = [torch.zeros_like(x) if g is None else g
+    # as jax.grad gives it; a DTensor gradient's partial sums are reduced
+    # once here, not at each use
+    grads = [torch.zeros_like(x) if g is None else spmd.reduced_once(g)
              for x, g in zip(leaves, grads)]
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+    return (spmd.reduced_once(loss.detach()),
+            {k: v.detach() for k, v in metrics.items()},
             tree_unflatten([path for path, _ in pairs], grads))
 
 

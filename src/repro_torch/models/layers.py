@@ -282,8 +282,10 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, *, device):
 
 def embed(p, cfg: ModelConfig, tokens, dtype):
     """Gathers the rows, then casts them: the same numbers as the JAX
-    package's cast-then-gather, without casting the whole table."""
-    return spmd.take_rows(p["embedding"], tokens).to(dtype)
+    package's cast-then-gather, without casting the whole table (on
+    DTensors each rank's rows are cast before they are summed over the
+    vocab's ranks, ``spmd.take_rows``)."""
+    return spmd.take_rows(p["embedding"], tokens, dtype)
 
 
 def unembed(p, cfg: ModelConfig, x):

@@ -18,7 +18,9 @@ caller computed before, so no result of the port moves.
 * ``kv_for_local_heads``: GQA with q's heads split over an axis that k's
   and v's fewer heads do not divide (the rules replicate them there).
   Each rank takes the kv heads of its own q heads, as GSPMD tiles the
-  (kv head, group) split.
+  (kv head, group) split; their gradient stays partial.
+* ``reduced_once``: a partial gradient reduced once, before the
+  optimizer's updates would each reduce it.
 * ``along_batch``, ``batch_state``, ``take_rows``: positions, a
   recurrence's zero state and embedding rows made for a rank's own batch
   rows.
@@ -58,6 +60,21 @@ def local_region(scale: int):
         if enter is not None:
             stack.enter_context(enter(int(scale)))
     return stack
+
+
+def caller() -> str:
+    """``file:line`` of the innermost model frame outside this module on
+    the stack ("" if none): a custom Function keeps it as ``ctx.site``,
+    so that a collective its backward issues names the model line whose
+    forward it follows (``launch.collectives.collective_site``)."""
+    f = sys._getframe(1)
+    while f is not None:
+        path = f.f_code.co_filename.replace("\\", "/")
+        at = path.rfind("repro_torch/models/")
+        if at >= 0 and not path.endswith("/spmd.py"):
+            return f"{path[at + len('repro_torch/'):]}:{f.f_lineno}"
+        f = f.f_back
+    return ""
 
 
 def is_dtensor(t) -> bool:
@@ -106,7 +123,7 @@ class _Place(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, placements):
-        ctx.placements = placements
+        ctx.placements, ctx.site = placements, caller()
         return x.redistribute(x.device_mesh, placements)
 
     @staticmethod
@@ -130,6 +147,35 @@ def grad_like(x):
     if not split(x):
         return x
     return _Place.apply(x, x.placements)
+
+
+def reduced_once(g):
+    """A gradient ``g`` with each mesh axis on which it is partial reduced
+    now, once: scattered over the first of its dims that the axis divides
+    and no other axis splits (a reduce-scatter, DTensor's own choice where
+    an update first meets it), else replicated.  Left partial, ``g`` would
+    be reduced again at each use (AdamW's two moments); ``g`` itself when
+    plain, on one rank or whole."""
+    if not split(g) or not any(p.is_partial() for p in g.placements):
+        return g
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, local = g.device_mesh, list(g.to_local().shape)
+    pl = list(g.placements)
+    taken = {p.dim for p in pl if p.is_shard()}
+    for i, p in enumerate(pl):
+        if not p.is_partial():
+            continue
+        n = mesh.size(i)
+        dim = next((d for d in range(g.dim())
+                    if d not in taken and local[d] % n == 0),
+                   None) if n > 1 else None
+        if dim is None:
+            pl[i] = Replicate()
+        else:
+            pl[i] = Shard(dim)
+            taken.add(dim)
+            local[dim] //= n
+    return g.redistribute(mesh, pl)
 
 
 def along_batch(pos, like):
@@ -166,14 +212,17 @@ def batch_state(make, like, batch_dim: int):
 
 
 class _VocabParallelRows(torch.autograd.Function):
-    """``table[idx]`` for a DTensor table (V, d) over more than one rank:
-    each rank looks up the ids in its vocab shard and zeros the rest, the
-    rows are summed over the vocab's axes and split by the batch as
-    ``idx`` is; the table's gradient is each rank's rows summed into its
-    shard, partial over the batch's axes."""
+    """``table[idx].to(dtype)`` for a DTensor table (V, d) over more than
+    one rank: each rank looks up the ids in its vocab shard and zeros the
+    rest, casts its rows to ``dtype``, and the rows are summed over the
+    vocab's axes and split by the batch as ``idx`` is (each token has one
+    non-zero summand, so the sum in ``dtype`` has the bits of the cast of
+    the sum, and moves ``dtype``'s bytes, as the reference's cast table's
+    gather does); the table's gradient, in its own dtype, is each rank's
+    rows summed into its shard, partial over the batch's axes."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, dtype):
         from torch.distributed.tensor import Partial, Replicate, Shard
         mesh = table.device_mesh
         vocab = tuple(i for i, p in enumerate(table.placements)
@@ -190,8 +239,10 @@ class _VocabParallelRows(torch.autograd.Function):
         local = local - first * t.shape[0]
         inside = (local >= 0) & (local < t.shape[0])
         local = local.clamp(0, t.shape[0] - 1)
-        out = _reduce(t[local] * inside[..., None], mesh, vocab, "sum", rows)
+        out = _reduce((t[local] * inside[..., None]).to(dtype), mesh, vocab,
+                      "sum", rows)
         ctx.save_for_backward(local, inside)
+        ctx.site = caller()
         ctx.meta = (mesh, t.shape, t.dtype, tuple(
             Partial() if p == Shard(0) else q
             for p, q in zip(rows, whole)), table.shape, rows)
@@ -201,26 +252,27 @@ class _VocabParallelRows(torch.autograd.Function):
     def backward(ctx, g):
         local, inside = ctx.saved_tensors
         mesh, shape, dtype, grad_pl, table_shape, rows = ctx.meta
-        g = g.redistribute(mesh, rows).to_local()
+        g = g.redistribute(mesh, rows).to_local().to(dtype)
         grad = torch.zeros(shape, dtype=dtype, device=g.device)
         grad.index_add_(0, local.reshape(-1),
-                        (g * inside[..., None]).reshape(-1, shape[1])
-                        .to(dtype))
-        return _wrap(grad, mesh, grad_pl, table_shape), None
+                        (g * inside[..., None]).reshape(-1, shape[1]))
+        return _wrap(grad, mesh, grad_pl, table_shape), None, None
 
 
-def take_rows(table, idx):
-    """``table[idx]``; for a DTensor table over more than one rank, the
-    lookup in each rank's vocab shard (``_VocabParallelRows``), where
-    DTensor's own gathers the table or the rows' gradient whole."""
+def take_rows(table, idx, dtype=None):
+    """``table[idx].to(dtype)`` (``dtype`` None: the table's); for a
+    DTensor table over more than one rank, the lookup in each rank's vocab
+    shard (``_VocabParallelRows``), where DTensor's own gathers the table
+    or the rows' gradient whole."""
+    dtype = dtype or table.dtype
     if not split(table):
-        return table[idx]
+        return table[idx].to(dtype)
     if not is_dtensor(idx):
         from torch.distributed.tensor import DTensor, Replicate
         idx = DTensor.from_local(idx, table.device_mesh,
                                  [Replicate()] * table.device_mesh.ndim,
                                  run_check=False)
-    return _VocabParallelRows.apply(table, idx)
+    return _VocabParallelRows.apply(table, idx, dtype)
 
 
 def kv_for_local_heads(q, k, v, kv_groups: int):
@@ -229,8 +281,16 @@ def kv_for_local_heads(q, k, v, kv_groups: int):
     not (KV does not divide it): each rank's k and v are the kv heads its
     own H/n q heads read, a slice of its replicated copy, and the result
     is placed by heads as q is, with the kv heads and groups of that
-    split.  The slice's gradient is partial over the axis (each rank
-    holds its heads' share).  Anything else comes back unchanged."""
+    split.  Anything else comes back unchanged.
+
+    The slice's gradient, each rank's share and zero outside the slice,
+    stays partial over the axis: DTensor carries it by linearity through
+    what made k and v (RoPE, the k-norm, the projection) into the input
+    gradient's one reduction and the kv weights' gradient.  Reduced back
+    to k's placement it would move the whole (B, Sk, KV, hd) k and v over
+    the axis; reduced over the ranks that read the same kv heads (GSPMD's
+    program), it would move the slice only for one of them to zero it,
+    since a partial sum must count it once."""
     if not is_dtensor(q):
         return k, v, kv_groups
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -259,8 +319,11 @@ def kv_for_local_heads(q, k, v, kv_groups: int):
     groups = local_h // (hi - lo)
 
     def local_heads(t):
-        part = t.redistribute(mesh, whole).to_local(
-            grad_placements=grad)[:, :, lo:hi]
+        # a redistribution, even one that moves nothing forward, would
+        # reduce the partial gradient to t's placement in its backward
+        if tuple(t.placements) != whole:
+            t = t.redistribute(mesh, whole)
+        part = t.to_local(grad_placements=grad)[:, :, lo:hi]
         return _wrap(part, mesh, placed, (t.shape[0], t.shape[1],
                                           n * part.shape[2], t.shape[3]))
     return local_heads(k), local_heads(v), groups
@@ -358,6 +421,7 @@ class _LocalCall(torch.autograd.Function):
         saved.clear()               # the graph's hooks hold the list
         ctx.set_materialize_grads(False)    # an unused output's is None
         ctx.box, ctx.scale, ctx.out_meta = box, scale, out_meta
+        ctx.site = caller()
         ctx.ins = [(i, get_edge(local[i])) for i in wants]
         ctx.outs = [get_edge(o) if o.requires_grad else None for o in outs]
         ctx.arg_meta = [(a.device_mesh, a.placements, a.shape)
@@ -497,6 +561,7 @@ class _VocabParallelNLL(torch.autograd.Function):
         gold = _reduce(torch.where(inside, x.gather(-1, idx)[..., 0], 0.0),
                        mesh, vocab, "sum", rows)
         ctx.save_for_backward(x, logz, idx, inside)
+        ctx.site = caller()
         ctx.meta = (mesh, placed, rows, logits.shape, logits.dtype)
         return _wrap(logz - gold, mesh, rows, labels.shape)
 

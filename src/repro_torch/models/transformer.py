@@ -115,7 +115,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch, dtype):
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if "pos_embed" in params:
         x = x + spmd.take_rows(params["pos_embed"],
-                               spmd.along_batch(positions, x)).to(dtype)
+                               spmd.along_batch(positions, x), dtype)
     return x, positions
 
 

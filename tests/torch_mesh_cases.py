@@ -344,16 +344,53 @@ def simulation_case(rank, n, w0, table, scheme, epochs, kw, sim_kw,
 
 # ---- models/spmd.py: the dry-run's local regions on real data ----------------
 
+def kv_heads_before(q, k, v, kv_groups: int):
+    """``models/spmd.py``'s ``kv_for_local_heads`` as it was before the kv
+    slice's gradient was left partial: k and v redistributed to their
+    own placement first, whose backward reduces the gradient of the
+    whole k and v over the axis."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.models import spmd
+    mesh, pq = q.device_mesh, q.placements
+    axes = [i for i, p in enumerate(pq) if p == Shard(2)]
+    if not axes or all(k.placements[i] == Shard(2) for i in axes):
+        return k, v, kv_groups
+    [m] = axes
+    n = mesh.size(m)
+    local_h = q.shape[2] // n
+    first = mesh.get_local_rank(m) * local_h
+    whole = tuple(Replicate() if i == m else p
+                  for i, p in enumerate(k.placements))
+    grad = tuple(Partial() if i == m else p for i, p in enumerate(whole))
+    placed = tuple(Shard(2) if i == m else p for i, p in enumerate(whole))
+    lo = first // kv_groups
+    hi = (first + local_h - 1) // kv_groups + 1
+
+    def local_heads(t):
+        part = t.redistribute(mesh, whole).to_local(
+            grad_placements=grad)[:, :, lo:hi]
+        return spmd._wrap(part, mesh, placed, (t.shape[0], t.shape[1],
+                                               n * part.shape[2],
+                                               t.shape[3]))
+    return local_heads(k), local_heads(v), local_h // (hi - lo)
+
+
 def spmd_case(rank, n):
     """On a (2, n/2) ("data", "model") mesh of CPU ranks: the loss, the
-    embedding lookup, GQA attention (1 kv head under 4 query heads; also
-    under ``torch.utils.checkpoint``), the chunked and sequential scans,
-    a decode step and serving's unembedding on DTensors placed as the
-    dry-run places them, and
-    on the same plain tensors: each output and gradient, whole, as numpy
-    (rank 0's; the others return None)."""
+    embedding lookup (f32 and bf16 rows), GQA attention (1 kv head under 4
+    query heads; also under ``torch.utils.checkpoint``; and the whole
+    block, its qk-norm, RoPE and projections, from weights placed as the
+    dry-run's rules place them), the chunked and sequential scans, a
+    decode step and serving's unembedding on DTensors placed as the
+    dry-run places them, and on the same plain tensors: each output and
+    gradient, whole, as numpy (rank 0's; the others return None).
+    ``res["bits"]``: the lookup (rows cast before the vocab's reduction)
+    and attention (the kv slice's gradient left partial) against the
+    routes before them on the same DTensors, in f32 and bf16: the
+    outputs and gradients of both."""
     from torch.distributed.device_mesh import DeviceMesh
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
     from torch.utils.checkpoint import checkpoint
     from repro_torch.models import layers as L
     from repro_torch.models import scan_ops, spmd
@@ -364,25 +401,30 @@ def spmd_case(rank, n):
     def draw(*shape):
         return torch.randn(shape, generator=gen)
 
-    def both(fn, plain, placements):
-        """fn's outputs and the gradients of their weighted sum, on the
-        plain tensors and on their DTensors."""
-        out = {}
-        for name, xs in (("plain", plain),
-                         ("split", [distribute_tensor(t, mesh, p)
-                                    for t, p in zip(plain, placements)])):
-            leaves = [t.detach().requires_grad_(t.is_floating_point())
-                      for t in xs]
+    def run(fn, xs):
+        """fn's outputs and the gradients of their weighted sum (in f32),
+        whole, as numpy."""
+        leaves = [t.detach().requires_grad_(t.is_floating_point())
+                  for t in xs]
+        with implicit_replication():    # plain positions, as in the step
             got = fn(*leaves)
             got = [g.full_tensor() if spmd.is_dtensor(g) else g
                    for g in (got if isinstance(got, tuple) else (got,))]
-            total = sum((g * torch.linspace(0.5, 1.5, g.numel()).view(
-                g.shape)).sum() for g in got)
+            total = sum((g.float() * torch.linspace(
+                0.5, 1.5, g.numel()).view(g.shape)).sum() for g in got)
             total.backward()
-            grads = [t.grad.full_tensor() if spmd.is_dtensor(t.grad)
-                     else t.grad for t in leaves if t.requires_grad]
-            out[name] = [_np(t) for t in got + grads]
-        return out
+        grads = [t.grad.full_tensor() if spmd.is_dtensor(t.grad)
+                 else t.grad for t in leaves if t.requires_grad]
+        return [_np(t.float()) for t in got + grads]
+
+    def placed(plain, placements):
+        return [distribute_tensor(t, mesh, p)
+                for t, p in zip(plain, placements)]
+
+    def both(fn, plain, placements):
+        """``run`` on the plain tensors and on their DTensors."""
+        return {"plain": run(fn, plain),
+                "split": run(fn, placed(plain, placements))}
 
     S0, R = Shard(0), Replicate()
     B, T, V, d = 4, 8, 12, 6
@@ -393,6 +435,9 @@ def spmd_case(rank, n):
                             [[S0, Shard(2)], [S0, R]])
     res["take_rows"] = both(lambda w, i: spmd.take_rows(w, i),
                             [draw(V, d), labels], [[R, S0], [S0, R]])
+    res["take_rows_bf16"] = both(
+        lambda w, i: spmd.take_rows(w, i, torch.bfloat16),
+        [draw(V, d), labels], [[R, S0], [S0, R]])
     H, KV, hd = 4, 1, 8
     pos = torch.arange(T)[None].expand(B, T)
     qkv = [draw(B, T, H, hd), draw(B, T, KV, hd), draw(B, T, KV, hd)]
@@ -407,6 +452,41 @@ def spmd_case(rank, n):
     res["attention_remat"] = both(
         lambda *a: checkpoint(attention, *a, use_reentrant=False), qkv,
         [[S0, Shard(2)], [S0, R], [S0, R]])
+    # the whole block from its weights: q's heads and wo split over
+    # "model", the one kv head's weights whole there (the rules replicate
+    # what the axis does not divide), the kv gradient carried partial
+    # through RoPE, the k-norm and the projection
+    cfg = types.SimpleNamespace(num_heads=H, num_kv_heads=KV,
+                                resolved_head_dim=hd, qk_norm=True,
+                                use_rope=True, rope_theta=10000.0,
+                                causal=True)
+
+    def block(x, wq, wk, wv, wo, qn, kn):
+        p = dict(wq=wq, wk=wk, wv=wv, wo=wo, q_norm=qn, k_norm=kn)
+        return L.attention(p, cfg, x, pos, window=3, impl="plain")[0]
+    dm = 4 * hd
+    fan = dm ** -0.5                   # the model's fan-in scale
+    res["attention_block"] = both(
+        block, [draw(B, T, dm), draw(dm, H, hd) * fan, draw(dm, KV, hd) * fan,
+                draw(dm, KV, hd) * fan, draw(H, hd, dm) * fan,
+                1 + draw(hd) / 4, 1 + draw(hd) / 4],
+        [[S0, R], [R, Shard(1)], [R, R], [R, R], [R, S0], [R, R], [R, R]])
+    res["bits"] = {}
+    table = draw(V, d)
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = placed([table, labels], [[R, S0], [S0, R]])
+        res["bits"][f"take_rows {name}"] = [
+            run(lambda w, i: spmd.take_rows(w, i, dt), args),
+            run(lambda w, i: spmd.take_rows(w, i).to(dt), args)]
+        args = placed([t.to(dt) for t in qkv],
+                      [[S0, Shard(2)], [S0, R], [S0, R]])
+        now = run(attention, args)
+        kv_heads, spmd.kv_for_local_heads = (spmd.kv_for_local_heads,
+                                             kv_heads_before)
+        try:
+            res["bits"][f"attention {name}"] = [now, run(attention, args)]
+        finally:
+            spmd.kv_for_local_heads = kv_heads
     Hs, K, Vd = 2, 4, 3
     res["scan"] = both(
         lambda r, k, v, ld, u: scan_ops.chunked_scan(
