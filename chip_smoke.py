@@ -313,12 +313,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and the arguments alone (the known-bad control) outside it; (b)
      ``dryrun --arch qwen3-4b --shape train_4k`` with and without
      ``--multi-pod``, qwen3-4b prefill_32k, llama3-8b and internvl2-1b
-     train_4k, ``ep_dryrun --arch kimi-k2-1t-a32b`` and ``fl_dryrun``
-     over fake worlds of 256 and 512 ranks, each its own process, all at
-     once: each exits 0, prints its row and never initialises CUDA; each
-     ``dryrun`` row's temp within 0.5-2x the reference's (constants from
-     its CPU run) and no ``view``, ``_unsafe_view``, ``flip`` or
-     ``index_put`` replicated; the phase's wall is printed;
+     train_4k, deepseek-v2-236b prefill_32k with and without
+     ``--multi-pod``, kimi-k2-1t-a32b prefill_32k, ``ep_dryrun --arch
+     kimi-k2-1t-a32b`` and ``fl_dryrun`` over fake worlds of 256 and 512
+     ranks, each its own process, all at once: each exits 0, prints its
+     row and never initialises CUDA; each ``dryrun`` row's temp within
+     0.5-2x the reference's (constants from its CPU run) and no ``view``,
+     ``_unsafe_view``, ``flip``, ``index_put``, ``index_add`` or
+     ``searchsorted`` replicated; (c) qwen3-4b train_4k and prefill_32k
+     cut to one layer and deepseek-v2-236b prefill_32k to one lead and
+     one MoE layer, beside (b): each collective of the residual stream's
+     bytes or more paired with one of the reference program's, nothing
+     replicated; the phase's wall is printed;
  33. SSM and hybrid training, after phase 31 (the kernel line stays last):
      (a) ``repro_torch.launch.train.train`` on zamba2-2.7b at full width
      cut to one group (6 Mamba2 layers and the shared attention block) and
@@ -4760,6 +4766,10 @@ DRYRUN_CLIS = (
     ("dryrun", ["--arch", "qwen3-4b", "--shape", "prefill_32k"]),
     ("dryrun", ["--arch", "llama3-8b", "--shape", "train_4k"]),
     ("dryrun", ["--arch", "internvl2-1b", "--shape", "train_4k"]),
+    ("dryrun", ["--arch", "deepseek-v2-236b", "--shape", "prefill_32k"]),
+    ("dryrun", ["--arch", "deepseek-v2-236b", "--shape", "prefill_32k",
+                "--multi-pod"]),
+    ("dryrun", ["--arch", "kimi-k2-1t-a32b", "--shape", "prefill_32k"]),
     ("ep_dryrun", ["--arch", "kimi-k2-1t-a32b"]),
     ("fl_dryrun", []),
 )
@@ -4776,15 +4786,22 @@ DRYRUN_REF_TEMP = {
     ("qwen3-4b", "prefill_32k", False): 43565236528,
     ("llama3-8b", "train_4k", False): 53687354608,
     ("internvl2-1b", "train_4k", False): 125977478064,
+    # scripts/dryrun_reference.json's rows (its memory keys are the JAX
+    # package's dry-run's, bit for bit)
+    ("deepseek-v2-236b", "prefill_32k", False): 281564699824,
+    ("deepseek-v2-236b", "prefill_32k", True): 275239689392,
+    ("kimi-k2-1t-a32b", "prefill_32k", False): 519153682184,
 }
 DRYRUN_TEMP_RATIO = 2.0
 # and at least this share of it: every row here is a train or prefill
 # step, where the port's temp reads 0.58-1.51x the reference's
-# (``scripts/dryrun_parity.py``, torch 2.11 and 2.13); a trace that lost
-# storages would size a run too small
+# (``scripts/dryrun_parity.py``, torch 2.11 and 2.13; the MoE prefills
+# 0.70-0.71x on torch 2.13); a trace that lost storages would size a run
+# too small
 DRYRUN_TEMP_FLOOR = 0.5
 DRYRUN_REPLICATED_OPS = ("aten.view.", "aten._unsafe_view.", "aten.flip.",
-                         "aten.index_put")
+                         "aten.index_put", "aten.index_add",
+                         "aten.searchsorted")
 DRYRUN_CLI = """
 import importlib, sys, torch
 mod = importlib.import_module("repro_torch.launch." + sys.argv[1])
@@ -4794,64 +4811,70 @@ sys.exit(rc)
 """
 
 
-# phase 31 (c): qwen3-4b's step cut to one layer (what the reference's
-# counts hold: XLA counts its scanned layer loop's body once) over the
-# fake 256-rank world, in a process of its own; each of its collectives
+# phase 31 (c): qwen3-4b's step cut to one layer, and deepseek-v2-236b's
+# to one lead and one MoE layer (what the reference's counts hold: XLA
+# counts each scanned layer loop's body once) over the fake 256-rank
+# world, each arch in a process of its own; each of its collectives
 # paired with the reference program's (``scripts/dryrun_reference.json``,
 # its rows' ``collectives`` at the program's dtypes, written on a CPU by
 # ``scripts/dryrun_reference_row.py``: the card's host has no JAX) of
 # the same kind and type.  The run fails if a collective of at least the
 # residual stream's bytes a rank (B/16 x S x d in bf16) is left unpaired
-DRYRUN_PAIR_ARCH = "qwen3-4b"
-DRYRUN_PAIR_SHAPES = ("train_4k", "prefill_32k")
+DRYRUN_PAIR_ARCHS = {"qwen3-4b": (1, ("train_4k", "prefill_32k")),
+                     "deepseek-v2-236b": (2, ("prefill_32k",))}
 DRYRUN_PAIRS = """
 import json, sys, torch
 from repro_torch.configs import get_config
 from repro_torch.launch.dryrun import dryrun_one, quiet_dtensor
 quiet_dtensor()
-arch, shapes = sys.argv[1], sys.argv[2:]
-cfg = get_config(arch).replace(num_layers=1)
+arch, layers, shapes = sys.argv[1], int(sys.argv[2]), sys.argv[3:]
+cfg = get_config(arch).replace(num_layers=layers)
 rows = {}
 for shape in shapes:
     row = dryrun_one(arch, shape, cfg=cfg, verbose=False)
     rows[shape] = {k: row[k] for k in ("collectives", "collective_bytes",
-                                       "lower_s")}
+                                       "lower_s", "replicated")}
 print(json.dumps({"rows": rows, "cuda_initialized":
                   torch.cuda.is_initialized()}))
 """
 
 
-def dryrun_pairs(proc, wall) -> dict:
-    """Phase 31 (c): the paired table of ``DRYRUN_PAIRS``'s rows (its
-    finished process ``proc``) against the reference program's."""
+def dryrun_pairs(arch, proc, wall) -> dict:
+    """Phase 31 (c): the paired table of ``DRYRUN_PAIRS``'s rows of
+    ``arch`` (its finished process ``proc``) against the reference
+    program's."""
     from repro_torch.configs import get_config, get_shape
-    from repro_torch.launch.collectives import pair_with_reference
+    from repro_torch.launch.collectives import (pair_with_reference,
+                                                residual_bytes)
     stdout, stderr = proc
     lines = stdout.strip().splitlines()
+    layers = DRYRUN_PAIR_ARCHS[arch][0]
     if not lines or not lines[-1].startswith("{"):
-        fail(f"phase 31 (c): the one-layer dry-runs printed no rows:\n"
-             f"{stderr[-3000:]}")
+        fail(f"phase 31 (c): the {arch} dry-runs at {layers} layers "
+             f"printed no rows:\n{stderr[-3000:]}")
     got = json.loads(lines[-1])
     if got["cuda_initialized"]:
         fail("phase 31 (c): the dry-run initialised CUDA")
     ref = {(r["arch"], r["shape"], r["multi_pod"]): r for r in json.loads(
         (ROOT / "scripts" / "dryrun_reference.json").read_text())}
     out = {"wall_s": wall}
-    cfg = get_config(DRYRUN_PAIR_ARCH)
+    cfg = get_config(arch)
     for shape, row in got["rows"].items():
-        theirs = ref[(DRYRUN_PAIR_ARCH, shape, False)]
-        shp = get_shape(shape)
-        least = shp.global_batch // 16 * shp.seq_len * cfg.d_model * 2
+        theirs = ref[(arch, shape, False)]
+        least = residual_bytes(cfg, get_shape(shape))
         pairs = pair_with_reference(row["collectives"],
                                     theirs["collectives"], least)
         mine = row["collective_bytes"].get("all-reduce", 0)
         want = theirs["collective_bytes_program"].get("all-reduce", 0)
-        print(f"  {DRYRUN_PAIR_ARCH} {shape}, one layer on 16 x 16 (traced "
+        gathered = row["collective_bytes"].get("all-gather", 0)
+        print(f"  {arch} {shape}, {layers} layer(s) on 16 x 16 (traced "
               f"in {row['lower_s']} s): all-reduce {mine:,} B a device, "
               f"the reference program's {want:,} B ({mine / want:.4f}x; "
               f"XLA's CPU bytes "
               f"{theirs['collective_bytes'].get('all-reduce', 0):,}); "
-              f"each collective, the residual stream's {least:,} B or "
+              f"all-gather {gathered:,} B, the program's "
+              f"{theirs['collective_bytes_program'].get('all-gather', 0):,}"
+              f" B; each collective, the residual stream's {least:,} B or "
               f"more gated:")
         for p in pairs:
             if p["ref"] is None:
@@ -4864,9 +4887,13 @@ def dryrun_pairs(proc, wall) -> dict:
                   f"{p['site']} <-> {pair}")
         unpaired = [p for p in pairs if p["gated"] and p["ref"] is None]
         if unpaired:
-            fail(f"phase 31 (c): {DRYRUN_PAIR_ARCH} {shape}: collectives "
-                 f"the reference's program does not make: {unpaired}")
+            fail(f"phase 31 (c): {arch} {shape}: collectives the "
+                 f"reference's program does not make: {unpaired}")
+        if row["replicated"]:
+            fail(f"phase 31 (c): {arch} {shape} replicated "
+                 f"{row['replicated']}")
         out[shape] = dict(all_reduce=mine, ref_all_reduce_program=want,
+                          all_gather=gathered,
                           gated=sum(p["gated"] for p in pairs),
                           pairs=pairs, lower_s=row["lower_s"])
     return out
@@ -4928,9 +4955,11 @@ def dryrun_path(torch, dev, report) -> None:
     production-mesh CLIs over fake worlds of 256 and 512 ranks, each its
     own process: exit 0, a row, CUDA never initialised; each
     ``launch.dryrun`` row's temp within ``DRYRUN_TEMP_FLOOR`` and
-    ``DRYRUN_TEMP_RATIO`` of the reference's (``dryrun_parity``); (c)
-    qwen3-4b's step cut to one layer, its collectives paired with the
-    reference program's (``dryrun_pairs``), started beside (b)."""
+    ``DRYRUN_TEMP_RATIO`` of the reference's (``dryrun_parity``), the
+    MoE family's prefills among them; (c) qwen3-4b's step cut to one
+    layer and deepseek-v2-236b's to one lead and one MoE layer, their
+    collectives paired with the reference program's (``dryrun_pairs``),
+    started beside (b)."""
     import os
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
@@ -4942,9 +4971,9 @@ def dryrun_path(torch, dev, report) -> None:
     phase(f"phase 31: the dry-run tools — (a) launch.dryrun of "
           f"launch.train's step at one rank ({TRAIN_ARCH}, {T['layers']} "
           f"layers, f32, B {T['B']} x {T['S']}) against the card; (b) the "
-          f"production-mesh dry-runs, each its own process; (c) "
-          f"{DRYRUN_PAIR_ARCH}'s one-layer collectives against the "
-          f"reference program's")
+          f"production-mesh dry-runs, each its own process; (c) the "
+          f"collectives of {', '.join(DRYRUN_PAIR_ARCHS)} cut to their "
+          f"first layers against the reference program's")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run(
         [sys.executable, "-c", DRYRUN_ONE_RANK, TRAIN_ARCH,
@@ -5022,10 +5051,10 @@ def dryrun_path(torch, dev, report) -> None:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    pairs_proc = subprocess.Popen(
-        [sys.executable, "-c", DRYRUN_PAIRS, DRYRUN_PAIR_ARCH,
-         *DRYRUN_PAIR_SHAPES], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+    pairs_procs = {arch: subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_PAIRS, arch, str(layers), *shapes],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch, (layers, shapes) in DRYRUN_PAIR_ARCHS.items()}
     procs = [(mod, argv, time.perf_counter(), subprocess.Popen(
         [sys.executable, "-c", DRYRUN_CLI, mod] + argv, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -5049,12 +5078,15 @@ def dryrun_path(torch, dev, report) -> None:
         if mod == "dryrun":
             out["b"][name]["parity"] = dryrun_parity(name, lines[:-1])
     out["b_wall_s"] = time.perf_counter() - t0
-    print(f"phase 31 (c): {DRYRUN_PAIR_ARCH}'s step cut to one layer, its "
+    print("phase 31 (c): qwen3-4b's step cut to one layer and "
+          "deepseek-v2-236b's to one lead and one MoE layer, their "
           "collectives paired with the reference program's")
-    out["c"] = dryrun_pairs(pairs_proc.communicate(timeout=600),
-                            time.perf_counter() - t0)
-    if pairs_proc.returncode != 0:
-        fail(f"phase 31 (c) exited {pairs_proc.returncode}")
+    out["c"] = {}
+    for arch, p in pairs_procs.items():
+        out["c"][arch] = dryrun_pairs(arch, p.communicate(timeout=600),
+                                      time.perf_counter() - t0)
+        if p.returncode != 0:
+            fail(f"phase 31 (c): {arch} exited {p.returncode}")
     out["wall_s"] = time.perf_counter() - t_phase
     card = report.get("card", "")
     print(f"phase 31: {out['wall_s']:.1f} s, (b) {out['b_wall_s']:.1f} s "

@@ -3,7 +3,7 @@
 port's per-device memory against the reference's.
 
     python3 scripts/dryrun_parity.py --side port [--rows all] \\
-        [--meshes single,multi] [--jobs 8] \\
+        [--meshes single,multi] [--jobs 8] [--layers N] \\
         [--against scripts/dryrun_reference.json] [--out PATH]
     python3 scripts/dryrun_parity.py --side reference \\
         --meshes single,multi --out scripts/dryrun_reference.json
@@ -35,7 +35,11 @@ kind's output bytes on one device on both sides.  The reference scans its
 layer stacks (``lax.scan``), and both its counts hold a loop's body once,
 so a full row's ratios grow with the layer count;
 ``tests/test_torch_dryrun_parity.py`` (b) holds the port's row cut to one
-layer to them.
+layer (one lead and one MoE layer for the MoE family) to them.  ``--layers
+N`` cuts the port's configs to N layers (``CUT``): the table then pairs each of the port's collectives of the residual stream's bytes
+or more (B/16 x S x d in bf16) with one of the reference program's
+(``launch.collectives.pair_with_reference``) and prints how many of
+them found none.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import textwrap
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -56,6 +61,19 @@ ARCHS = ("qwen3-4b", "llama3-8b", "granite-8b", "internvl2-1b",
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 COMMANDS = {"port": ["-m", "repro_torch.launch.dryrun"],
             "reference": [str(ROOT / "scripts" / "dryrun_reference_row.py")]}
+# the port's row with its config cut to N layers, as the tests' and the
+# smoke's dry-runs cut it: argv arch, shape, out, multi-pod (0/1), N
+CUT = textwrap.dedent("""
+    import json, sys
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import dryrun_one, quiet_dtensor
+    quiet_dtensor()
+    arch, shape, out, multi, layers = sys.argv[1:]
+    row = dryrun_one(arch, shape, multi_pod=multi == "1", verbose=False,
+                     cfg=get_config(arch).replace(num_layers=int(layers)))
+    with open(out, "w") as f:
+        json.dump([row], f)
+""")
 KEEP = ("arch", "shape", "multi_pod", "mesh_shape", "skipped", "memory",
         "replicated", "peak_holders", "lower_s", "flops", "flops_per_device",
         "bytes_accessed", "collective_bytes", "collective_bytes_program",
@@ -67,16 +85,21 @@ def key(arch: str, shape: str, multi_pod: bool) -> str:
 
 
 def run_row(side: str, arch: str, shape: str, multi_pod: bool,
-            timeout: float, tmp: Path) -> dict:
-    """One row in a process of its own: the row's kept keys, ``wall_s``
-    and ``rc``."""
+            timeout: float, tmp: Path, layers: int = 0) -> dict:
+    """One row in a process of its own (the port's cut to ``layers``
+    layers if set): the row's kept keys, ``wall_s`` and ``rc``."""
     out = tmp / f"{key(arch, shape, multi_pod).replace(':', '_')}.json"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("XLA_FLAGS", None)
     if side == "reference":
         env["JAX_PLATFORMS"] = "cpu"
-    cmd = [sys.executable, *COMMANDS[side], "--arch", arch, "--shape",
-           shape, "--out", str(out)] + (["--multi-pod"] if multi_pod else [])
+    if layers:
+        cmd = [sys.executable, "-c", CUT, arch, shape, str(out),
+               str(int(multi_pod)), str(layers)]
+    else:
+        cmd = [sys.executable, *COMMANDS[side], "--arch", arch, "--shape",
+               shape, "--out", str(out)] \
+            + (["--multi-pod"] if multi_pod else [])
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, env=env, cwd=str(ROOT), timeout=timeout,
@@ -112,7 +135,20 @@ def ratios(row: dict, other: dict) -> dict:
     return out
 
 
-def line(row: dict, ref: dict) -> str:
+def unpaired(row: dict, other: dict) -> str:
+    """The table's note on the port's collectives (a row cut to
+    ``--layers``) paired with the reference program's (``other``)."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.collectives import (pair_with_reference,
+                                                residual_bytes)
+    least = residual_bytes(get_config(row["arch"]), get_shape(row["shape"]))
+    gated = [p for p in pair_with_reference(
+        row["collectives"], other["collectives"], least) if p["gated"]]
+    return (f"; {len(gated)} collectives of {least:,} B or more, "
+            f"{sum(p['ref'] is None for p in gated)} unpaired")
+
+
+def line(row: dict, ref: dict, pair: bool = False) -> str:
     name = key(row["arch"], row["shape"], row["multi_pod"])
     if row.get("skipped"):
         return f"{name}: skipped"
@@ -136,6 +172,9 @@ def line(row: dict, ref: dict) -> str:
             text += (f" (reference {other['flops']:.4g} FLOPs, "
                      f"{coll / 1e9:.3f} GB collectives a device at its "
                      "program's dtypes)")
+    if pair and other and row.get("collectives") and other.get(
+            "collectives"):
+        text += unpaired(row, other)
     text += (f"; replicated {row.get('replicated', [])}; "
              f"{row.get('lower_s')} s traced, {row['wall_s']} s wall")
     return text
@@ -149,8 +188,15 @@ def main(argv=None) -> int:
     ap.add_argument("--jobs", type=int, default=8)
     ap.add_argument("--timeout", type=float, default=1800)
     ap.add_argument("--against", default=None)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="the port's configs cut to this many layers; the "
+                         "table pairs the collectives")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    if args.layers:
+        if args.side != "port":
+            ap.error("--layers cuts the port's configs only")
+        sys.path.insert(0, str(ROOT / "src"))       # for ``unpaired``
     rows = ([(a, s) for a in ARCHS for s in SHAPES] if args.rows == "all"
             else [tuple(r.split(":")) for r in args.rows.split(",")])
     pods = [{"single": False, "multi": True}[m]
@@ -163,12 +209,12 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp, \
             ThreadPoolExecutor(args.jobs) as pool:
         futures = [pool.submit(run_row, args.side, a, s, multi,
-                               args.timeout, Path(tmp))
+                               args.timeout, Path(tmp), args.layers)
                    for multi in pods for a, s in rows]
         for f in futures:
             row = f.result()
             results.append(row)
-            print(line(row, ref), flush=True)
+            print(line(row, ref, bool(args.layers)), flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(results, indent=1))
     return 1 if any(r["rc"] for r in results) else 0

@@ -26,7 +26,12 @@ program asks for.  The row gains:
     of the collective before promotion that it was made from (the same
     kind, dimensions and replica groups; the same ``op_name`` first);
   * ``collective_bytes_program``: the totals of ``collective_bytes``'s
-    form at the program's dtypes.
+    form at the program's dtypes;
+  * ``peak_values``: the ``PEAK_VALUES`` largest values live at the peak
+    of XLA's buffer assignment for the step (its dump's "Live ranges at
+    ... (peak)"), each ``[bytes, value, type]``: what the reference's
+    ``temp_size_bytes`` is made of, op by op (``PERF.md`` §6 reads them
+    against the program's dtypes).
 
 It writes ``[row]`` to ``--out``, as ``python -m repro.launch.dryrun``
 does.  ``scripts/dryrun_parity.py --side reference`` runs it a row at a
@@ -50,6 +55,7 @@ DTYPE_BYTES = {
     "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8, "f64": 8, "c64": 8,
 }
 PROMOTION_PASS = "all-reduce-promotion"
+PEAK_VALUES = 8
 _OP = re.compile(r"%?[\w.\-]+\s*=\s*(\([^)]*\)|[^ ]+)\s+([\w\-]+)\(")
 _TYPE = re.compile(r"(pred|[suf]\d+|bf16|c64)\[([\d,]*)\]")
 _IOTA = re.compile(r"replica_groups=\[([\d,]+)\]<=\[([\d,]+)\](?:T\(([\d,]+)\))?")
@@ -180,6 +186,41 @@ def before_promotion(dump: str, hlo: str) -> str:
         return f.read()
 
 
+_LIVE = re.compile(r"^\s+([\w.\-]+)\{[\d,]*\}: (\d+) bytes")
+_VALUE = re.compile(r"value: <\d+ ([\w.\-]+) @\d+> \(size=\d+,"
+                    r"offset=\d+\): ([^ ]+)")
+
+
+def peak_values(dump: str, hlo: str) -> list:
+    """The ``PEAK_VALUES`` largest values live at the peak of the step's
+    buffer assignment in XLA's dump: ``[bytes, value, type]`` each; none
+    where XLA dumped no assignment."""
+    module = re.match(r"HloModule\s+([\w.\-]+)", hlo)
+    files = sorted(glob.glob(os.path.join(
+        dump, f"*.{module.group(1) if module else ''}"
+        ".*buffer-assignment.txt")))
+    if not files:
+        return []
+    with open(files[-1]) as f:
+        lines = f.read().splitlines()
+    types = {}
+    for line in lines:
+        m = _VALUE.search(line)
+        if m:
+            types.setdefault(m.group(1), m.group(2))
+    at = next((i for i, line in enumerate(lines)
+               if "Live ranges at" in line and "(peak)" in line), None)
+    if at is None:
+        return []
+    live = []
+    for line in lines[at + 1:]:
+        m = _LIVE.match(line)
+        if not m:
+            break
+        live.append([int(m.group(2)), m.group(1), types.get(m.group(1), "")])
+    return sorted(live, reverse=True)[:PEAK_VALUES]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -211,6 +252,7 @@ def main(argv=None) -> int:
                                before_promotion(dump, seen["hlo"]))
             row["collectives"] = rows
             row["collective_bytes_program"] = program_totals(rows)
+            row["peak_values"] = peak_values(dump, seen["hlo"])
     with open(args.out, "w") as f:
         json.dump([row], f, indent=1)
     return 1 if "error" in row else 0

@@ -38,7 +38,8 @@ mode, to propagate shapes, are run but not recorded.
 reference's HLO has no name for (``broadcast``, which ``moe_ep`` uses
 to hand every rank data row 0's aux loss) is counted under its own key.
 ``pair_with_reference`` pairs a row's collectives with the reference
-program's (``scripts/dryrun_reference_row.py``) by kind and type.
+program's (``scripts/dryrun_reference_row.py``) by kind and type, and
+gates those of at least ``residual_bytes``.
 """
 from __future__ import annotations
 
@@ -518,6 +519,13 @@ def collective_bytes(records: Iterable[Collective]) -> Dict[str, int]:
     result["_counts"] = dict(counts)
     result["total"] = int(sum(out.values()))
     return result
+
+
+def residual_bytes(cfg, shape) -> int:
+    """The residual stream's bytes a rank in bf16 (B/16 x S x d, over the
+    production mesh's 16 "data" ranks): the least a collective that
+    ``pair_with_reference`` gates moves."""
+    return shape.global_batch // 16 * shape.seq_len * cfg.d_model * 2
 
 
 def pair_with_reference(port: List[dict], reference: List[dict],

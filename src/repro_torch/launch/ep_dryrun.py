@@ -12,9 +12,12 @@ world of 256 ranks, plays rank 0 and traces on meta tensors.
 
   * ``gspmd_dispatch``: ``moe_ffn`` on DTensors, the router replicated,
     the expert weights sharded over "model", the tokens over "data"; the
-    collectives are those DTensor's sharding propagation issues (and any
-    redistribution to ``Replicate`` where it has no sharding, as
-    ``replicated`` names them).
+    dispatch runs as the reference's GSPMD program runs it
+    (``spmd.experts_call``: the router's logits gathered whole, the (T k,
+    d) rows and expert results all-reduced), the rest as DTensor's
+    sharding propagation issues it (and any redistribution to
+    ``Replicate`` where it has no sharding, as ``replicated`` names
+    them).
   * ``explicit_ep``: ``make_ep_moe_layer`` over the fake world's groups;
     every rank takes the full params and tokens and its own block of each.
     Its expert buffers are sized for the busiest expert, which a meta

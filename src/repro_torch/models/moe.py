@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import spmd
 from repro_torch.models.scan_ops import acc_dtype
 
 CAPACITY_FACTOR = 1.25
@@ -59,14 +60,20 @@ def init_moe_ffn(gen: torch.Generator, cfg: ModelConfig, *, device,
     return p
 
 
+def _logits(p, xf):
+    return (xf @ p["router"].to(xf.dtype)).to(acc_dtype(xf))
+
+
+def _top_k(probs, k: int):
+    gate, ids = torch.topk(probs, k, dim=-1)
+    return gate / gate.sum(dim=-1, keepdim=True).clamp(min=1e-9), ids
+
+
 def route(p, cfg: ModelConfig, xf):
     """Router of tokens ``xf`` (T, d): (probs (T, E), gate (T, k), ids
     (T, k)), the gates renormalised over the top k, in ``acc_dtype``."""
-    logits = (xf @ p["router"].to(xf.dtype)).to(acc_dtype(xf))
-    probs = torch.softmax(logits, dim=-1)
-    gate, ids = torch.topk(probs, cfg.top_k, dim=-1)
-    gate = gate / gate.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-    return probs, gate, ids
+    probs = torch.softmax(_logits(p, xf), dim=-1)
+    return (probs, *_top_k(probs, cfg.top_k))
 
 
 def expert_counts(ids: torch.Tensor, E: int, dtype) -> torch.Tensor:
@@ -79,9 +86,38 @@ def expert_counts(ids: torch.Tensor, E: int, dtype) -> torch.Tensor:
         0, flat, torch.ones_like(flat, dtype=dtype))
 
 
+def _aux_loss(probs, ids, E: int):
+    """The load-balance aux loss (Switch-style): E * sum_e f_e * p_e."""
+    me = probs.mean(dim=0)                                          # (E,)
+    ce = expert_counts(ids, E, probs.dtype) / ids.numel()
+    return E * (me * ce).sum()
+
+
+def _assignments(ids, E: int, C: int):
+    """The sort dispatch of ``ids`` (T, k): the assignments sorted by
+    expert id (stably), and for each sorted one its source token, whether
+    it fits its expert's C slots, and its row of the (E * C, d) buffer
+    (E * C, the drop slot, where it does not)."""
+    T, k = ids.shape
+    flat_ids = ids.reshape(-1)                                      # (T*k,)
+    sort_idx = torch.argsort(flat_ids, stable=True)
+    sorted_eids = flat_ids[sort_idx]
+    start = torch.searchsorted(sorted_eids,
+                               torch.arange(E, device=ids.device),
+                               side="left")
+    pos_in_expert = torch.arange(T * k, device=ids.device) \
+        - start[sorted_eids]
+    tok = sort_idx // k                                       # source token
+    valid = pos_in_expert < C
+    dest = torch.where(valid, sorted_eids * C + pos_in_expert, E * C)
+    return sort_idx, tok, valid, dest
+
+
 def moe_ffn(p, cfg: ModelConfig, x, *, capacity_factor: float = None):
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar).  The capacity is
-    that of this call's B * S tokens."""
+    that of this call's B * S tokens.  On DTensors over more than one rank
+    (the dry-runs) the dispatch runs on each rank's local tensors as the
+    reference's GSPMD places it (``_dispatch_local``)."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     T = B * S
@@ -89,37 +125,20 @@ def moe_ffn(p, cfg: ModelConfig, x, *, capacity_factor: float = None):
     xf = x.reshape(T, d)
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
-    probs, gate, ids = route(p, cfg, xf)
-
-    # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
-    me = probs.mean(dim=0)                                          # (E,)
-    ce = expert_counts(ids, E, probs.dtype) / (T * k)
-    aux = E * (me * ce).sum()
-
     C = moe_capacity(T, E, k, capacity_factor)
-    flat_ids = ids.reshape(-1)                                      # (T*k,)
-    sort_idx = torch.argsort(flat_ids, stable=True)
-    sorted_eids = flat_ids[sort_idx]
-    start = torch.searchsorted(sorted_eids,
-                               torch.arange(E, device=x.device), side="left")
-    pos_in_expert = torch.arange(T * k, device=x.device) - start[sorted_eids]
-    tok = sort_idx // k                                       # source token
-    valid = pos_in_expert < C
-    dest = torch.where(valid, sorted_eids * C + pos_in_expert, E * C)
+    if spmd.split(x):
+        xf = spmd.batch_only(xf)    # its gradient reduced here, as GSPMD's
+        out, aux = spmd.experts_call(
+            _dispatch_local, _logits(p, xf), xf,
+            [p["we1"], p["we3"], p["we2"]], k=k, C=C)
+        if "shared" in p:           # reduced where made, as GSPMD does
+            out = out + spmd.batch_only(L.mlp(p["shared"], xf))
+        return out.view(B, S, d), aux
+    probs, gate, ids = route(p, cfg, xf)
+    aux = _aux_loss(probs, ids, E)
+    sort_idx, tok, valid, dest = _assignments(ids, E, C)
 
-    # every dropped assignment writes row E*C, the drop slot, which is
-    # never read: the order of those writes does not matter
-    buf = x.new_zeros((E * C + 1, d))
-    buf[dest] = xf[tok]
-    h = buf[:E * C].view(E, C, d)
-    a = torch.bmm(h, p["we1"].to(dt))
-    b = torch.bmm(h, p["we3"].to(dt))
-    del buf, h
-    a = F.silu(a).mul_(b)
-    del b
-    y = torch.bmm(a, p["we2"].to(dt)).view(E * C, d)
-    del a
-
+    y = _experts(xf[tok], dest, C, p["we1"], p["we3"], p["we2"])
     gate_sorted = gate.reshape(-1)[sort_idx].to(dt)
     contrib = (y[torch.where(valid, dest, 0)]
                * torch.where(valid, gate_sorted, 0.0)[:, None])
@@ -130,6 +149,86 @@ def moe_ffn(p, cfg: ModelConfig, x, *, capacity_factor: float = None):
     if "shared" in p:
         out = out + L.mlp(p["shared"], xf)
     return out.view(B, S, d), aux
+
+
+def _experts(rows, dest, C: int, we1, we3, we2):
+    """The SwiGLU experts ``we1``, ``we3`` (n, d, f) and ``we2`` (n, f, d)
+    on their C slots each: ``rows`` (R, d) written to the slots ``dest``
+    -> (n * C, d).  Every dropped row writes slot n * C, the drop slot,
+    which is never read: the order of those writes does not matter.
+    Callers pass ``rows`` as a temporary, which the call then holds
+    alone: it is freed once written, and the slots once the products
+    have read them."""
+    n, d = we1.shape[0], rows.shape[1]
+    dt = rows.dtype
+    buf = rows.new_zeros((n * C + 1, d))
+    buf[dest] = rows
+    del rows
+    h = buf[:n * C].view(n, C, d)
+    a = torch.bmm(h, we1.to(dt))
+    b = torch.bmm(h, we3.to(dt))
+    del buf, h
+    a = F.silu(a).mul_(b)
+    del b
+    return torch.bmm(a, we2.to(dt)).view(n * C, d)
+
+
+def _own_rows(xf, tok, mine, first, axes):
+    """The rows of the sorted assignments' tokens ``tok``, each from the
+    rank of ``rows`` that holds it (``mine``: this rank's, from
+    ``first``): summed over ``rows``, every row one non-zero term; the
+    gradient summed over ``split``."""
+    mesh, rows, split = axes
+    got = xf[torch.where(mine, tok - first, 0)]
+    got.mul_(mine[:, None])
+    return spmd.sum_grad(spmd.sum_partial(got, mesh, rows), mesh, split)
+
+
+def _dispatch_local(logits, xf, we1, we3, we2, *, axes, k: int, C: int):
+    """``moe_ffn``'s routed experts on one rank's local tensors, as the
+    reference's GSPMD program runs them (``spmd.experts_call``): this
+    rank's tokens ``xf`` (T_r, d) and logits (T_r, E_r), and its E_r
+    experts.  The logits are gathered over the experts' axes (``split``)
+    and the tokens' (``rows``): every rank routes, sorts and drops all T
+    tokens.  Each rank gathers the rows of its own tokens, and the (T * k,
+    d) rows are summed over ``rows``; it fills its experts' slots and runs
+    their products (repeated on each rank of ``rows``); the results are
+    gathered by summing each rank's rows over ``split``, and each rank
+    combines its own tokens.  In the backward the combined rows' gradient
+    is summed over ``rows`` and the slots' over ``split``.  The values are
+    ``moe_ffn``'s: every summed row has one non-zero term."""
+    mesh, rows, split = axes
+    T_r, d = xf.shape
+    dt = xf.dtype
+    probs = torch.softmax(spmd.gather_whole(spmd.gather_whole(
+        logits, mesh, split, 1), mesh, rows, 0), dim=-1)
+    gate, ids = _top_k(probs, k)
+    E = probs.shape[1]
+    aux = _aux_loss(probs, ids, E)
+    sort_idx, tok, valid, dest = _assignments(ids, E, C)
+
+    first = spmd.shard_index(mesh, rows) * T_r        # this rank's tokens
+    mine = (tok >= first) & (tok < first + T_r)
+    EC = we1.shape[0] * C                             # this rank's slots
+    lo = spmd.shard_index(mesh, split) * EC
+    here = valid & (dest >= lo) & (dest < lo + EC)
+    slot = torch.where(here, dest - lo, EC)           # EC: the drop slot
+    y = _experts(_own_rows(xf, tok, mine, first, axes), slot, C,
+                 we1, we3, we2)
+    got = y[torch.where(here, slot, 0)]
+    del y
+    got.mul_(here[:, None])
+    got = spmd.sum_partial(got, mesh, split)
+
+    gate_sorted = gate.reshape(-1)[sort_idx].to(dt)
+    contrib = spmd.sum_grad(
+        got * torch.where(valid, gate_sorted, 0.0)[:, None], mesh, rows)
+    del got
+    # (token, j) slot -> its place in the sorted order: this rank's slots
+    inv = torch.empty_like(sort_idx)
+    inv[sort_idx] = torch.arange(sort_idx.numel(), device=inv.device)
+    out = contrib[inv[first * k:(first + T_r) * k]].view(T_r, k, d)
+    return out.sum(dim=1), aux
 
 
 def moe_ffn_reference(p, cfg: ModelConfig, x):
@@ -186,7 +285,9 @@ def _mla_queries(p, cfg: ModelConfig, x, positions):
     dn = cfg.nope_head_dim
     dt = x.dtype
     if cfg.q_lora_rank:
-        cq = L.rms_norm(x @ p["w_dq"].to(dt), p["q_norm"])
+        # the latents' gradients (partial over the heads' axis in the
+        # dry-runs) reduced where made, as GSPMD reduces them
+        cq = spmd.grad_like(L.rms_norm(x @ p["w_dq"].to(dt), p["q_norm"]))
         q = L._proj(cq, p["w_uq"], dt)
     else:
         q = L._proj(x, p["wq"], dt)
@@ -208,6 +309,29 @@ def _attn_probs(nope_spec: str, q1, k1, q_rope, k_rope, bias, scale, dt):
     probs = torch.softmax(s, dim=-1)
     del s
     return probs.to(dt)
+
+
+def _expanded(q_nope, q_rope, k_nope, k_rope, v, positions, *, scale,
+              window: int, q_chunks: int):
+    """MLA's prefill core in the expanded form: queries (B, S, H, dn +
+    dr, split in two) over keys ``k_nope`` (B, S, H, dn) and the shared
+    ``k_rope`` (B, S, dr), values ``v``; (B, S, H, dn)."""
+    S, dt = q_nope.shape[1], q_nope.dtype
+
+    def attend(lo, hi):
+        """Queries [lo, hi) over keys [0, hi)."""
+        bias = L._mask_bias(positions[:, lo:hi], positions[:, :hi],
+                            True, window, acc_dtype(q_nope))
+        probs = _attn_probs("bqhk,bshk->bhqs", q_nope[:, lo:hi],
+                            k_nope[:, :hi], q_rope[:, lo:hi],
+                            k_rope[:, :hi], bias[:, None], scale, dt)
+        return torch.einsum("bhqs,bshk->bqhk", probs, v[:, :hi])
+
+    if q_chunks > 1 and S % q_chunks == 0:
+        cs = S // q_chunks
+        return torch.cat([attend(i * cs, (i + 1) * cs)
+                          for i in range(q_chunks)], dim=1)
+    return attend(0, S)
 
 
 def mla_attention(p, cfg: ModelConfig, x, positions, cache=None, *,
@@ -234,28 +358,26 @@ def mla_attention(p, cfg: ModelConfig, x, positions, cache=None, *,
         positions = torch.full((B, S), cache["index"], dtype=torch.long,
                                device=x.device)
     q_nope, q_rope = _mla_queries(p, cfg, x, positions)
-    c_kv = L.rms_norm(x @ p["w_dkv"].to(dt), p["kv_norm"])      # (B,S,r_kv)
-    k_rope = L.apply_rope(x @ p["w_kr"].to(dt), positions, cfg.rope_theta)
+    c_kv = spmd.grad_like(L.rms_norm(x @ p["w_dkv"].to(dt),
+                                     p["kv_norm"]))             # (B,S,r_kv)
+    k_rope = spmd.grad_like(L.apply_rope(x @ p["w_kr"].to(dt), positions,
+                                         cfg.rope_theta))
 
     if cache is None:
         k_nope = L._proj(c_kv, p["w_uk"], dt)                   # (B,S,H,dn)
         v = L._proj(c_kv, p["w_uv"], dt)
-
-        def attend(lo, hi):
-            """Queries [lo, hi) over keys [0, hi)."""
-            bias = L._mask_bias(positions[:, lo:hi], positions[:, :hi],
-                                True, window, acc_dtype(x))
-            probs = _attn_probs("bqhk,bshk->bhqs", q_nope[:, lo:hi],
-                                k_nope[:, :hi], q_rope[:, lo:hi],
-                                k_rope[:, :hi], bias[:, None], scale, dt)
-            return torch.einsum("bhqs,bshk->bqhk", probs, v[:, :hi])
-
-        if q_chunks > 1 and S % q_chunks == 0:
-            cs = S // q_chunks
-            out = torch.cat([attend(i * cs, (i + 1) * cs)
-                             for i in range(q_chunks)], dim=1)
+        kw = dict(scale=scale, window=window, q_chunks=q_chunks)
+        if spmd.split(q_nope):      # the dry-runs: each rank's own heads
+            pos = spmd.along_batch(positions, x)
+            [out] = spmd.heads_call(
+                lambda *a, **k: (_expanded(*a, **k),),
+                [q_nope, q_rope, k_nope, k_rope, v, pos],
+                [(True, 2), (True, 2), (True, 2), (True, None), (True, 2),
+                 (pos.shape[0] == B, None)], [(True, 2)], [q_nope.shape],
+                **kw)
         else:
-            out = attend(0, S)
+            out = _expanded(q_nope, q_rope, k_nope, k_rope, v, positions,
+                            **kw)
         new_cache = None
     else:
         # ---- absorbed decode: scores via the latent, K/V never expanded --

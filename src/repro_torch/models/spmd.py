@@ -34,6 +34,10 @@ caller computed before, so no result of the port moves.
   backward runs outside any region and cannot be counted so.)
 * ``vocab_call``: the unembedding's blocked cast and product
   (``layers.unembed`` in serving) on each rank's rows and vocab shard.
+* ``experts_call``: the MoE dispatch on each rank's tokens and experts,
+  its collectives stated as GSPMD's program makes them
+  (``gather_whole``, ``sum_partial``, ``sum_grad``: a local region's
+  all-gathers and all-reduces, forward or backward).
 * ``token_nll``: the loss's per-token negative log-likelihood; over more
   than one rank each rank takes its rows and vocab shard, and the max,
   the sum of exponentials and the gold logit are reduced over the
@@ -233,10 +237,7 @@ class _VocabParallelRows(torch.autograd.Function):
                      for p in idx.placements)
         t = table.redistribute(mesh, whole).to_local()
         local = idx.redistribute(mesh, rows).to_local().long()
-        first = 0
-        for i in vocab:             # this rank's first id
-            first = first * mesh.size(i) + mesh.get_local_rank(i)
-        local = local - first * t.shape[0]
+        local = local - shard_index(mesh, vocab) * t.shape[0]
         inside = (local >= 0) & (local < t.shape[0])
         local = local.clamp(0, t.shape[0] - 1)
         out = _reduce((t[local] * inside[..., None]).to(dtype), mesh, vocab,
@@ -391,10 +392,10 @@ class _LocalCall(torch.autograd.Function):
     each as it goes."""
 
     @staticmethod
-    def forward(ctx, fn, kwargs, out_meta, scale, *args):
+    def forward(ctx, fn, kwargs, out_meta, scale, partial, *args):
         local = [a.to_local() if is_dtensor(a) else a for a in args]
         wants = [i for i, a in enumerate(args)
-                 if ctx.needs_input_grad[4 + i] and is_dtensor(a)]
+                 if ctx.needs_input_grad[5 + i] and is_dtensor(a)]
         if not wants:
             with local_region(scale):
                 outs = fn(*local, **kwargs)
@@ -421,6 +422,7 @@ class _LocalCall(torch.autograd.Function):
         saved.clear()               # the graph's hooks hold the list
         ctx.set_materialize_grads(False)    # an unused output's is None
         ctx.box, ctx.scale, ctx.out_meta = box, scale, out_meta
+        ctx.partial = partial
         ctx.site = caller()
         ctx.ins = [(i, get_edge(local[i])) for i in wants]
         ctx.outs = [get_edge(o) if o.requires_grad else None for o in outs]
@@ -443,20 +445,23 @@ class _LocalCall(torch.autograd.Function):
                                           allow_unused=True)
             ctx.box.clear()
             # an argument whole on an axis that splits the work (a scan's
-            # bonus over the batch) gets each rank's share: partial there.
-            # A gradient is handed on contiguous: DTensor takes a global
-            # layout from the local one, and a view of a transposed one
-            # would split a sharded dim (the plain route's reshape copies)
+            # bonus over the batch) gets each rank's share: partial there
+            # (``partial``; else the work is repeated there and each rank's
+            # gradient is whole).  A gradient is handed on contiguous:
+            # DTensor takes a global layout from the local one, and a view
+            # of a transposed one would split a sharded dim (the plain
+            # route's reshape copies)
             from torch.distributed.tensor import Partial
             work = ctx.out_meta[0][1]
             for (i, _), g in zip(ctx.ins, got):
                 if g is not None:
                     mesh, pl, shape = ctx.arg_meta[i]
-                    pl = tuple(Partial() if p.is_replicate() and w.is_shard()
-                               else p for p, w in zip(pl, work))
+                    pl = tuple(Partial() if ctx.partial and p.is_replicate()
+                               and w.is_shard() else p
+                               for p, w in zip(pl, work))
                     out[i] = _wrap(g.contiguous(), mesh, pl, shape)
         ctx.ins = ctx.outs = None
-        return (None, None, None, None, *out)
+        return (None, None, None, None, None, *out)
 
 
 def local_call(fn, args, placements, out_placements, out_shapes,
@@ -471,7 +476,7 @@ def local_call(fn, args, placements, out_placements, out_shapes,
               for a, p in zip(args, placements)]
     meta = [(mesh, p, s) for p, s in zip(out_placements, out_shapes)]
     return _LocalCall.apply(fn, kwargs, meta,
-                            _shards(mesh, out_placements[0]), *placed)
+                            _shards(mesh, out_placements[0]), True, *placed)
 
 
 def vocab_call(fn, x, table, vocab_dim: int):
@@ -517,6 +522,128 @@ def heads_call(fn, args, specs, out_specs, out_shapes, **kwargs):
                       **kwargs)
 
 
+# ---- collectives a local region states itself ---------------------------------
+
+def shard_index(mesh, axes) -> int:
+    """This rank's index among the shards of a dim split over mesh
+    ``axes`` (the first major), as DTensor orders them."""
+    first = 0
+    for i in axes:
+        first = first * mesh.size(i) + mesh.get_local_rank(i)
+    return first
+
+
+def _whole(local, mesh, placements):
+    """The local tensor of ``local`` under ``placements`` made whole on
+    every rank (gathered or summed)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(local, mesh, placements,
+                              run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def _on(mesh, axes, placement):
+    from torch.distributed.tensor import Replicate
+    return [placement if i in axes else Replicate() for i in range(mesh.ndim)]
+
+
+class _GatherWhole(torch.autograd.Function):
+    """``x``'s shards over ``axes`` along ``dim`` gathered whole; its
+    gradient, alike on every rank, sliced back to this rank's shard."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        from torch.distributed.tensor import Shard
+        ctx.meta, ctx.site = (mesh, axes, dim, x.shape[dim]), caller()
+        return _whole(x, mesh, _on(mesh, axes, Shard(dim)))
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, n = ctx.meta
+        return (g.narrow(dim, shard_index(mesh, axes) * n, n), None, None,
+                None)
+
+
+class _SumPartial(torch.autograd.Function):
+    """Partial sums over ``axes`` reduced; the gradient, alike on every
+    rank, passed on as it is."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        from torch.distributed.tensor import Partial
+        ctx.site = caller()
+        return _whole(x, mesh, _on(mesh, axes, Partial()))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """``x`` as it is, read by each rank of ``axes`` for its own share;
+    the gradient's partial sums reduced over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.meta, ctx.site = (mesh, axes), caller()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial
+        mesh, axes = ctx.meta
+        return _whole(g.contiguous(), mesh, _on(mesh, axes, Partial())), \
+            None, None
+
+
+def gather_whole(x, mesh, axes, dim: int):
+    """In a local region: ``x`` split over mesh ``axes`` along ``dim``,
+    all-gathered; its gradient must be alike on every rank."""
+    return _GatherWhole.apply(x, mesh, tuple(axes), dim) if axes else x
+
+
+def sum_partial(x, mesh, axes):
+    """In a local region: partial sums over ``axes`` all-reduced; the
+    gradient must be alike on every rank of ``axes``."""
+    return _SumPartial.apply(x, mesh, tuple(axes)) if axes else x
+
+
+def sum_grad(x, mesh, axes):
+    """In a local region: ``x``, alike on the ranks of ``axes``, each of
+    which reads a share of it; its gradient all-reduced over them."""
+    return _SumGrad.apply(x, mesh, tuple(axes)) if axes else x
+
+
+def experts_call(fn, logits, xf, experts, **kwargs):
+    """The MoE dispatch ``fn(logits, xf, *experts, axes=(mesh, rows,
+    split), **kwargs)`` -> (out (T, d), aux ()) on each rank's local
+    tensors, placed as the reference's GSPMD places it: the tokens ``xf``
+    (T, d) split over the mesh axes that split the batch (``rows``), the
+    experts' stacks (E, ...) over the other axes the rules split E on
+    (``split``) and whole on the rest, ``logits`` (T, E) split as both;
+    ``out`` split as ``xf``, ``aux`` whole.  ``fn`` states its collectives
+    (``gather_whole``, ``sum_partial``, ``sum_grad``).  The experts'
+    products repeat on each rank of ``rows``, as in GSPMD's program: each
+    argument's gradient is placed as the argument (whole where it is
+    whole), and the FLOPs count that work once over the ranks of
+    ``split``."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = xf.device_mesh
+    rows = tuple(i for i, p in enumerate(xf.placements)
+                 if p == Shard(0) and mesh.size(i) > 1)
+    split = tuple(i for i, p in enumerate(experts[0].placements)
+                  if p == Shard(0) and mesh.size(i) > 1 and i not in rows)
+    xp, ep = _on(mesh, rows, Shard(0)), _on(mesh, split, Shard(0))
+    lp = [Shard(1) if i in split else p for i, p in enumerate(xp)]
+    placed = [a.redistribute(mesh, p) for a, p in
+              zip([logits, xf, *experts], [lp, xp] + [ep] * len(experts))]
+    meta = [(mesh, tuple(xp), xf.shape),
+            (mesh, (Replicate(),) * mesh.ndim, ())]
+    return _LocalCall.apply(fn, dict(kwargs, axes=(mesh, rows, split)), meta,
+                            math.prod(mesh.size(i) for i in split), False,
+                            *placed)
+
+
 # ---- the loss --------------------------------------------------------------
 
 def _reduce(local, mesh, axes, op: str, rows):
@@ -547,10 +674,7 @@ class _VocabParallelNLL(torch.autograd.Function):
         x = logits.redistribute(mesh, placed).to_local().float()
         lab = labels.redistribute(mesh, rows).to_local().long()
         width = x.shape[-1]
-        first = 0
-        for i in vocab:             # this rank's first vocab id
-            first = first * mesh.size(i) + mesh.get_local_rank(i)
-        first *= width
+        first = shard_index(mesh, vocab) * width   # this rank's first id
         top = _reduce(x.amax(-1), mesh, vocab, "max", rows)
         total = _reduce((x - top[..., None]).exp_().sum(-1), mesh, vocab,
                         "sum", rows)

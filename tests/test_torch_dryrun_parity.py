@@ -26,17 +26,29 @@
     the two programs differ op by op as ``PERF.md`` §6 writes down
     (``PORT_READINGS``).  Refused: one rank's count doubled, the
     collective left out, the lookup's rows summed in f32.  The same for
-    llama3-8b train_4k (8 kv heads over 16 ranks) at one layer.
+    llama3-8b train_4k (8 kv heads over 16 ranks) at one layer.  The MoE
+    family: deepseek-v2-236b prefill_32k at full width (nothing
+    replicated, argument bytes, temp within [0.5, 2] x), its train_4k
+    (the temp at its reading and within [0.5, 2] x the reference's taken
+    at its program's dtypes), and deepseek-v2
+    and kimi-k2 train_4k and prefill_32k cut to one lead and one MoE
+    layer (FLOPs within ``MOE_FLOPS_BOUNDS``, collectives paired, the
+    all-reduce and all-gather totals), the reference's rows read from
+    ``scripts/dryrun_reference.json``; refused: the dispatch and MLA
+    before the dry-runs placed them (``tests/torch_moe_before.py``).
 (c) On plain tensors, attention, the loss and the embedding lookup give
     the same bits as the versions before the dry-run placed them (frozen
     below), forward and backward, at three GQA shapes in f32 and bf16;
     serving's unembedding, its table cast a vocab block at a time, the
-    bits of one cast and product.
+    bits of one cast and product; ``moe_ffn`` (with and without drops,
+    a shared expert) and MLA's prefill (both query branches, a window,
+    query chunks) the bits of ``tests/torch_moe_before.py``.
 (d) On a real 4-rank gloo world of the CPU, the dry-run's local regions
     (``models/spmd.py``: the vocab-parallel loss and lookup, its rows in
     f32 and bf16, attention on each rank's heads with 2 ranks over 1 kv
     head, and the whole attention block from its weights, the kv
-    gradient carried partial, the chunked and sequential scans and a
+    gradient carried partial, the MoE FFN with and without dropped
+    assignments, MLA's prefill, the chunked and sequential scans and a
     decode step on each rank's heads, serving's blocked unembedding on
     each rank's rows and vocab shard) give the plain route's outputs and
     gradients, so the trace holds the same program; the lookup's rows
@@ -98,7 +110,13 @@ FLOPS_BOUNDS = {"train_4k": (0.95, 1.4), "prefill_32k": (0.9, 1.3)}
 REF_REL = 0.10
 READING_REL = 0.02
 PORT_READINGS = {("qwen3-4b", "train_4k"): 2349598468,
-                 ("llama3-8b", "train_4k"): 3758885700}
+                 ("llama3-8b", "train_4k"): 3758885700,
+                 # the MoE rows at one lead and one MoE layer: the program's
+                 # all-reduces but the one of JAX's scatter JVP (u32[T k,
+                 # d], its ids of the set-scatter's winning rows; PERF.md
+                 # §6), which the port's dispatch does not make
+                 ("deepseek-v2-236b", "train_4k"): 394483468612,
+                 ("kimi-k2-1t-a32b", "train_4k"): 733769112388}
 PAIR_ARCH = "llama3-8b"         # (b) at one layer only
 # (b): qwen3-4b decode_32k's temp, 0.05x the reference's: XLA's CPU
 # compile holds two f32 copies of the step's whole K and V caches in its
@@ -180,9 +198,74 @@ PORT_SCRIPT = textwrap.dedent("""
 """)
 REF_ROW = str(ROOT / "scripts" / "dryrun_reference_row.py")
 
+# (b), the MoE family: the port's row at full depth (sys.argv[2], or
+# "none"), and for each shape of sys.argv[3:] the step cut to one lead and
+# one MoE layer (what the reference's counts hold: it scans each stack and
+# counts the body once), with the MoE dispatch and MLA as they were before
+# the dry-runs placed them (``tests/torch_moe_before.py``): the control
+# the gates must refuse
+MOE_SCRIPT = textwrap.dedent("""
+    import json, sys
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.dryrun import dryrun_one, quiet_dtensor
+    from repro_torch.launch.specs import (input_specs, opt_state_specs,
+                                          param_specs)
+    from repro_torch.models import moe as MOE
+    from repro_torch.tree import tree_leaves
+    import torch_moe_before as before
+    quiet_dtensor()
+    arch, full, shapes = sys.argv[1], sys.argv[2], sys.argv[3:]
+    cfg = get_config(arch)
+    out = {}
+    if full != "none":
+        out["full"] = dryrun_one(arch, full, verbose=False)
+        shp = get_shape(full)
+        trees = [param_specs(cfg), input_specs(cfg, shp)]
+        if shp.kind == "train":
+            trees.append(opt_state_specs(cfg, trees[0]))
+        out["full"]["n_leaves"] = sum(len(tree_leaves(t)) for t in trees)
+    keep = ("flops_per_device", "collective_bytes", "collectives",
+            "memory", "replicated")
+    two = cfg.replace(num_layers=2)
+    for name, fns in (("now", (MOE.moe_ffn, MOE.mla_attention)),
+                      ("before", (before.moe_ffn, before.mla_attention))):
+        MOE.moe_ffn, MOE.mla_attention = fns
+        for shape in shapes:
+            row = dryrun_one(arch, shape, cfg=two, verbose=False)
+            out[f"{name} {shape}"] = {k: row[k] for k in keep}
+    print(json.dumps(out))
+""")
+MOE_ARCHS = ("deepseek-v2-236b", "kimi-k2-1t-a32b")
+MOE_FULL = ("deepseek-v2-236b", "prefill_32k")
+# (b): deepseek-v2-236b train_4k at full width, 0.43 x the reference's
+# temp: the peak of XLA's CPU compile holds values its program has in
+# bf16 in f32 (``scripts/dryrun_reference_row.py``'s ``peak_values``;
+# PERF.md §6): three (T k, d) rows, f32[6291456, 5120] each, which the
+# row's ``collectives`` list as promoted from bf16, and an f32 copy of the
+# 59 MoE layers' inputs, f32[59, 16, 4096, 5120], that the module before
+# the CPU's float normalization holds in bf16 only.  Those at bf16, the
+# reference's temp 917,835,315,944 B reads 917,835,315,944 - 3 x
+# 64,424,509,440 - 39,594,229,760 B, the port's temp against it within
+# [0.5, 2] x; and the port's temp at its reading (torch 2.11 and 2.13)
+# within READING_REL
+MOE_TRAIN_FULL = ("deepseek-v2-236b", "train_4k")
+MOE_TRAIN_REF_PROGRAM_TEMP = 684967557864
+MOE_TRAIN_TEMP_READING = 394421805056
+# its temp on torch 2.11 before its MLA and dispatch were placed (0.91 x
+# XLA's CPU temp, 7 operations replicated): the control the reading refuses
+MOE_TRAIN_TEMP_BEFORE = 836036977152
+# (b): the MoE rows' FLOPs a device at one lead and one MoE layer over the
+# reference's, about 15 % around a CPU's readings (torch 2.13, jax 0.9.0):
+# deepseek-v2 0.974 (train) and 0.976 (prefill), kimi-k2 1.022 and 1.023
+MOE_FLOPS_BOUNDS = (0.85, 1.15)
+# deepseek-v2-236b prefill_32k's temp on torch 2.11 before its MLA and
+# dispatch were placed (PERF.md §6): the known-bad value the gate refuses
+MOE_TEMP_BEFORE = 2372776756224
+
 
 def _env(**extra):
-    env = dict(os.environ, PYTHONPATH=SRC, **extra)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.update(extra)
     env.pop("XLA_FLAGS", None)
     return env
 
@@ -203,6 +286,13 @@ def runs(tmp_path_factory):
             [sys.executable, REF_ROW, "--arch", arch, "--shape", shape,
              "--out", str(tmp / f"ref_{arch}_{shape}.json")],
             _env(JAX_PLATFORMS="cpu"))
+    moe_env = _env(PYTHONPATH=os.pathsep.join([SRC, str(ROOT / "tests")]))
+    for arch in MOE_ARCHS:
+        full = MOE_FULL[1] if arch == MOE_FULL[0] else "none"
+        cmds[f"moe {arch}"] = ([sys.executable, "-c", MOE_SCRIPT, arch, full,
+                                *FULL_SHAPES], moe_env)
+    cmds["moe train"] = ([sys.executable, "-c", MOE_SCRIPT, *MOE_TRAIN_FULL],
+                         moe_env)
     procs = {}
     cmds["port decode"] = ([sys.executable, "-m",
                             "repro_torch.launch.dryrun", "--arch", "qwen3-4b",
@@ -297,6 +387,21 @@ def test_full_width_matches_reference(runs, shape):
                                                      ref["memory"])
 
 
+@pytest.mark.parametrize("shape", FULL_SHAPES)
+def test_reference_lists_its_peak(runs, shape):
+    """The reference's row lists the largest values live at the peak of
+    XLA's buffer assignment (``peak_values``, what ``PERF.md`` §6 reads
+    its temp from), largest first, each a typed value of at most the
+    row's temp and argument bytes."""
+    row = runs[f"ref qwen3-4b {shape}"]
+    got = row["peak_values"]
+    assert got and [v[0] for v in got] == sorted((v[0] for v in got),
+                                                 reverse=True)
+    mem = row["memory"]
+    assert all(0 < n <= mem["temp_size_bytes"] + mem["argument_size_bytes"]
+               and name for n, name, _ in got), got
+
+
 def test_decode_temp_holds_its_reading(runs):
     """qwen3-4b decode_32k on 16 x 16: the port's temp at its reading, far
     under the reference's (``scripts/dryrun_reference.json``), whose XLA
@@ -320,13 +425,6 @@ def _within(bounds, got, want) -> bool:
     return want > 0 and lo <= got / want <= hi
 
 
-def _residual_bytes(arch, shape) -> int:
-    """The residual stream's bytes a rank in bf16: B/16 x S x d."""
-    from repro_torch.configs import get_config, get_shape
-    shp = get_shape(shape)
-    return shp.global_batch // 16 * shp.seq_len * get_config(arch).d_model * 2
-
-
 def _total_ok(got, want, reading) -> bool:
     if reading is None:
         return want > 0 and abs(got - want) <= REF_REL * want
@@ -337,9 +435,12 @@ def _gate(one, ref, arch, shape):
     """(the pairs, the unpaired ones of the residual stream's bytes or
     more, the port's all-reduce bytes, the reference program's, whether
     the total lies in its window)."""
-    from repro_torch.launch.collectives import pair_with_reference
-    rows = pair_with_reference(one["collectives"], ref["collectives"],
-                               _residual_bytes(arch, shape))
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.collectives import (pair_with_reference,
+                                                residual_bytes)
+    rows = pair_with_reference(
+        one["collectives"], ref["collectives"],
+        residual_bytes(get_config(arch), get_shape(shape)))
     unpaired = [r for r in rows if r["gated"] and r["ref"] is None]
     got = one["collective_bytes"].get("all-reduce", 0)
     want = ref["collective_bytes_program"].get("all-reduce", 0)
@@ -380,6 +481,104 @@ def test_llama_collectives_pair_with_reference(runs):
     """llama3-8b train_4k at one layer: 8 kv heads over 16 ranks."""
     _check_pairs(runs[f"port {PAIR_ARCH} train_4k"],
                  runs[f"ref {PAIR_ARCH} train_4k"], PAIR_ARCH, "train_4k")
+
+
+def _reference(arch, shape):
+    """The reference's row on 16 x 16 (``scripts/dryrun_reference.json``)."""
+    return {(r["arch"], r["shape"], r["multi_pod"]): r for r in json.loads(
+        (ROOT / "scripts" / "dryrun_reference.json").read_text())}[
+        (arch, shape, False)]
+
+
+def _temp_ok(temp, ref) -> bool:
+    return TEMP_RATIO_FLOOR <= temp / ref["memory"]["temp_size_bytes"] \
+        <= TEMP_RATIO
+
+
+def test_moe_prefill_full_width_matches_reference(runs):
+    """deepseek-v2-236b prefill_32k, all 60 layers on 16 x 16: nothing
+    replicated (MLA on each rank's heads, the dispatch placed as GSPMD
+    places it), the reference's argument bytes but for the port's 512-byte
+    rounding, temp within [0.5, 2] x the reference's.  Refused: a trace
+    that lost its storages (no temp), the temp of torch 2.11's trace
+    before (MLA's scores of every head on every rank: 8.43 x)."""
+    arch, shape = MOE_FULL
+    row, ref = runs[f"moe {arch}"]["full"], _reference(arch, shape)
+    assert row["replicated"] == []
+    got = row["memory"]["argument_size_bytes"]
+    want = ref["memory"]["argument_size_bytes"]
+    assert want <= got < want + ALLOC_UNIT * row["n_leaves"], (got, want)
+    temp = row["memory"]["temp_size_bytes"]
+    assert _temp_ok(temp, ref), (row["memory"], ref["memory"])
+    assert not _temp_ok(0, ref) and not _temp_ok(MOE_TEMP_BEFORE, ref)
+
+
+def test_moe_train_temp_holds_its_reading(runs):
+    """deepseek-v2-236b train_4k, all 60 layers on 16 x 16: nothing
+    replicated, the reference's argument bytes but for the port's 512-byte
+    rounding, the temp within ``READING_REL`` of its reading and within
+    [0.5, 2] x the reference's taken at its program's dtypes
+    (``MOE_TRAIN_REF_PROGRAM_TEMP``).  Refused: a trace that lost its
+    storages (no temp) and the temp of torch 2.11's trace before the MoE
+    family's placements."""
+    arch, shape = MOE_TRAIN_FULL
+    row, ref = runs["moe train"]["full"], _reference(arch, shape)
+    assert row["replicated"] == []
+    got = row["memory"]["argument_size_bytes"]
+    want = ref["memory"]["argument_size_bytes"]
+    assert want <= got < want + ALLOC_UNIT * row["n_leaves"], (got, want)
+
+    def ok(temp):
+        return (abs(temp - MOE_TRAIN_TEMP_READING)
+                <= READING_REL * MOE_TRAIN_TEMP_READING
+                and TEMP_RATIO_FLOOR
+                <= temp / MOE_TRAIN_REF_PROGRAM_TEMP <= TEMP_RATIO)
+    assert ok(row["memory"]["temp_size_bytes"]), row["memory"]
+    assert not ok(0) and not ok(MOE_TRAIN_TEMP_BEFORE)
+    assert MOE_TRAIN_REF_PROGRAM_TEMP < ref["memory"]["temp_size_bytes"]
+
+
+def _moe_gate(row, arch, shape):
+    """(the unpaired gated collectives, whether the all-reduce and the
+    all-gather totals lie in their windows) of a one-lead-one-MoE row."""
+    ref = _reference(arch, shape)
+    _, unpaired, _, _, ok = _gate(row, ref, arch, shape)
+    got = row["collective_bytes"].get("all-gather", 0)
+    want = ref["collective_bytes_program"].get("all-gather", 0)
+    return unpaired, ok and _total_ok(got, want, None)
+
+
+@pytest.mark.parametrize("shape", FULL_SHAPES)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_flops_and_collectives_match_reference(runs, arch, shape):
+    """One lead and one MoE layer on 16 x 16: nothing replicated; FLOPs a
+    device within ``MOE_FLOPS_BOUNDS`` of the reference's; each collective
+    of the residual stream's bytes or more paired with one of the
+    reference program's (the router's probabilities all-gathered, the
+    dispatched rows and the experts' results all-reduced, (T k, d) in
+    bf16), the all-reduce bytes within ``REF_REL`` of the program's or at
+    the reading, the all-gather bytes within ``REF_REL``.  Refused: the
+    count doubled or left out, and the dispatch and MLA before their
+    placements (their whole-tensor gathers pair with nothing)."""
+    got = runs[f"moe {arch}"]
+    now, bad = got[f"now {shape}"], got[f"before {shape}"]
+    ref = _reference(arch, shape)
+    assert now["replicated"] == [] and bad["replicated"]
+    want = ref["flops"]
+    assert _within(MOE_FLOPS_BOUNDS, now["flops_per_device"], want), \
+        (now["flops_per_device"], want)
+    assert not _within(MOE_FLOPS_BOUNDS, 2 * now["flops_per_device"], want)
+    assert not _within(MOE_FLOPS_BOUNDS, 0, want)
+    unpaired, ok = _moe_gate(now, arch, shape)
+    assert not unpaired and ok, (unpaired, now["collective_bytes"],
+                                 ref["collective_bytes_program"])
+    reading = PORT_READINGS.get((arch, shape))
+    ar = now["collective_bytes"]["all-reduce"]
+    want = ref["collective_bytes_program"]["all-reduce"]
+    assert not _total_ok(2 * ar, want, reading)
+    assert not _total_ok(0, want, reading)
+    unpaired, ok = _moe_gate(bad, arch, shape)
+    assert unpaired and not ok, unpaired
 
 
 # ---- (c) --------------------------------------------------------------------
@@ -520,6 +719,108 @@ def test_unembed_bits_unchanged(tied):
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
+# the MoE dispatch and MLA's prefill (a small deepseek-v2): moe_ffn with a
+# shared expert at capacity factors that drop assignments (0.25) and drop
+# none (64); MLA on both query branches (q_lora_rank 0 and 12), causal and
+# windowed, with q_chunks
+MOE_CFG = dict(d_model=32, num_heads=4, nope_head_dim=8, rope_head_dim=4,
+               kv_lora_rank=16, q_lora_rank=0, num_experts=8, top_k=2,
+               moe_d_ff=24, num_shared_experts=1)
+MOE_FACTORS = (0.25, 64.0)
+MOE_S = 48
+MLA_CASES = ((0, 0, 1), (12, 0, 3), (12, 5, 4))     # (q_lora, window, chunks)
+
+
+def _moe_cfg(**kw):
+    from repro_torch.configs import get_config
+    return get_config("deepseek-v2-236b").reduced().replace(**dict(MOE_CFG,
+                                                                   **kw))
+
+
+def _tree_leaves(p, dtype, rng):
+    """``p``'s leaves redrawn from ``rng`` (the norms near one) as leaves
+    that want a gradient, in order, and a function that rebuilds ``p``."""
+    keys, leaves = [], []
+    for k, v in sorted(p.items()):
+        for kk, vv in (sorted(v.items()) if isinstance(v, dict)
+                       else [(None, v)]):
+            keys.append((k, kk))
+            t = rng.standard_normal(tuple(vv.shape)).astype(np.float32)
+            if "norm" in k:
+                t = 1 + t / 4
+            else:
+                t = t / np.sqrt(vv.shape[-2] if vv.dim() > 1 else 1)
+            leaves.append(torch.from_numpy(t).to(dtype).requires_grad_(True))
+
+    def build(*ts):
+        out = {}
+        for (k, kk), t in zip(keys, ts):
+            if kk is None:
+                out[k] = t
+            else:
+                out.setdefault(k, {})[kk] = t
+        return out
+    return leaves, build
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("factor", MOE_FACTORS)
+def test_moe_bits_unchanged(factor, dtype):
+    """The dispatch (its sort and aux loss now shared with the dry-run's
+    local form) keeps the bits of the code before, forward and backward,
+    its weights f32 and the activations in ``dtype``."""
+    import torch_moe_before as before
+    from repro_torch.models import moe as MOE
+    cfg = _moe_cfg()
+    rng = np.random.default_rng(40)
+    p = MOE.init_moe_ffn(torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+    leaves, build = _tree_leaves(p, torch.float32, rng)
+    x = _leaves((2, MOE_S, cfg.d_model), DTYPES[dtype], rng)
+    _, _, ids = MOE.route(build(*leaves), cfg, x.reshape(-1, cfg.d_model))
+    C = MOE.moe_capacity(ids.shape[0], cfg.num_experts, cfg.top_k, factor)
+    _, _, valid, _ = MOE._assignments(ids, cfg.num_experts, C)
+    assert (not valid.all()) == (factor < 1)       # drops at 0.25 only
+    outs = []
+    for fn in (MOE.moe_ffn, before.moe_ffn):
+        got, aux = fn(build(*leaves), cfg, x, capacity_factor=factor)
+        g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            tuple(got.shape)).astype(np.float32)).to(got.dtype)
+        grads = torch.autograd.grad((got.float() * g.float()).sum()
+                                    + 3 * aux, [x] + leaves)
+        outs.append((got.detach(), aux.detach(), grads))
+    (out, aux, grads), (out0, aux0, grads0) = outs
+    assert out.dtype == DTYPES[dtype]
+    assert torch.equal(out, out0) and torch.equal(aux, aux0)
+    for g, g0 in zip(grads, grads0):
+        assert torch.equal(g, g0)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", range(len(MLA_CASES)))
+def test_mla_bits_unchanged(case, dtype):
+    """MLA's prefill (its expanded core now a function the dry-run's
+    local region calls) keeps the bits of the code before, forward and
+    backward."""
+    import torch_moe_before as before
+    from repro_torch.models import moe as MOE
+    q_lora, window, chunks = MLA_CASES[case]
+    cfg = _moe_cfg(q_lora_rank=q_lora)
+    rng = np.random.default_rng(50 + case)
+    p = MOE.init_mla(torch.Generator().manual_seed(0), cfg, device="cpu")
+    leaves, build = _tree_leaves(p, torch.float32, rng)
+    x = _leaves((2, 12, cfg.d_model), DTYPES[dtype], rng)
+    pos = torch.arange(12)[None].expand(2, 12)
+    outs = [_grads(lambda *a: fn(build(*a[1:]), cfg, a[0], pos,
+                                 window=window, q_chunks=chunks)[0],
+                   x, *leaves)
+            for fn in (MOE.mla_attention, before.mla_attention)]
+    (out, grads), (out0, grads0) = outs
+    assert out.dtype == DTYPES[dtype] and torch.equal(out, out0)
+    for g, g0 in zip(grads, grads0):
+        assert torch.equal(g, g0)
+
+
 # ---- (d) ----------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -531,6 +832,7 @@ def world():
 @pytest.mark.parametrize("name", ["token_nll", "take_rows",
                                   "take_rows_bf16", "attention",
                                   "attention_remat", "attention_block",
+                                  "moe", "moe_drop", "mla",
                                   "scan", "recurrent", "step", "unembed"])
 def test_local_regions_compute_the_plain_route(world, name):
     got = world[name]

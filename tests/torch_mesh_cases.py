@@ -380,7 +380,8 @@ def spmd_case(rank, n):
     embedding lookup (f32 and bf16 rows), GQA attention (1 kv head under 4
     query heads; also under ``torch.utils.checkpoint``; and the whole
     block, its qk-norm, RoPE and projections, from weights placed as the
-    dry-run's rules place them), the chunked and sequential scans, a
+    dry-run's rules place them), the MoE FFN (with and without dropped
+    assignments) and MLA's prefill, the chunked and sequential scans, a
     decode step and serving's unembedding on DTensors placed as the
     dry-run places them, and on the same plain tensors: each output and
     gradient, whole, as numpy (rank 0's; the others return None).
@@ -487,6 +488,43 @@ def spmd_case(rank, n):
             res["bits"][f"attention {name}"] = [now, run(attention, args)]
         finally:
             spmd.kv_for_local_heads = kv_heads
+    # the MoE dispatch on each rank's tokens and experts, at a capacity
+    # that drops none and one that drops, with a shared expert; MLA's
+    # prefill on each rank's heads, with query chunks and a window; the
+    # weights placed as the dry-run's rules place them
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+    mcfg = get_config("deepseek-v2-236b").reduced().replace(
+        d_model=16, num_heads=4, nope_head_dim=4, rope_head_dim=4,
+        kv_lora_rank=8, q_lora_rank=6, num_experts=4, top_k=2, moe_d_ff=8,
+        num_shared_experts=1)
+    dm, fe, E = 16, 8, 4
+
+    def moe(factor):
+        def fn(x, router, we1, we3, we2, w1, w3, w2):
+            p = dict(router=router, we1=we1, we3=we3, we2=we2,
+                     shared=dict(w1=w1, w3=w3, w2=w2))
+            return MOE.moe_ffn(p, mcfg, x, capacity_factor=factor)
+        return fn
+    moe_args = [draw(B, T, dm), draw(dm, E) / 4, draw(E, dm, fe) / 4,
+                draw(E, dm, fe) / 4, draw(E, fe, dm) / 3, draw(dm, fe) / 4,
+                draw(dm, fe) / 4, draw(fe, dm) / 3]
+    moe_pl = [[S0, R], [R, Shard(1)]] + [[R, S0]] * 3 + [
+        [R, Shard(1)], [R, Shard(1)], [R, S0]]
+    res["moe"] = both(moe(64.0), moe_args, moe_pl)
+    res["moe_drop"] = both(moe(0.25), moe_args, moe_pl)
+
+    def mla(x, w_dkv, w_kr, w_uk, w_uv, wo, kv_norm, w_dq, w_uq, q_norm):
+        p = dict(w_dkv=w_dkv, w_kr=w_kr, w_uk=w_uk, w_uv=w_uv, wo=wo,
+                 kv_norm=kv_norm, w_dq=w_dq, w_uq=w_uq, q_norm=q_norm)
+        return MOE.mla_attention(p, mcfg, x, pos, window=3, q_chunks=2)[0]
+    res["mla"] = both(
+        mla, [draw(B, T, dm), draw(dm, 8) / 4, draw(dm, 4) / 4,
+              draw(8, 4, 4) / 3, draw(8, 4, 4) / 3, draw(4, 4, dm) / 4,
+              1 + draw(8) / 4, draw(dm, 6) / 4, draw(6, 4, 8) / 3,
+              1 + draw(6) / 4],
+        [[S0, R], [R, R], [R, R], [R, Shard(1)], [R, Shard(1)], [R, S0],
+         [R, R], [R, R], [R, Shard(1)], [R, R]])
     Hs, K, Vd = 2, 4, 3
     res["scan"] = both(
         lambda r, k, v, ld, u: scan_ops.chunked_scan(
