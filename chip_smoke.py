@@ -10,14 +10,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      per source, all at once), timed; ``-Xptxas -v``'s registers and
      spills per kernel.  The flash library's wgmma kernels must not spill
      nor have their wgmma serialised, and its SASS (``cuobjdump -sass``)
-     must hold HGMMA (wgmma) and UTMALDG (TMA loads); the chunk_scan
-     kernels at 64 channels may not spill, the library must hold them at
-     64, 128 and 256 channels in f32 and bf16, and its SASS must hold TF32
-     HMMA (its products on the tensor cores); no ``fed_agg`` or
-     ``pairwise_dist`` kernel may spill, and the pairwise_dist library's
-     SASS must hold TF32 HMMA (the tiled Gram).  The tiles added for the
-     kernels' whole domain (flash_bf16_kernel off 32, flash_f32_kernel off
-     32, 64, 80 and 128, chunk_scan at 128 and 256 channels) have their
+     must hold HGMMA (wgmma) and UTMALDG (TMA loads), and the library
+     must hold the mma.sync kernels at the 7 tile widths in bf16 and f16
+     and the column-group kernels past head dim 256 (bf16, f16, f32); the
+     chunk_scan kernels at 64 channels in f32 and bf16 may not spill, the
+     library must hold them at 64 and 128 channels and the channel-block
+     kernel past 128, in f32, bf16 and f16, and its SASS
+     must hold TF32 HMMA (its products on the tensor cores); no
+     ``fed_agg`` or ``pairwise_dist`` kernel may spill, and the
+     pairwise_dist library's SASS must hold TF32 HMMA (the tiled Gram).
+     The tiles added for the kernels' whole domain (flash_mma_kernel off
+     bf16 at 32, flash_f32_kernel off 32, 64, 80 and 128, the wide
+     kernels, chunk_scan at 128 channels and past, f16) have their
      registers and spills printed, not gated;
   2. ``fed_agg`` against its plain version on the card, max abs error: one
      segment, and two segments in one launch (C in 64, 9, 1 beside C2 in
@@ -65,10 +69,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      domain: head dims 8, 40, 96, 192 and 256 at S 200 (causal, window 48
      and non-causal, f32 and bf16), hd 36 in bf16 (element loads), B * H
      = 65,600 at hd 32 and 80 in f32 and bf16 (past grid.y), and hd 64
-     bf16 views TMA cannot map.  At the sweep's input spread the max abs
-     error is within 1e-5 (f32) and 2e-2 (bf16); every bf16 case, also at
-     a spread of 2 that makes the softmax peaked, holds each element within
-     2^-7 |want| + 2^-8 rms(want's row);
+     bf16 views TMA cannot map; f16 on every mma.sync tile; past head dim
+     256, hd 264, 300, 384 and 512 at S 1024 (causal, window 512) in f32,
+     bf16 and f16, B * H = 65,600 at hd 300, and q, k, v of three dtypes
+     (widened to f32, the output in q's).  Every case launches the kernel
+     once, the column-group kernels exactly where hd > 256
+     (``flash_attention.wide_launches``).  At the sweep's input spread the max abs error is within 1e-5
+     (f32), 2e-2 (bf16) and 2.5e-3 (f16); every bf16 case, also at a
+     spread of 2 that makes the softmax peaked, holds each element within
+     2^-7 |want| + 2^-8 rms(want's row), every f16 one within 2^-10
+     |want| + 2^-11 rms(want's row);
   8. model-level route parity: qwen3-4b at full width with 2 layers in
      f32, prefill logits through the kernel route against the plain route
      (2e-4), and 16 decode steps against the full forward (1e-4);
@@ -83,10 +93,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      weights are freed after it;
  10. ``flash_attention`` timed at the prefill shape (causal, window
      512), at hubert-xlarge's, at zamba2-2.7b's, and at head dims 96
-     ([4, 2048, 32, 32, 96], Phi-3-mini's heads) and 256 ([4, 2048, 16, 8,
-     256], Gemma 2 9B's), causal, beside its plain version,
-     ``scaled_dot_product_attention`` (the library yardstick, never called
-     by the port; with a boolean band mask for window 512) and its bound;
+     ([4, 2048, 32, 32, 96], Phi-3-mini's heads), 256 ([4, 2048, 16, 8,
+     256], Gemma 2 9B's; also in f16) and 512 ([4, 2048, 16, 16, 512],
+     the column-group kernel; 50 calls a timing, the backend SDPA picks
+     printed), causal,
+     beside its plain version, ``scaled_dot_product_attention`` (the
+     library yardstick, never called by the port; with a boolean band mask
+     for window 512) and its bound;
  11. ``chunk_scan`` against its plain version (the sequential recurrence)
      on the card: the JAX package's kernel sweep (three shapes, RWKV6 and
      Mamba2 modes, f32 and bf16), a zamba2-shaped Mamba2 case (H 40, K 64,
@@ -105,10 +118,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      domain: (K, V, chunk, T) in (128, 64, 256, 512), (256, 64, 64, 256),
      (6, 10, 16, 64) and (96, 130, 32, 96) in both modes, f32 and bf16,
      and mamba2-2.7b's Mamba2 layers in the model's call form at the
-     serving size (B 4, T 2048, H 80, K 128, V 64, chunk 256, bf16).  f32:
-     max abs error <= 5e-5 on y and
-     the final state; bf16: every y element within 2^-7 |want| + 2^-8
-     rms(want's row), the state within 5e-5; all of it finite.  The
+     serving size (B 4, T 2048, H 80, K 128, V 64, chunk 256, bf16); past
+     K 256: K 264, 300 and 512 x V 64 and 130, both modes, chunks of 64
+     and 128, in f32, bf16 and f16, and every decay at the clamp at K 512;
+     f16 at K 8 to 256; r, k, v of three dtypes (widened to f32, y in
+     v's).  Every case launches the kernel once, the channel-block kernel
+     exactly where K > 128 (``chunk_scan.wide_launches``).  f32: max abs error <= 5e-5 on y and the final state; bf16:
+     every y element within 2^-7 |want| + 2^-8 rms(want's row), f16 within
+     2^-10 |want| + 2^-11 rms(want's row), the state within 5e-5; all of
+     it finite.  The
      distance to the plain version of the kernel's own decomposition
      (``chunk_scan_blocked_ref``, 3 TF32 passes) is printed beside it;
  12. model-level route parity: rwkv6-7b at full width with 2 layers,
@@ -131,7 +149,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      to overflowing on this input);
  14. ``chunk_scan`` timed at rwkv6-7b's serving shape, at zamba2's and
      at mamba2-2.7b's ([4, 2048, 80, 128, 64], chunk 256; Mamba2, in the
-     model's call form): the kernel (one launch a call)
+     model's call form) and at K 512 ([4, 2048, 16, 512, 64], chunk 64,
+     the channel-block kernel; its plain version by CUDA events around one
+     call): the kernel (one launch a call)
      and the wrapper (every kernel of a call: the zeroing of its sync
      buffer too), beside its plain version and its bound both ways —
      bytes, which bound the tensor-core route, and operations at the f32
@@ -350,8 +370,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      form before): at this width it is ill-conditioned (phase 12);
  32. one JSON line of per-kernel numbers (the two LM kernels also at
      zamba2's shapes, as ``flash_attention:zamba2`` and
-     ``chunk_scan:zamba2``, with phase 23's launches; ``fed_agg:lm`` and
-     ``flash_attention:lm_eval`` at phase 29's shapes and launches).
+     ``chunk_scan:zamba2``, with phase 23's launches; past the widths one
+     CTA holds, as ``flash_attention:wide_hd`` and ``chunk_scan:wide_k``
+     at phase 10's and 14's shapes, with the column-group and
+     channel-block launches counted on the serving paths (9, 13, 23, 25),
+     hubert's forward (15) and the LM FL evaluators (28, 29); ``fed_agg:lm``
+     and ``flash_attention:lm_eval`` at phase 29's shapes and
+     launches).
 
 The last three lines are that JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -383,12 +408,17 @@ PDIST_TOL = 1e-5                    # error / max(D, 1)
 # max abs error of attention outputs of order 0.5, inputs randn * 0.5 (the
 # JAX package's kernel sweep, tests/test_kernels.py): f32 only reorders
 # sums; bf16 rounds the output
-FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2.5e-3}
 # bf16, every element and every input spread: |got - want| <= 2^-7 |want|
 # + 2^-8 rms(want's row).  The kernel and the plain version both compute
 # in f32 and round once to bf16, so they differ by at most one bf16
 # spacing (<= 2^-7 |want|); the row term covers elements near zero.
 FLASH_BF16_REL, FLASH_BF16_ROW = 2.0 ** -7, 2.0 ** -8
+# f16: the same form at f16's spacing, 2^3 finer than bf16's (10 stored
+# mantissa bits to 7); its abs tolerance above is bf16's 2e-2 over 2^3
+FLASH_F16_REL, FLASH_F16_ROW = 2.0 ** -10, 2.0 ** -11
+HALF_FORMS = {"bfloat16": (FLASH_BF16_REL, FLASH_BF16_ROW),
+              "float16": (FLASH_F16_REL, FLASH_F16_ROW)}
 # input spreads: the sweep's 0.5 (scores of std 0.25, a near-uniform
 # softmax, so each output is a mean over the keys) and 2.0 (scores of std
 # about 4: a peaked softmax whose outputs move with any error in the
@@ -412,6 +442,14 @@ WIDE_HEAD_DIMS = (8, 40, 96, 192, 256)
 WIDE_BH = (1025, 16, 64, 8, 32)
 PHI3_ATTN = dict(B=4, S=2048, H=32, KV=32, hd=96)
 GEMMA2_ATTN = dict(B=4, S=2048, H=16, KV=8, hd=256)
+# head dims past one CTA's tile (the column-group kernels, any dtype):
+# checked at S 1024 causal and under window 512 (phase 7), B * H past
+# grid.y at hd 300, and timed at [4, 2048, 16, 16, 512] bf16 causal
+# (phase 10)
+WIDER_HEAD_DIMS = (264, 300, 384, 512)
+WIDER_BH = (1025, 16, 64, 8, 300)
+WIDE_HD_ATTN = dict(B=4, S=2048, H=16, KV=16, hd=512)
+HALF_HEAD_DIMS = (8, 40, 80, 96, 128, 160, 192, 256)   # f16's mma.sync tiles
 # chunk_scan, max abs error of y and the final state in f32 (the JAX
 # package's sweep atol, without its rtol = 0.1 slack), and of the f32 final
 # state in every case (both sides widen the same bf16 inputs to f32)
@@ -427,6 +465,12 @@ SCAN_ZAMBA = dict(B=4, T=2048, H=40, K=64, V=128, chunk=128)
 WIDE_SCAN = ((128, 64, 256, 512), (256, 64, 64, 256), (6, 10, 16, 64),
              (96, 130, 32, 96))
 SCAN_MAMBA2 = dict(B=4, T=2048, H=80, K=128, V=64, chunk=256)
+# K past the 256-channel tiles (the kernel streams them in blocks): checked
+# at T 256 in both modes, f32, bf16 and f16, chunks of 64 and 128 (phase
+# 11), and timed at [4, 2048, 16, 512, 64] chunk 64 bf16 Mamba2 (phase 14)
+WIDER_K = (264, 300, 512)
+WIDER_K_V = (64, 130)
+SCAN_WIDE_K = dict(B=4, T=2048, H=16, K=512, V=64, chunk=64)
 F32_EXP_MAX = 88.72                 # log of the largest finite f32
 
 
@@ -437,6 +481,30 @@ def fail(msg: str) -> None:
 
 T0 = time.perf_counter()
 PHASE_STARTS = []                   # (seconds since start, phase heading)
+
+
+# launches of the column-group and channel-block kernels on the main
+# paths, by wrapper: a path sets the counts to 0 (``zero_counts``) just
+# before its run and adds them here (``add_wide``) just after it
+WIDE_ON_PATHS = {"flash_attention": 0, "chunk_scan": 0}
+
+
+def zero_counts(wrappers) -> None:
+    """Every wrapper's launch counts to 0, the wide kernels' too."""
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "wide_launches"):
+            w.wide_launches = 0
+
+
+def add_wide(wrappers) -> dict:
+    """Add the wide kernels' launches since ``zero_counts(wrappers)`` to
+    ``WIDE_ON_PATHS``; returns them by wrapper."""
+    got = {w.__name__: w.wide_launches for w in wrappers
+           if hasattr(w, "wide_launches")}
+    for name, n in got.items():
+        WIDE_ON_PATHS[name] += n
+    return got
 
 
 def phase(msg: str) -> None:
@@ -470,6 +538,10 @@ def cycled_inputs(make, nbytes: int):
     return [make() for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)))]
 
 
+TRACE_EDGE_S = 0.02    # idle card on each side of a trace window's edges
+TRACES = {"taken": 0, "retaken": 0}    # time_device's, over the run
+
+
 def time_device(torch, fn, sets, reps: int = 200, only=None,
                 per_call=None):
     """Per call of ``fn`` over ``reps`` calls cycling through ``sets``:
@@ -482,6 +554,13 @@ def time_device(torch, fn, sets, reps: int = 200, only=None,
     whose warm-up step runs the same ``reps`` calls first, so that
     neither edge of the recorded window falls on a counted call (a trace
     that starts or stops around them has come back one launch short).
+    The profiler keeps a device record only if it starts and ends inside
+    the window on the host's clock, to which the card's timestamps are
+    converted, so each edge also lies ``TRACE_EDGE_S`` of idle card
+    from the nearest call, more than one of phase 29's 11 ms ``fed_agg``
+    launches: on one H100 host its traces held 9 of 10 of them three
+    times running (``scripts/trace_edges.py`` compares the two margins).
+    ``TRACES`` counts the traces taken and those taken again.
     ``per_call``, where given, is the number of those operations one call
     launches: a trace that does not hold exactly ``per_call * reps`` is
     taken again, and the run fails after three."""
@@ -508,7 +587,10 @@ def time_device(torch, fn, sets, reps: int = 200, only=None,
                 for i in range(reps):
                     fn(*sets[i % len(sets)])
                 torch.cuda.synchronize()
+                time.sleep(TRACE_EDGE_S)    # before the window's edge
                 prof.step()
+                time.sleep(TRACE_EDGE_S)    # and after it
+        TRACES["taken"] += 1
         # the schedule's step marker spans the device too: not an op
         ops = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")
@@ -517,6 +599,7 @@ def time_device(torch, fn, sets, reps: int = 200, only=None,
         count = sum(e.count for e in ops)
         if per_call is None or count == per_call * reps:
             break
+        TRACES["retaken"] += 1
     else:
         fail(f"three profiler traces of {reps} calls held {count} device "
              f"operations" + (f" named {only!r}" if only else "")
@@ -971,7 +1054,8 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels.chunk_scan import chunk_scan
     from repro_torch.kernels.flash_attention import flash_attention
-    fa_err, fa_err_zamba = flash_vs_plain(torch, dev, gen, report)
+    fa_err, fa_err_zamba, fa_err_wide = flash_vs_plain(torch, dev, gen,
+                                                       report)
     route_parity(torch, dev, report)
     fa_launches = serving_path(
         torch, dev, report, arch="qwen3-4b", phase_no=9,
@@ -982,7 +1066,8 @@ def main() -> None:
     fa = fa_all["prefill"]
 
     # ---- 11-14. LM serving, RWKV6 -----------------------------------------
-    cs_err, cs_err_zamba = scan_vs_plain(torch, dev, gen, report)
+    cs_err, cs_err_zamba, cs_err_wide = scan_vs_plain(torch, dev, gen,
+                                                      report)
     rwkv_route_parity(torch, dev, report)
     cs_launches = serving_path(
         torch, dev, report, arch="rwkv6-7b", phase_no=13,
@@ -1065,6 +1150,9 @@ def main() -> None:
     fb, pg = timings["eq14_bank_carry"], timings["pairwise_dist_grouping"]
     fl, fe = lm_t["fed_agg_lm"], lm_t["flash_lm_eval"]
     fz, cz = fa_all["zamba2"], cs_all["zamba2"]
+    fw, cw = fa_all["wide_hd"], cs_all["wide_k"]
+    print(f"the wide kernels' launches on the main paths (phases 9, 13, "
+          f"15, 23, 25, 28, 29): {WIDE_ON_PATHS}")
     kernel_line = {"kernels": [
         dict(name="fed_agg", route="cuda",
              source="src/repro_torch/csrc/fed_agg.cu",
@@ -1105,6 +1193,25 @@ def main() -> None:
              launches=z_launches["chunk_scan"], max_abs_err=cs_err_zamba,
              ms=cz["ms"], plain_ms=cz["plain_ms"], bound_ms=cz["bound_ms"],
              bound_by=cz["bound_by"], library_ms=None),
+        # the same two kernels past the widths one CTA holds: head dim 512
+        # (the column-group kernel, phase 10's timing, phase 7's errors)
+        # and K 512 (the channel-block kernel, phases 14 and 11), with
+        # their launches counted over the main paths that reach the
+        # wrappers
+        dict(name="flash_attention:wide_hd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:29",
+             launches=WIDE_ON_PATHS["flash_attention"],
+             max_abs_err=fa_err_wide, ms=fw["ms"],
+             plain_ms=fw["plain_ms"], bound_ms=fw["bound_ms"],
+             bound_by=fw["bound_by"], library_ms=fw["library_ms"]),
+        dict(name="chunk_scan:wide_k", route="cuda",
+             source="src/repro_torch/csrc/chunk_scan.cu",
+             replaces="src/repro/kernels/chunk_scan/kernel.py:20",
+             launches=WIDE_ON_PATHS["chunk_scan"],
+             max_abs_err=cs_err_wide, ms=cw["ms"],
+             plain_ms=cw["plain_ms"], bound_ms=cw["bound_ms"],
+             bound_by=cw["bound_by"], library_ms=None),
         # LM FL at full width (phase 29): eq. 14 over the (4, N) bank and
         # the (4, N) carry at qwen3-4b's N for one layer, and the
         # evaluator's f32 attention
@@ -1129,6 +1236,10 @@ def main() -> None:
     report["phase_walls_s"] = phase_walls(total_s)
     print("phase walls (s): " + ", ".join(
         f"{name} {wall:.1f}" for name, wall in report["phase_walls_s"]))
+    report["profiler_traces"] = dict(TRACES)
+    print(f"profiler traces (time_device): {TRACES['taken']} taken, "
+          f"{TRACES['retaken']} of them again for a record short, "
+          f"{4 * TRACE_EDGE_S * TRACES['taken']:.1f} s of idle edges")
     print(f"chip_smoke: every phase passed in {total_s:.1f} s ({card}; "
           f"phase 30, the mesh runtime, "
           f"{report['mesh_runtime']['wall_s']:.1f} s of it)")
@@ -1320,7 +1431,8 @@ def kernel_yardsticks(torch, dev, gen, timings: dict, c_bank: int) -> None:
 def kernel_name(mangled: str) -> str:
     """The last length-prefixed name ending in "kernel" in a mangled
     symbol, with its integer or element-type template arguments:
-    flash_wgmma_kernel<128,128>, chunk_scan_kernel<bf16>."""
+    flash_wgmma_kernel<128,128>, chunk_scan_kernel<bf16,64>,
+    flash_mma_kernel<f16,256>."""
     import re
     found = mangled
     for m in re.finditer(r"\d+", mangled):
@@ -1329,10 +1441,11 @@ def kernel_name(mangled: str) -> str:
             name = mangled[m.end():m.end() + n]
             if len(name) == n and name.endswith("kernel"):
                 found = name
-                arg = r"f|13__nv_bfloat16|Li\d+E"
+                arg = r"f|13__nv_bfloat16|6__half|Li\d+E"
                 args = re.match(rf"I((?:{arg})+)E", mangled[m.end() + n:])
                 if args:
-                    names = {"f": "f32", "13__nv_bfloat16": "bf16"}
+                    names = {"f": "f32", "13__nv_bfloat16": "bf16",
+                             "6__half": "f16"}
                     found += "<" + ",".join(
                         names.get(a, a.strip("LiE"))
                         for a in re.findall(arg, args.group(1))) + ">"
@@ -1422,23 +1535,34 @@ def check_build(kernels, logs) -> dict:
              f"{counts}")
     report["flash_sass"] = counts
     # the serving shapes' kernels keep their gates; the tiles added for the
-    # whole domain (flash_bf16_kernel off 32, flash_f32_kernel off 32, 64,
-    # 80 and 128, chunk_scan_kernel at 128 and 256 channels) are printed,
-    # not gated
+    # whole domain (flash_mma_kernel off bf16 at 32, every f16 tile,
+    # flash_f32_kernel off 32, 64, 80 and 128, the column-group kernels past
+    # 256, chunk_scan_kernel at 128 channels and in f16, the channel-block
+    # kernel past 128) are printed, not gated
+    dts = ("f32", "bf16", "f16")
+    want = {*(f"flash_mma_kernel<{t},{hd}>" for t in dts[1:]
+              for hd in (32, 64, 96, 128, 160, 192, 256)),
+            *(f"flash_mma_wide_kernel<{t}>" for t in dts[1:]),
+            "flash_f32_wide_kernel"}
+    got = {r[0] for r in flash["kernels"]}
+    if not want <= got:
+        fail(f"ptxas reported no flash kernels {sorted(want - got)}")
     scan = [r for r in report["chunk_scan"]["kernels"]
             if r[0].startswith("chunk_scan_")]
     if sorted(r[0] for r in scan) != sorted(
-            f"chunk_scan_kernel<{t},{k}>" for t in ("f32", "bf16")
-            for k in (64, 128, 256)):
+            [f"chunk_scan_kernel<{t},{k}>" for t in dts for k in (64, 128)]
+            + [f"chunk_scan_wide_kernel<{t}>" for t in dts]):
         fail(f"ptxas reported chunk_scan kernels {[r[0] for r in scan]}, "
-             f"not f32 and bf16 at 64, 128 and 256 channels")
-    served = [r for r in scan if r[0].endswith(",64>")]
+             f"not f32, bf16 and f16 at 64 and 128 channels and past")
+    served = [r for r in scan
+              if r[0] in ("chunk_scan_kernel<f32,64>",
+                          "chunk_scan_kernel<bf16,64>")]
     if any(st or ld for _, _, st, ld in served):
         fail(f"the chunk_scan kernels at 64 channels spill: {served}")
-    present = {"flash_bf16_kernel<32>", *(f"flash_f32_kernel<{hd}>"
-                                         for hd in (32, 64, 80, 128))}
+    present = {"flash_mma_kernel<bf16,32>", *(f"flash_f32_kernel<{hd}>"
+                                              for hd in (32, 64, 80, 128))}
     wide = [r for r in flash["kernels"]
-            if r[0].startswith(("flash_bf16", "flash_f32"))
+            if r[0].startswith(("flash_mma", "flash_f32"))
             and r[0] not in present] + [r for r in scan if r not in served]
     print(f"  the whole domain's wider tiles (not gated): "
           + ", ".join(f"{k} {regs} registers, spills {st}/{ld} B"
@@ -2538,10 +2662,19 @@ def flash_vs_plain(torch, dev, gen, report) -> tuple:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
     phase("phase 7: flash_attention kernel vs plain (max abs error; bf16 "
-          "also error / (2^-7 |want| + 2^-8 rms(want row)))")
+          "also error / (2^-7 |want| + 2^-8 rms(want row)), f16 the same at "
+          "2^-10 and 2^-11)")
 
     def check(name, q, k, v, causal, window, spread):
+        before = (flash_attention.launches, flash_attention.wide_launches)
         got = flash_attention(q, k, v, causal=causal, window=window)
+        if flash_attention.launches != before[0] + 1:
+            fail(f"flash_attention {name}: the wrapper launched "
+                 f"{flash_attention.launches - before[0]} kernels, not one")
+        if flash_attention.wide_launches - before[1] != int(q.shape[3] > 256):
+            fail(f"flash_attention {name}: the column-group kernels ran "
+                 f"{flash_attention.wide_launches - before[1]} times at head "
+                 f"dim {q.shape[3]}")
         want = attention_ref_bshd(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         if got.dtype != q.dtype:
@@ -2552,9 +2685,10 @@ def flash_vs_plain(torch, dev, gen, report) -> tuple:
         rms = float(want.square().mean().sqrt())
         dt = str(q.dtype).split(".")[-1]
         scaled = None
-        if dt == "bfloat16":
+        if dt in HALF_FORMS:
+            rel, row = HALF_FORMS[dt]
             row_rms = want.square().mean(-1, keepdim=True).sqrt()
-            limit = FLASH_BF16_REL * want.abs() + FLASH_BF16_ROW * row_rms
+            limit = rel * want.abs() + row * row_rms
             scaled = float((diff / limit).max())
         print(f"  {name}: max abs error {err:.3e}, rms |want| {rms:.3e}"
               + (f", scaled error {scaled:.3f}" if scaled is not None
@@ -2567,7 +2701,7 @@ def flash_vs_plain(torch, dev, gen, report) -> tuple:
             fail(f"flash_attention {name}: scaled error {scaled} > 1 (max "
                  f"abs error {err}, rms |want| {rms})")
         return dict(name=name, spread=spread, max_abs_err=err,
-                    rms_want=rms, scaled_err=scaled,
+                    rms_want=rms, scaled_err=scaled, dtype=dt,
                     shape=[*q.shape[:3], k.shape[2], q.shape[3]])
 
     def randn(shape, dtype, spread):
@@ -2631,6 +2765,13 @@ def flash_vs_plain(torch, dev, gen, report) -> tuple:
                       FLASH_SPREADS[0]))
         for spread in FLASH_SPREADS:
             cases.append((B, S, H, KV, hd, True, 0, "bfloat16", spread))
+    # f16 on every mma.sync tile (hd 8 and 40 zero-filled to 32 and 64,
+    # 80 to 96, the others their own), and at 64 as a view TMA would map
+    for hd in HALF_HEAD_DIMS:
+        for spread in FLASH_SPREADS:
+            cases.append((1, 200, 4, 2, hd, True, 48, "float16", spread))
+    for spread in FLASH_SPREADS:
+        cases.append((2, 256, 4, 2, 64, True, 0, "float16", spread))
     results = []
     for B, S, H, KV, hd, causal, window, dt, spread in cases:
         dtype = getattr(torch, dt)
@@ -2664,19 +2805,65 @@ def flash_vs_plain(torch, dev, gen, report) -> tuple:
         results.append(check(
             f"strided views B={B} S={S} H={H} KV={KV} hd={hd} window=100 "
             f"{dt}", q, k, v, True, 100, FLASH_SPREADS[0]))
+    results += flash_wide_vs_plain(torch, check, randn)
     worst = max(r["max_abs_err"] for r in results
                 if r["spread"] == FLASH_SPREADS[0])
     scaled = max(r["scaled_err"] for r in results
                  if r["scaled_err"] is not None)
+    wide = max(r["max_abs_err"] for r in results
+               if r["spread"] == FLASH_SPREADS[0] and r["shape"][4] > 256)
     zamba = max(r["max_abs_err"] for r in results
                 if r["spread"] == FLASH_SPREADS[0]
                 and r["shape"] == [Z[x] for x in ("B", "S", "H", "KV", "hd")])
-    print(f"flash_attention: {len(results)} cases pass; max abs error at "
-          f"spread {FLASH_SPREADS[0]} {worst:.3e} (tolerances "
-          f"{FLASH_TOL}; at zamba2's shape {zamba:.3e}), largest bf16 scaled "
-          f"error {scaled:.3f} (limit 1)")
+    print(f"flash_attention: {len(results)} cases pass, one launch each; "
+          f"max abs error at spread {FLASH_SPREADS[0]} {worst:.3e} "
+          f"(tolerances {FLASH_TOL}; at zamba2's shape {zamba:.3e}; past "
+          f"head dim 256 {wide:.3e}), largest bf16 or f16 scaled error "
+          f"{scaled:.3f} (limit 1)")
     report["flash_errors"] = results
-    return worst, zamba
+    return worst, zamba, wide
+
+
+def flash_wide_vs_plain(torch, check, randn) -> list:
+    """Phase 7's cases past head dim 256 (the column-group kernels) and in
+    mixed dtypes: hd 264, 300, 384 and 512 at S 1024 (causal, and under
+    window 512) in f32, bf16 and f16; B * H = 65,600 at hd 300; q, k, v
+    in f16, bf16 and f32 (widened to f32, the output in q's dtype) at hd
+    128 and 300.  ``check`` is phase 7's; returns its results and prints
+    the phase's wall."""
+    t0 = time.perf_counter()
+    cases = []
+    for hd in WIDER_HEAD_DIMS:
+        for window in (0, 512):
+            cases.append((1, 1024, 4, 2, hd, True, window, ("float32",) * 3,
+                          FLASH_SPREADS[0]))
+            for dt in HALF_FORMS:
+                for spread in FLASH_SPREADS:
+                    cases.append((1, 1024, 4, 2, hd, True, window, (dt,) * 3,
+                                  spread))
+    B, S, H, KV, hd = WIDER_BH
+    for dt in ("float32", *HALF_FORMS):
+        cases.append((B, S, H, KV, hd, True, 0, (dt,) * 3, FLASH_SPREADS[0]))
+    for hd in (128, 300):
+        for dts in (("float16", "bfloat16", "float32"),
+                    ("float32", "bfloat16", "float16"),
+                    ("bfloat16", "float16", "bfloat16")):
+            for spread in FLASH_SPREADS:
+                cases.append((1, 200, 4, 2, hd, True, 48, dts, spread))
+    results = []
+    for B, S, H, KV, hd, causal, window, dts, spread in cases:
+        q = randn((B, S, H, hd), getattr(torch, dts[0]), spread)
+        k = randn((B, S, KV, hd), getattr(torch, dts[1]), spread)
+        v = randn((B, S, KV, hd), getattr(torch, dts[2]), spread)
+        kind = dts[0] if len(set(dts)) == 1 else "/".join(dts)
+        results.append(check(
+            f"B={B} S={S:4d} H={H:2d} KV={KV} hd={hd:3d} causal={causal:d} "
+            f"window={window:3d} {kind:8s} spread {spread}", q, k, v, causal,
+            window, spread))
+        del q, k, v
+    print(f"  past head dim 256 and mixed dtypes: {len(results)} cases in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return results
 
 
 def route_parity(torch, dev, report) -> None:
@@ -2755,8 +2942,7 @@ def serving_path(torch, dev, report, *, arch, phase_no, expected,
     phase(f"phase {phase_no}: serving path — {what}; launches a prefill "
           f"{want}")
     torch.cuda.reset_peak_memory_stats(dev)
-    for w in expected:
-        w.launches = 0
+    zero_counts(expected)
     t0 = time.perf_counter()
     if cfg is None:
         res = serve_main(["--full-width", "--arch", arch, "--batch", str(B),
@@ -2768,10 +2954,11 @@ def serving_path(torch, dev, report, *, arch, phase_no, expected,
         res = serve(params, cfg, **kw)
     first_s = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in expected}
+    wide = add_wide(expected)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"first run (with init): {first_s:.2f} s; prefill "
-          f"{res['prefill_s'] * 1e3:.1f} ms; launches {launches}; peak "
-          f"memory {peak_gb:.1f} GB")
+          f"{res['prefill_s'] * 1e3:.1f} ms; launches {launches} (of the "
+          f"wide kernels {wide}); peak memory {peak_gb:.1f} GB")
     if launches != want:
         fail(f"the {arch} serving path launched {launches} in one prefill, "
              f"not {want}")
@@ -2823,7 +3010,7 @@ def serving_path(torch, dev, report, *, arch, phase_no, expected,
         profiled_steps=PROFILED_STEPS, wall_ms_short=short_ms,
         wall_ms_profiled=prof_ms, busy_ms=busy_ms, busy_share=share,
         kernel_launches=n_kernels, top=top, launches=launches,
-        peak_gb=peak_gb)
+        wide_launches=wide, peak_gb=peak_gb)
     report[f"serving_{arch}"] = out
     if after is not None:
         after(torch, params, cfg, out)
@@ -2836,40 +3023,50 @@ def flash_timings(torch, dev, gen, report) -> dict:
     """Phase 10: the kernel at the prefill shape (causal, and window 512),
     at hubert-xlarge's (non-causal, hd 80), at zamba2's shared attention
     (causal, hd 80, H = KV = 32), and at the whole domain's head dims 96
-    (Phi-3-mini's heads) and 256 (Gemma 2 9B's), causal, beside its plain
-    version, the library yardstick and its bound.  Returns every shape's
-    numbers."""
+    (Phi-3-mini's heads), 256 (Gemma 2 9B's; bf16 and f16) and 512,
+    causal, beside its plain version, the library yardstick and its bound.
+    Returns every shape's numbers."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
     F = torch.nn.functional
     phase("phase 10: flash_attention timings at the prefill shape, at "
-          "hubert-xlarge's, at zamba2's and at head dims 96 and 256 (device "
-          "time from the profiler trace; inputs cycled through > 2x L2)")
+          "hubert-xlarge's, at zamba2's and at head dims 96, 256 (bf16 and "
+          "f16) and 512 (device time from the profiler trace; inputs cycled through > 2x "
+          "L2)")
     P, Hu, Z = PREFILL, HUBERT_ATTN, ZAMBA_ATTN
     out = {}
-    for key, (B, S, H, KV, hd), causal, window in (
-            ("prefill", (P["B"], P["S"], P["H"], P["KV"], P["hd"]), True, 0),
+    gemma2 = tuple(GEMMA2_ATTN[x] for x in ("B", "S", "H", "KV", "hd"))
+    for key, (B, S, H, KV, hd), causal, window, dt in (
+            ("prefill", (P["B"], P["S"], P["H"], P["KV"], P["hd"]), True, 0,
+             "bfloat16"),
             ("prefill_w512", (P["B"], P["S"], P["H"], P["KV"], P["hd"]),
-             True, 512),
+             True, 512, "bfloat16"),
             ("hubert", (Hu["B"], Hu["S"], Hu["H"], Hu["KV"], Hu["hd"]),
-             False, 0),
-            ("zamba2", (Z["B"], Z["S"], Z["H"], Z["KV"], Z["hd"]), True, 0),
+             False, 0, "bfloat16"),
+            ("zamba2", (Z["B"], Z["S"], Z["H"], Z["KV"], Z["hd"]), True, 0,
+             "bfloat16"),
             ("hd96", tuple(PHI3_ATTN[x] for x in ("B", "S", "H", "KV", "hd")),
-             True, 0),
-            ("hd256", tuple(GEMMA2_ATTN[x]
-                            for x in ("B", "S", "H", "KV", "hd")), True, 0)):
+             True, 0, "bfloat16"),
+            ("hd256", gemma2, True, 0, "bfloat16"),
+            ("hd256_f16", gemma2, True, 0, "float16"),
+            ("wide_hd", tuple(WIDE_HD_ATTN[x]
+                              for x in ("B", "S", "H", "KV", "hd")), True,
+             0, "bfloat16")):
+        wide = hd > 256           # 50 calls a timing: it is the slowest
+        reps = 50 if wide else 200
+        t_wall = time.perf_counter()
         elt = 2
         nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * elt
 
         def make():
             return tuple((torch.randn(*shape, generator=gen, device=dev)
-                          * 0.5).to(torch.bfloat16)
+                          * 0.5).to(getattr(torch, dt))
                          for shape in ((B, S, H, hd), (B, S, KV, hd),
                                        (B, S, KV, hd)))
         sets = cycled_inputs(make, nbytes)
         k_ms, q_ms, host_ms, _ = time_device(
             torch, lambda q, k, v: flash_attention(
-                q, k, v, causal=causal, window=window), sets)
+                q, k, v, causal=causal, window=window), sets, reps=reps)
         p_ms, *_ = time_device(
             torch, lambda q, k, v: attention_ref_bshd(
                 q, k, v, causal=causal, window=window), sets, reps=10)
@@ -2886,18 +3083,26 @@ def flash_timings(torch, dev, gen, report) -> dict:
                 enable_gqa=True).transpose(1, 2)
         lib_err = float((library(*sets[0]).float() - flash_attention(
             *sets[0], causal=causal, window=window).float()).abs().max())
-        if not lib_err <= FLASH_TOL["bfloat16"]:
+        if not lib_err <= FLASH_TOL[dt]:
             fail(f"the library yardstick at {key} computes another "
                  f"function: {lib_err} from the kernel")
-        l_ms, *_ = time_device(torch, library, sets)
+        l_ms, *_ = time_device(torch, library, sets, reps=reps)
+        # the bound counts Q K^T once; the column-group kernel computes it
+        # once a group of 256 columns (executed_flops)
         flops = 4.0 * hd * B * H * attention_pairs(S, S, causal, window)
         b_ms, by = bound_ms(nbytes, flops, hw().PEAK_FLOPS_BF16)
-        t = dict(shape=[B, S, H, KV, hd], causal=causal, window=window,
-                 ms=k_ms, queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms,
+        t = dict(shape=[B, S, H, KV, hd], dtype=dt, causal=causal,
+                 window=window, ms=k_ms, queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms,
                  library_ms=l_ms, library_err=lib_err, bound_ms=b_ms,
                  bound_by=by, flops=flops, tflops=flops / k_ms / 1e9)
+        if wide:
+            groups = -(-hd // 256)
+            t["executed_flops"] = flops / 2 * (groups + 1)
+            t["library_backend"] = sdpa_backend(torch, library, sets[0],
+                                                causal)
+            t["wall_s"] = time.perf_counter() - t_wall
         out[key] = t
-        print(f"flash_attention [{B}, {S}, {H}, {KV}, {hd}] bf16 "
+        print(f"flash_attention [{B}, {S}, {H}, {KV}, {hd}] {dt} "
               f"{'causal' if causal else 'non-causal'} window={window}: "
               f"kernel {k_ms:.4f} ms ({t['tflops']:.1f} TFLOP/s; queued "
               f"{q_ms:.4f} ms/call, host enqueue {host_ms * 1e3:.1f} "
@@ -2905,8 +3110,43 @@ def flash_timings(torch, dev, gen, report) -> dict:
               f"library {l_ms:.4f} ms (scaled_dot_product_attention"
               + (", boolean band mask" if window else "")
               + f"; {lib_err:.2e} from the kernel)")
+        if wide:
+            print(f"  hd {hd}: {groups} column groups, each computing Q K^T "
+                  f"whole: {t['executed_flops']:.3e} flops executed for the "
+                  f"bound's {flops:.3e}; the library took "
+                  f"{t['library_backend']}; {t['wall_s']:.1f} s of wall")
     report["flash_timings"] = out
     return out
+
+
+def sdpa_backend(torch, library, args, causal: bool) -> str:
+    """Which of ``scaled_dot_product_attention``'s backends accept these
+    (B, S, heads, hd) inputs alone, and the one its dispatcher picks for
+    them (``torch._fused_sdp_choice``)."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    takes = []
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "CUDNN_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # each refusal's reasons
+                library(*args)
+            torch.cuda.synchronize()
+            takes.append(name)
+        except RuntimeError:
+            pass
+    q, k, v = (t.transpose(1, 2) for t in args)
+    try:
+        picked = SDPBackend(torch._fused_sdp_choice(
+            q, k, v, None, 0.0, causal, scale=None, enable_gqa=True)).name
+    except (AttributeError, TypeError, ValueError, RuntimeError) as e:
+        picked = f"not reported ({type(e).__name__})"
+    return (f"{picked} (accepted alone: "
+            f"{', '.join(takes) or 'no backend'})")
 
 
 def hubert_path(torch, dev, report, *, others) -> None:
@@ -2944,8 +3184,7 @@ def hubert_path(torch, dev, report, *, others) -> None:
     params = R.init_params(1, cfg, device=dev)
     batch = {"frame_embeds": torch.randn(Hu["B"], Hu["S"], cfg.d_model,
                                          generator=gen, device=dev)}
-    for w in (flash_attention, *others):
-        w.launches = 0
+    zero_counts((flash_attention, *others))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, _ = R.apply(params, cfg, batch)
@@ -2953,13 +3192,15 @@ def hubert_path(torch, dev, report, *, others) -> None:
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = flash_attention.launches
     other = {w.__name__: w.launches for w in others}
+    wide = add_wide((flash_attention, *others))
     t0 = time.perf_counter()
     R.apply(params, cfg, batch)
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     print(f"forward of {cfg.num_layers} layers: {first_ms:.1f} ms first, "
           f"{warm_ms:.1f} ms warm; flash_attention launches {launches}; "
-          f"other kernels {other}; logits {tuple(logits.shape)}")
+          f"other kernels {other}; of the wide kernels {wide}; logits "
+          f"{tuple(logits.shape)}")
     if launches != cfg.num_layers:
         fail(f"flash_attention launched {launches} times in a forward of "
              f"{cfg.num_layers} layers")
@@ -2970,7 +3211,8 @@ def hubert_path(torch, dev, report, *, others) -> None:
         fail("the hubert-xlarge forward gave no finite logits of the "
              "expected shape")
     report["hubert"] = dict(route_err=route_err, max_logit=scale,
-                            launches=launches, forward_ms_first=first_ms,
+                            launches=launches, wide_launches=wide,
+                            forward_ms_first=first_ms,
                             forward_ms_warm=warm_ms)
     del params, logits
     torch.cuda.empty_cache()
@@ -2985,22 +3227,25 @@ def scan_vs_plain(torch, dev, gen, report) -> tuple:
                                                     chunk_scan_ref)
     phase("phase 11: chunk_scan kernel vs plain (max abs error of y and the "
           "final state; bf16 y also error / (2^-7 |want| + 2^-8 rms(want "
-          "row)); the distance to the blocked plain version, 3 TF32 "
-          "passes, beside it)")
+          "row)), f16 y the same at 2^-10 and 2^-11; the distance to the "
+          "blocked plain version, 3 TF32 passes, beside it)")
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
     def check(B, T, H, K, V, chunk, mode, dt, ld_const=None, ld_scale=0.8,
-              strided=False):
-        dtype = getattr(torch, dt)
+              strided=False, dts=None):
+        """``dts``: r's, k's and v's dtypes where they differ (``dt``
+        names the case)."""
         rwkv = mode == "rwkv"
         if strided:       # r, k, v as views into one fused projection
-            fused = (randn(B, T, H, 2 * K + V) * 0.3).to(dtype)
+            fused = (randn(B, T, H, 2 * K + V) * 0.3).to(getattr(torch, dt))
             r, k, v = fused[..., :K], fused[..., K:2 * K], fused[..., 2 * K:]
         else:
-            r, k = ((randn(B, T, H, K) * 0.3).to(dtype) for _ in range(2))
-            v = (randn(B, T, H, V) * 0.3).to(dtype)
+            r, k = ((randn(B, T, H, K) * 0.3).to(getattr(torch, d))
+                    for d in (dts or (dt, dt))[:2])
+            v = (randn(B, T, H, V) * 0.3).to(
+                getattr(torch, dts[2] if dts else dt))
         s0 = randn(B, H, K, V) * 0.1
         shape = (B, T, H, K) if rwkv else (B, T, H)
         ld = (-torch.rand(*shape, generator=gen, device=dev) * ld_scale
@@ -3041,15 +3286,23 @@ def scan_vs_plain(torch, dev, gen, report) -> tuple:
                        model_form=True)
 
     def compare(name, dt, r, k, v, ld, s0, chunk, u, model_form=False):
-        dtype = getattr(torch, dt)
         kw = dict(include_current=u is None, bonus=u)
+        before = (chunk_scan.launches, chunk_scan.wide_launches)
         y, s_fin = chunk_scan(r, k, v, ld, s0, chunk=chunk, **kw)
+        if chunk_scan.launches != before[0] + 1:
+            fail(f"chunk_scan {name}: the wrapper launched "
+                 f"{chunk_scan.launches - before[0]} kernels, not one")
+        if chunk_scan.wide_launches - before[1] != int(r.shape[3] > 128):
+            fail(f"chunk_scan {name}: the channel-block kernel ran "
+                 f"{chunk_scan.wide_launches - before[1]} times at K "
+                 f"{r.shape[3]}")
         y_want, s_want = chunk_scan_ref(r, k, v, ld, s0, **kw)
         y_blk, s_blk = chunk_scan_blocked_ref(r, k, v, ld, s0, chunk=chunk,
                                               tf32_passes=3, **kw)
         torch.cuda.synchronize()
-        if y.dtype != dtype or s_fin.dtype != torch.float32:
+        if y.dtype != v.dtype or s_fin.dtype != torch.float32:
             fail(f"chunk_scan {name}: output dtypes {y.dtype}, {s_fin.dtype}")
+        dt = str(v.dtype).split(".")[-1]
         if not (bool(torch.isfinite(y).all())
                 and bool(torch.isfinite(s_fin).all())):
             fail(f"chunk_scan {name}: non-finite output")
@@ -3059,9 +3312,10 @@ def scan_vs_plain(torch, dev, gen, report) -> tuple:
         blk_err = max(float((yg - y_blk.float()).abs().max()),
                       float((s_fin - s_blk).abs().max()))
         scaled = None
-        if dt == "bfloat16":
+        if dt in HALF_FORMS:
+            rel, row = HALF_FORMS[dt]
             row_rms = yw.square().mean(-1, keepdim=True).sqrt()
-            limit = FLASH_BF16_REL * yw.abs() + FLASH_BF16_ROW * row_rms
+            limit = rel * yw.abs() + row * row_rms
             scaled = float(((yg - yw).abs() / limit).max())
         print(f"  {name}: y {y_err:.3e}, state {s_err:.3e}, rms |y| "
               f"{float(yw.square().mean().sqrt()):.3e}"
@@ -3075,7 +3329,7 @@ def scan_vs_plain(torch, dev, gen, report) -> tuple:
             fail(f"chunk_scan {name}: scaled error {scaled} > 1")
         return dict(name=name, dtype=dt, y_err=y_err, s_err=s_err,
                     scaled_err=scaled, blocked_err=blk_err,
-                    model_form=model_form)
+                    model_form=model_form, K=r.shape[3])
 
     results = []
     for B, T, H, K, V, chunk in ((1, 64, 2, 8, 16, 16),
@@ -3126,18 +3380,42 @@ def scan_vs_plain(torch, dev, gen, report) -> tuple:
     m = SCAN_MAMBA2
     results.append(check_model_form(m["B"], m["T"], m["H"], m["K"], m["V"],
                                     m["chunk"], "bfloat16"))
+    # K past the 256-channel tiles (the channel-block kernel), f16 on every
+    # tile width, and r, k, v in three dtypes (widened to f32, y in v's)
+    t0 = time.perf_counter()
+    n_wide = len(results)
+    for K in WIDER_K:
+        for V in WIDER_K_V:
+            for chunk in (64, 128):
+                for mode in ("rwkv", "mamba"):
+                    for dt in ("float32", *HALF_FORMS):
+                        results.append(check(1, 256, 2, K, V, chunk, mode,
+                                             dt))
+    for mode in ("rwkv", "mamba"):
+        for dt in ("float32", "bfloat16"):
+            results.append(check(1, 256, 2, 512, 64, 128, mode, dt,
+                                 ld_const=-1.0))
+        for K in (8, 64, 128, 256):
+            results.append(check(2, 128, 3, K, 32, 64, mode, "float16"))
+        for K in (64, 300):
+            results.append(check(1, 128, 2, K, 64, 64, mode, "mixed",
+                                 dts=("float16", "float32", "bfloat16")))
+    print(f"  past K 256, f16 and mixed dtypes: {len(results) - n_wide} "
+          f"cases in {time.perf_counter() - t0:.1f} s")
     zamba = max(max(r["y_err"], r["s_err"]) for r in results
                 if r["dtype"] == "float32" and r["model_form"])
     worst = max(max(r["y_err"], r["s_err"]) for r in results
                 if r["dtype"] == "float32")
     scaled = max(r["scaled_err"] for r in results
                  if r["scaled_err"] is not None)
-    print(f"chunk_scan: {len(results)} cases pass; max abs error in f32 "
-          f"{worst:.3e} (tolerance {SCAN_TOL}; in zamba2's call form "
-          f"{zamba:.3e}), largest bf16 scaled error {scaled:.3f} (limit 1), "
-          f"every output finite")
+    wide = max(max(r["y_err"], r["s_err"]) for r in results
+               if r["dtype"] == "float32" and r["K"] > 256)
+    print(f"chunk_scan: {len(results)} cases pass, one launch each; max abs "
+          f"error in f32 {worst:.3e} (tolerance {SCAN_TOL}; in zamba2's call "
+          f"form {zamba:.3e}; past K 256 {wide:.3e}), largest bf16 or f16 "
+          f"scaled error {scaled:.3f} (limit 1), every output finite")
     report["chunk_scan_errors"] = results
-    return worst, zamba
+    return worst, zamba, wide
 
 
 def decode_vs_full(torch, cfg, params, toks, impl) -> list:
@@ -3269,10 +3547,10 @@ def scan_timings(torch, dev, gen, report) -> dict:
     phase(f"phase 14: chunk_scan timings at rwkv6-7b's serving shape "
           f"[{c['B']}, {c['T']}, {c['H']}, {c['K']}, {c['V']}] chunk "
           f"{c['chunk']} bf16 RWKV6, at zamba2's [{z['B']}, {z['T']}, "
-          f"{z['H']}, {z['K']}, {z['V']}] Mamba2 and at mamba2-2.7b's "
+          f"{z['H']}, {z['K']}, {z['V']}] Mamba2, at mamba2-2.7b's "
           f"[{m['B']}, {m['T']}, {m['H']}, {m['K']}, {m['V']}] chunk "
-          f"{m['chunk']} Mamba2 (device time from the profiler trace; "
-          f"inputs cycled through > 2x L2)")
+          f"{m['chunk']} Mamba2 and at K 512 (device time from the profiler "
+          f"trace; inputs cycled through > 2x L2)")
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -3299,13 +3577,16 @@ def scan_timings(torch, dev, gen, report) -> dict:
                 randn(B, H, K, V) * 0.1, None)
 
     out = {}
-    m = SCAN_MAMBA2
+    m, wk = SCAN_MAMBA2, SCAN_WIDE_K
     for key, cfg, make in (("rwkv6", c, rwkv_inputs),
                            ("zamba2", z, lambda: mamba_inputs(z)),
-                           ("mamba2", m, lambda: mamba_inputs(m))):
+                           ("mamba2", m, lambda: mamba_inputs(m)),
+                           ("wide_k", wk, lambda: mamba_inputs(wk))):
         B, T, H, K, V, Lc = (cfg[x] for x in ("B", "T", "H", "K", "V",
                                               "chunk"))
         rwkv = key == "rwkv6"
+        wide = K > 128         # the channel-block kernel
+        t_wall = time.perf_counter()
         # bytes each input is read and each output written once: r, k, v
         # and y in bf16 (zamba2's r is one (B, T, K) row block read by
         # every head), the decay in f32 (a channel each for RWKV6, a scalar
@@ -3322,12 +3603,16 @@ def scan_timings(torch, dev, gen, report) -> dict:
             return chunk_scan_ref(r, k, v, ld, s0, bonus=u, **kw)
 
         sets = cycled_inputs(make, nbytes)
-        k_ms, q_ms, host_ms, _ = time_device(torch, kernel, sets,
-                                             only="chunk_scan_kernel")
+        k_ms, q_ms, host_ms, _ = time_device(
+            torch, kernel, sets,
+            only="chunk_scan_wide_kernel" if wide else "chunk_scan_kernel")
         w_ms, *_ = time_device(torch, kernel, sets)
         # one call of the plain version: its 2048 steps launch ~30,000
-        # device operations, whose trace takes the host ~20 s to process
-        p_ms, *_ = time_device(torch, plain, sets, reps=1)
+        # device operations, whose trace takes the host ~20 s to process;
+        # past K 256 CUDA events around one call instead (the gaps between
+        # its operations included), to keep the phase short
+        p_ms = (events_ms(torch, plain, sets[0]) if wide
+                else time_device(torch, plain, sets, reps=1)[0])
         # query-key pairs a chunk: s < t (RWKV6, the bonus apart) or
         # s <= t (Mamba2)
         pairs = Lc * (Lc - 1) // 2 if rwkv else Lc * (Lc + 1) // 2
@@ -3342,7 +3627,9 @@ def scan_timings(torch, dev, gen, report) -> dict:
                  queue_ms=q_ms, host_ms=host_ms, plain_ms=p_ms,
                  library_ms=None, bound_ms=b_ms, bound_by=by,
                  bound_fma_ms=fma_ms, bound_tf32_ms=tf32_ms, flops=flops,
-                 nbytes=nbytes, tflops=flops / k_ms / 1e9)
+                 nbytes=nbytes, tflops=flops / k_ms / 1e9,
+                 plain_timer="events" if wide else "profiler",
+                 wall_s=time.perf_counter() - t_wall)
         out[key] = t
         print(f"chunk_scan [{B}, {T}, {H}, {K}, {V}] chunk {Lc} bf16 "
               f"{'RWKV6' if rwkv else 'Mamba2, model call form'}: kernel "
@@ -3352,10 +3639,27 @@ def scan_timings(torch, dev, gen, report) -> dict:
               f"{nbytes / 1e6:.1f} MB; the {flops:.3e} flops take "
               f"{tf32_ms:.4f} ms at the TF32 tensor-core peak, {fma_ms:.4f} "
               f"ms at the f32 FMA peak of the earlier design), plain "
-              f"{p_ms:.2f} ms, library none (no single PyTorch call "
-              f"computes the recurrence)")
+              f"{p_ms:.2f} ms{' (CUDA events, one call)' if wide else ''}, "
+              f"library none (no single PyTorch call computes the "
+              f"recurrence)" + (f"; {t['wall_s']:.1f} s of wall" if wide
+                                else ""))
     report["chunk_scan_timings"] = out
     return out
+
+
+def events_ms(torch, fn, args) -> float:
+    """CUDA events around one call of ``fn(*args)`` after a warm one (ms):
+    the device's span of the call, gaps between its operations
+    included."""
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def zamba_route_parity(torch, dev, report) -> None:
@@ -3801,8 +4105,7 @@ def lm_fl_path(torch, dev, report, cpu_job, wrappers) -> None:
     phase(f"phase 28: LM FL — repro_torch.llm_federated_pretrain.run at "
           f"the example's defaults ({TRAIN_ARCH} reduced, {cfg.num_layers} "
           f"layers, d_model {cfg.d_model}; {LM_FL}), card against CPU")
-    for w in wrappers:
-        w.launches = 0
+    zero_counts(wrappers)
     positive = []
 
     def record(real, i, stack, gamma, base, bw, **kw):
@@ -3819,8 +4122,10 @@ def lm_fl_path(torch, dev, report, cpu_job, wrappers) -> None:
     prog = sim.trainer._epoch_programs[sim._spec]
     steps = (prog.dispatches, prog.fallback_dispatches)
     launches = {w.__name__: w.launches for w in wrappers}
+    wide = add_wide(wrappers)
     print(f"card: {len(hist)} records in {wall:.2f} s, {sum(steps)} epoch "
-          f"steps ({steps[1]} fallback), launches {launches}")
+          f"steps ({steps[1]} fallback), launches {launches} (of the wide "
+          f"kernels {wide})")
     check_launches("phase 28", hist, launches["fed_agg"], steps,
                    LM_FL["epochs"])
     if steps[1] == 0 and launches["fed_agg"] != steps[0]:
@@ -3912,8 +4217,7 @@ def lm_fl_full_width(torch, dev, report, wrappers) -> dict:
     N = R.analytic_param_count(cfg)
     phase(f"phase 29: LM FL at full width — llm_federated_pretrain.run on "
           f"{TRAIN_ARCH} cut to 1 layer, f32 (N = {N:,}); {LM_FL_FULL}")
-    for w in wrappers:
-        w.launches = 0
+    zero_counts(wrappers)
     spans = {"train": [], "fed_agg": [], "eval": []}
     errs = []
 
@@ -3978,10 +4282,11 @@ def lm_fl_full_width(torch, dev, report, wrappers) -> dict:
     prog = sim.trainer._epoch_programs[sim._spec]
     steps = (prog.dispatches, prog.fallback_dispatches)
     launches = {w.__name__: w.launches for w in wrappers}
+    wide = add_wide(wrappers)
     ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
     print(f"{len(hist)} records, wall {wall:.2f} s, peak memory {peak:.1f} "
           f"GB, {sum(steps)} epoch steps ({steps[1]} fallback), launches "
-          f"{launches}")
+          f"{launches} (of the wide kernels {wide})")
     for r in hist:
         print(f"  epoch {r.epoch}: t={r.time_s / 3600:.3f} h eval_loss "
               f"{-r.accuracy:.5f} models={r.num_models}")
@@ -4026,12 +4331,15 @@ def lm_timings_process(N: int) -> dict:
             "import torch, chip_smoke as cs\n"
             "dev = torch.device('cuda')\n"
             "gen = torch.Generator(device=dev).manual_seed(0)\n"
-            f"print(json.dumps(cs.lm_kernel_timings(torch, dev, gen, {N})))\n")
+            f"out = cs.lm_kernel_timings(torch, dev, gen, {N})\n"
+            "print(json.dumps(dict(out, traces=cs.TRACES)))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=900)
     if proc.returncode != 0:
         fail(f"phase 29's timing process failed:\n{proc.stderr[-3000:]}")
     out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key, n in out.pop("traces").items():
+        TRACES[key] += n
     for key in ("fed_agg_lm", "fed_agg_lm_bank"):
         t = out[key]
         print(f"fed_agg {t['shape']} (bank, carry, N): kernel {t['ms']:.3f} "

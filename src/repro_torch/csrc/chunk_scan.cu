@@ -12,7 +12,8 @@
 // Layout: r, k and ld (B, T, H, K), v (B, T, H, V), read through their
 // four strides each (the model's projections go in without a copy); s0
 // and s_fin (B, H, K, V) f32 contiguous; u (H, K) f32 contiguous (RWKV6
-// mode only); y (B, T, H, V) contiguous in r/k/v's dtype (f32 or bf16).
+// mode only); y (B, T, H, V) contiguous in r/k/v's dtype (f32, bf16 or
+// f16; 16-bit loads are widened to f32 as they are read).
 //
 // Per chunk c of Lc steps, with L the inclusive cumulative log-decay and
 // M_t = L_t (Mamba2) or L_{t-1} (RWKV6):
@@ -54,11 +55,11 @@
 // operands and f32 accumulation, each f32 operand split a = hi + lo and
 // hi.hi + hi.lo + lo.hi accumulated (3 passes, where one TF32 pass misses
 // the state tolerance 5e-5 by 5x); f32 inputs take the precise variant of
-// the split and the sums (see precise()).  v widened from bf16 is exact in
-// TF32, so A.v and dS take 2 passes in bf16.  The depth of each product
-// is permuted so that a thread reads channel (or key) pairs 2t, 2t + 1:
-// the accumulator of A lands in the A-fragment layout of A.v without a
-// trip through shared memory.  Tiles are zero-filled past the
+// the split and the sums (see precise()).  v widened from bf16 or f16 is
+// exact in TF32, so A.v and dS take 2 passes in bf16 and f16.  The depth
+// of each product is permuted so that a thread reads channel (or key)
+// pairs 2t, 2t + 1: the accumulator of A lands in the A-fragment layout of
+// A.v without a trip through shared memory.  Tiles are zero-filled past the
 // chunk, past K and past V, so the products need no per-tile branch.
 // Element loads replace cp.async for an operand without a unit channel
 // stride and 16-byte aligned rows (K or V not a multiple of 16 bytes
@@ -67,20 +68,22 @@
 // fragment reads free of bank conflicts.  Shared memory at K <= 64: 109
 // KB in bf16 (two CTAs an SM), 161 KB in f32.
 //
-// K up to 256: instantiations at 64, 128 and 256 channels, the launcher
-// taking the smallest that holds K.  Above 64 the state pass loops over
+// K up to 128: instantiations at 64 and 128 channels, the launcher
+// taking the smaller that holds K.  At 128 the state pass loops over
 // blocks of 64 channels, and r exp(M - Lref) is formed again at each use
-// rather than kept in registers (at 256 channels 128 more a thread).
-// The tiles at 128 and 256 channels leave room for fewer steps (see
-// max_steps: 194,080 bytes at 128 channels and 128 steps in bf16, 216,096
-// at 256 and 64; f32 halves the steps), and a chunk longer than those
-// steps (or than 128 at 64 channels) runs as sub-blocks of them, in order,
-// the last one shorter: each sub-block is a work item of its own and hands the
-// state on to the next through the flags, as chunks do.  The recurrence's
-// result does not depend on where the time axis is cut, so this is the
-// same function; the 16-row re-referencing inside each sub-block stays.
-// Past 256 channels the tiles would not fit: the launcher refuses K > 256.
+// rather than kept in registers (64 more a thread).  Past 128 channels
+// chunk_scan_wide_kernel streams the channels through 256-channel tiles in
+// blocks of 256 (see its note), at any K.  The tiles at 128 and 256
+// channels leave room for fewer steps (see max_steps: 194,080 bytes at 128
+// channels and 128 steps in bf16, 216,096 at 256 and 64; f32 halves the
+// steps), and a chunk longer than those steps (or than 128 at 64 channels)
+// runs as sub-blocks of them, in order, the last one shorter: each
+// sub-block is a work item of its own and hands the state on to the next
+// through the flags, as chunks do.  The recurrence's result does not
+// depend on where the time axis is cut, so this is the same function; the
+// 16-row re-referencing inside each sub-block stays.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,11 +95,11 @@ constexpr int kSB = 16;                 // query rows per sub-block
 constexpr int kLDS = 68;                // pitch of the state tile (f32)
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The kernel's channel capacity kMaxK (64, 128 or 256: the smallest that
-// holds K) sets the tiles' pitch and the steps a CTA holds at once
-// (kMaxL): 128 at 64 channels; at 128, 128 in bf16 and 64 in f32; at
-// 256, 64 in bf16 and 32 in f32, so that the tiles fit in the 227 KB of
-// shared memory a CTA can hold.
+// The tiles' channel capacity kMaxK (64 or 128: the smaller that holds K;
+// 256, the channel-block kernel's, past 128) sets the tiles' pitch and
+// the steps a CTA holds at once (kMaxL): 128 at 64 channels; at 128, 128
+// in bf16 and 64 in f32; at 256, 64 in bf16 and 32 in f32, so that the
+// tiles fit in the 227 KB of shared memory a CTA can hold.
 template <int kMaxK> __host__ __device__ constexpr int pitch() {
   return kMaxK + 8;                     // 72 at 64: 8 words past a bank row
 }
@@ -139,10 +142,14 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
+}
+template <> __device__ __forceinline__ __half zero<__half>() {
+  return __float2half(0.f);
 }
 
 // elements e, e + 1 of a shared-memory row, widened
@@ -152,6 +159,9 @@ __device__ __forceinline__ float2 pair(const float* p) {
 __device__ __forceinline__ float2 pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+__device__ __forceinline__ float2 pair(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
 
 __device__ __forceinline__ void store2(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
@@ -159,9 +169,15 @@ __device__ __forceinline__ void store2(float* dst, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store2(__half* dst, float a, float b) {
+  *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(a, b);
+}
 __device__ __forceinline__ void store1(float* dst, float a) { *dst = a; }
 __device__ __forceinline__ void store1(__nv_bfloat16* dst, float a) {
   *dst = __float2bfloat16(a);
+}
+__device__ __forceinline__ void store1(__half* dst, float a) {
+  *dst = __float2half(a);
 }
 
 // f32 inputs take the precise variant of three steps below: expf for the
@@ -223,7 +239,8 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // d += a b with a given as its hi and lo halves; b is split here (3
-// passes) unless it is exact in TF32 (kExact: v widened from bf16, 2)
+// passes) unless it is exact in TF32 (kExact: v widened from bf16 or
+// f16, 2)
 template <bool kPrecise, bool kExact>
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], float b0,
@@ -405,6 +422,51 @@ __device__ __forceinline__ float2 ld_relaxed2(const float* q) {
   asm volatile("ld.relaxed.gpu.global.v2.f32 {%0, %1}, [%2];"
                : "=f"(v.x), "=f"(v.y) : "l"(q) : "memory");
   return v;
+}
+
+// y of this thread's rows ta and tb (those below Lc) and, of each 8-column
+// tile, columns 2t and 2t + 1 (those below Vw), with the RWKV6 bonus da or
+// db times v added, into y (B, T, H, V) contiguous in T
+template <typename T, int LDV>
+__device__ __forceinline__ void store_y(const Params& p,
+                                        const float (&y)[kVT / 8][4],
+                                        float da, float db, const T* Vs,
+                                        int b, int h, long long t0, int v0,
+                                        int Vw, int Lc, int ta, int tb,
+                                        int t) {
+  T* yg = static_cast<T*>(p.y) +
+          ((static_cast<long long>(b) * p.T + t0) * p.H + h) * p.V + v0;
+  const long long y_row = static_cast<long long>(p.H) * p.V;
+  if (p.vpair) {
+#pragma unroll
+    for (int nt = 0; nt < kVT / 8; ++nt) {
+      const int j = nt * 8 + 2 * t;
+      if (j < Vw) {
+        if (ta < Lc) {
+          const float2 va = pair(Vs + ta * LDV + j);
+          store2(yg + ta * y_row + j, fmaf(da, va.x, y[nt][0]),
+                 fmaf(da, va.y, y[nt][1]));
+        }
+        if (tb < Lc) {
+          const float2 vb = pair(Vs + tb * LDV + j);
+          store2(yg + tb * y_row + j, fmaf(db, vb.x, y[nt][2]),
+                 fmaf(db, vb.y, y[nt][3]));
+        }
+      }
+    }
+  } else {                // odd V: one element at a time
+#pragma unroll
+    for (int nt = 0; nt < kVT / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? ta : tb;
+        const int j = nt * 8 + 2 * t + (e & 1);
+        if (row < Lc && j < Vw)
+          store1(yg + row * y_row + j,
+                 fmaf(e < 2 ? da : db, to_f32(Vs[row * LDV + j]), y[nt][e]));
+      }
+    }
+  }
 }
 
 // One sub-block of a chunk (at most kMaxL steps; the whole chunk where it
@@ -686,96 +748,339 @@ __global__ void __launch_bounds__(kThreads,
     }
   }
 
-  T* yg = static_cast<T*>(p.y) +
-          ((static_cast<long long>(b) * p.T + t0) * p.H + h) * p.V + v0;
-  const long long y_row = static_cast<long long>(p.H) * p.V;
-  if (p.vpair) {
+  store_y<T, LDV>(p, y, da, db, Vs, b, h, t0, v0, Vw, Lc, ta, tb, t);
+}
+
+// K past 128 channels: tiles of kWideK channels, the channels streamed
+// through them in blocks of kWideK (one block up to 256).  Everything but
+// the outputs is separate per channel: a block's decay cumsum, its rows of
+// dS_c and of the state hand-over (S_c into shared memory, S_{c+1} to the
+// workspace) run as chunk_scan_kernel runs them for K <= 128, the
+// predecessor's flag
+// awaited before the first block's rows and this item's flag set after
+// the last block's.  The outputs contract over K: the cross term (r
+// exp(M)) S_c, the intra scores A = (r exp(M - Lref)) (k exp(Lref - L))^T
+// (every key block of the warp's sub-block, f32 in registers) and the
+// RWKV6 bonus are summed block by block, and y += A v with the masks and
+// the bonus follow the last block; v's tile stays loaded throughout.  The
+// 16-row re-referencing of the exponents is per channel, so it holds in
+// every block.
+constexpr int kWideK = 256;
+constexpr int kTileK = 128;    // the widest K chunk_scan_kernel holds
+
+// The channel blocks the launcher streams K through: 0 where
+// chunk_scan_kernel holds K in one tile
+__host__ __device__ constexpr int channel_blocks(int K) {
+  return K <= kTileK ? 0 : (K + kWideK - 1) / kWideK;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    chunk_scan_wide_kernel(Params p) {
+  constexpr int kMaxL = max_steps<T, kWideK>();
+  constexpr int kLD = pitch<kWideK>();
+  constexpr int LDV = ldv_out<T>();
+  constexpr int kMB = kWideK / 64;
+  constexpr int kKB = kMaxL / kSB;        // key blocks a sub-block holds
+  constexpr bool P = precise<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Rs = reinterpret_cast<T*>(smem);
+  T* Ks = Rs + kMaxL * kLD;
+  T* Vs = Ks + kMaxL * kLD;
+  float* Ls = reinterpret_cast<float*>(Vs + kMaxL * LDV);
+  float* Ss = Ls + (kMaxL + 1) * kLD;
+  float* Tot = Ss + kWideK * kLDS;
+
+  const int tid = threadIdx.x;
+  const int nvt = (p.V + kVT - 1) / kVT;
+  __shared__ int item;     // chunk-major, in the order the CTAs start
+  if (tid == 0) item = atomicAdd(p.sync, 1);
+  __syncthreads();
+  const int rows = gridDim.x / p.nc;                  // B H nvt
+  const int c = item / rows;                          // the sub-block
+  const int bh = (item - c * rows) / nvt;
+  const int vt = item - c * rows - bh * nvt;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int v0 = vt * kVT, Vw = min(kVT, p.V - v0);
+  const int K = p.K;
+  const int cu = c / p.nsub, js = c - cu * p.nsub;
+  const int Lc = min(p.sub, p.Lc - js * p.sub);
+  const int L16 = (Lc + 15) & ~15;
+  const int nsb = L16 / kSB;
+  const bool rwkv = !p.include_current;
+  const long long t0 = static_cast<long long>(cu) * p.Lc +
+                       static_cast<long long>(js) * p.sub;
+  const float* lg = p.ld + b * p.ls[0] + h * p.ls[2] + t0 * p.ls[1];
+  const T* rg = static_cast<const T*>(p.r) + b * p.rs[0] + h * p.rs[2] +
+                t0 * p.rs[1];
+  const T* kg = static_cast<const T*>(p.k) + b * p.ks[0] + h * p.ks[2] +
+                t0 * p.ks[1];
+  const T* vg = static_cast<const T*>(p.v) + b * p.vs[0] + h * p.vs[2] +
+                t0 * p.vs[1] + v0 * p.vs[3];
+  int* flag = p.sync + 1 + (static_cast<long long>(bh) * nvt + vt) * p.nc;
+  const long long KV = static_cast<long long>(K) * p.V;
+  const float* sp0 = c ? p.work + (static_cast<long long>(bh) * p.nc + c -
+                                   1) * KV + v0
+                       : p.s0 + bh * KV + v0;
+  float* sn0 = c + 1 < p.nc ? p.work + (static_cast<long long>(bh) * p.nc +
+                                        c) * KV + v0
+                            : p.sfin + bh * KV + v0;
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int n0 = 32 * (warp & 1);
+  const int sb = warp < 4 ? warp : 11 - warp;
+  const bool active = sb < nsb;            // this warp's rows hold steps
+  const int a = sb * kSB, ta = a + g, tb = ta + 8;
+  float y[kVT / 8][4] = {};
+  float A[kKB][2][4] = {};                 // (ta|tb, key 2t|2t+1) a tile
+  float da = 0.f, db = 0.f;                // the bonus r_t * u . k_t
+
+  for (int kc0 = 0; kc0 < K; kc0 += kWideK) {
+    const int Kb = min(kWideK, K - kc0);   // this block's channels
+    if (kc0) __syncthreads();              // the last block's tiles are read
+    load_tile(Ls + kLD, kLD, lg + kc0 * p.ls[3], p.ls[1], p.ls[3], Lc, Kb,
+              L16, kWideK, p.ld_vec);
+    for (int i = tid; i < kWideK; i += kThreads) Ls[i] = 0.f;
+    cp_async_commit();
+    load_tile(Rs, kLD, rg + kc0 * p.rs[3], p.rs[1], p.rs[3], Lc, Kb, L16,
+              kWideK, p.vec);
+    load_tile(Ks, kLD, kg + kc0 * p.ks[3], p.ks[1], p.ks[3], Lc, Kb, L16,
+              kWideK, p.vec);
+    if (!kc0) load_tile(Vs, LDV, vg, p.vs[1], p.vs[3], Lc, Vw, L16, kVT,
+                        p.vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    cumsum<kLD>(Ls, Tot, Lc, Kb);
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // this block's rows of dS_c, then of S_c and S_{c+1}
+    {
+      float acc[kMB][4][4] = {};
 #pragma unroll
-    for (int nt = 0; nt < kVT / 8; ++nt) {
-      const int j = nt * 8 + 2 * t;
-      if (j < Vw) {
-        if (ta < Lc) {
-          const float2 va = pair(Vs + ta * LDV + j);
-          store2(yg + ta * y_row + j, fmaf(da, va.x, y[nt][0]),
-                 fmaf(da, va.y, y[nt][1]));
-        }
-        if (tb < Lc) {
-          const float2 vb = pair(Vs + tb * LDV + j);
-          store2(yg + tb * y_row + j, fmaf(db, vb.x, y[nt][2]),
-                 fmaf(db, vb.y, y[nt][3]));
+      for (int mb = 0; mb < kMB; ++mb) {
+        const int m0 = 64 * mb + 16 * (warp >> 1);
+        if (m0 < Kb)
+          chunk_state<T, kLD, LDV>(acc[mb], Ks, Vs, Ls, Lc, m0, n0, g, t);
+      }
+      if (!kc0 && c > 0) {
+        if (tid == 0)
+          while (!ld_acquire(flag + c - 1)) __nanosleep(64);
+        __syncthreads();
+      }
+      const float* sp = sp0 + kc0 * p.V;
+      float* sn = sn0 + kc0 * p.V;
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = 64 * mb + 16 * (warp >> 1) + g + 8 * half;
+          const float dec = row < Kb ? expf(Ls[Lc * kLD + row]) : 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = n0 + nt * 8 + 2 * t + e;
+              const bool in = row < Kb && j < Vw;
+              const float sv = in ? ld_relaxed(sp + row * p.V + j) : 0.f;
+              Ss[row * kLDS + j] = sv;
+              if (in)
+                __stcg(sn + row * p.V + j,
+                       fmaf(dec, sv, acc[mb][nt][2 * half + e]));
+            }
+          }
         }
       }
+      __syncthreads();     // S_c's rows are in; their S_{c+1} is issued
+      if (tid == 0 && c + 1 < p.nc && kc0 + kWideK >= K) {
+        __threadfence();
+        st_release(flag + c, 1);
+      }
     }
-  } else {                // odd V: one element at a time
+    if (!active) continue;
+
+    // this block's share of the outputs' contractions over K
+    const float* Lref = Ls + a * kLD;                 // exclusive sum at a
+    const float* Ma = Ls + (rwkv ? ta : ta + 1) * kLD;
+    const float* Mb = Ls + (rwkv ? tb : tb + 1) * kLD;
+    const int nks = (Kb + 7) / 8;                     // k-steps that hold Kb
+    const auto q_of = [&](int ks, float (&q)[4]) {
+      const int cc = ks * 8 + 2 * t;
+      const float2 lr = pair(Lref + cc), ma = pair(Ma + cc),
+                   mb = pair(Mb + cc);
+      const float2 ra = pair(Rs + ta * kLD + cc), rb = pair(Rs + tb * kLD + cc);
+      q[0] = ra.x * fexp<P>(ma.x - lr.x);
+      q[1] = rb.x * fexp<P>(mb.x - lr.x);
+      q[2] = ra.y * fexp<P>(ma.y - lr.y);
+      q[3] = rb.y * fexp<P>(mb.y - lr.y);
+    };
+    // the cross term (r exp(M - Lref)) exp(Lref) S_c
+    for (int ks = 0; ks < nks; ++ks) {
+      const int cc = ks * 8 + 2 * t;
+      float q[4];
+      q_of(ks, q);
+      const float2 lr = pair(Lref + cc);
+      const float e0 = expf(lr.x), e1 = expf(lr.y);
+      const float x[4] = {q[0] * e0, q[1] * e0, q[2] * e1, q[3] * e1};
+      uint32_t xh[4], xl[4];
+      split4<P>(x, xh, xl);
 #pragma unroll
-    for (int nt = 0; nt < kVT / 8; ++nt) {
+      for (int nt = 0; nt < kVT / 8; ++nt) {
+        const int j = nt * 8 + g;
+        mma3<P, false>(y[nt], xh, xl, Ss[cc * kLDS + j],
+                       Ss[(cc + 1) * kLDS + j]);
+      }
+    }
+    if (rwkv) {            // a warp a row, lane l: channels 2l, 2l + 1, ...
+      for (int i = 0; i < kSB; ++i) {
+        const int row = a + i;
+        float d = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? ta : tb;
-        const int j = nt * 8 + 2 * t + (e & 1);
-        if (row < Lc && j < Vw)
-          store1(yg + row * y_row + j,
-                 fmaf(e < 2 ? da : db, to_f32(Vs[row * LDV + j]), y[nt][e]));
+        for (int q = 0; q < kWideK / 64; ++q) {
+          const int cc = 2 * lane + 64 * q;
+          const float2 uu =
+              make_float2(cc < Kb ? __ldg(p.u + h * K + kc0 + cc) : 0.f,
+                          cc + 1 < Kb ? __ldg(p.u + h * K + kc0 + cc + 1)
+                                      : 0.f);
+          const float2 rr = pair(Rs + row * kLD + cc);
+          const float2 kk = pair(Ks + row * kLD + cc);
+          d += fmaf(rr.x * uu.x, kk.x, rr.y * uu.y * kk.y);
+        }
+#pragma unroll
+        for (int o = 16; o; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        if (i == g) da += d;
+        if (i == g + 8) db += d;
+      }
+    }
+    // the intra scores of every key block up to the diagonal
+#pragma unroll
+    for (int jb = 0; jb < kKB; ++jb) {
+      if (jb > sb) break;
+      const int s0 = jb * kSB;
+      float Ah[2][4] = {}, Ac[2][4] = {};
+      for (int ks = 0; ks < nks; ++ks) {
+        const int cc = ks * 8 + 2 * t;
+        const float2 lr = pair(Lref + cc);
+        float qv[4];
+        q_of(ks, qv);
+        uint32_t qh[4], ql[4];
+        split4<P>(qv, qh, ql);
+#pragma unroll
+        for (int n2 = 0; n2 < 2; ++n2) {
+          const int s = s0 + n2 * 8 + g;
+          const float2 kk = pair(Ks + s * kLD + cc);
+          const float2 ls = pair(Ls + (s + 1) * kLD + cc);
+          mma3x2<P>(Ah[n2], Ac[n2], qh, ql, kk.x * fexp<P>(lr.x - ls.x),
+                    kk.y * fexp<P>(lr.y - ls.y));
+        }
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) A[jb][n2][e] += Ah[n2][e] + Ac[n2][e];
+    }
+  }
+  if (!active) return;
+
+  // y += A v over the key blocks, the diagonal one masked: s < t (RWKV6),
+  // s <= t (Mamba2)
+#pragma unroll
+  for (int jb = 0; jb < kKB; ++jb) {
+    if (jb > sb) break;
+    const int s0 = jb * kSB;
+    if (jb == sb) {
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? ta : tb;
+          const int s = s0 + n2 * 8 + 2 * t + (e & 1);
+          if (rwkv ? s >= row : s > row) A[jb][n2][e] = 0.f;
+        }
+    }
+#pragma unroll
+    for (int n2 = 0; n2 < 2; ++n2) {
+      const float af[4] = {A[jb][n2][0], A[jb][n2][2], A[jb][n2][1],
+                           A[jb][n2][3]};
+      uint32_t ah[4], al[4];
+      split4<P>(af, ah, al);
+      const int sk = s0 + n2 * 8 + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < kVT / 8; ++nt) {
+        const int j = nt * 8 + g;
+        mma3<P, !P>(y[nt], ah, al, to_f32(Vs[sk * LDV + j]),
+                    to_f32(Vs[(sk + 1) * LDV + j]));
       }
     }
   }
+  store_y<T, LDV>(p, y, da, db, Vs, b, h, t0, v0, Vw, Lc, ta, tb, t);
 }
 
-template <typename T, int kMaxK>
-int launch(const Params& p, int BH, cudaStream_t st) {
-  const int bytes = static_cast<int>(smem_bytes<T, kMaxK>());
+template <typename Kernel>
+int launch(Kernel kernel, size_t bytes, const Params& p, int BH,
+           cudaStream_t st) {
   // the most shared memory an SM can give, so that two CTAs fit
   cudaError_t e = cudaFuncSetAttribute(
-      chunk_scan_kernel<T, kMaxK>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(chunk_scan_kernel<T, kMaxK>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              100);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n = BH * p.nc * ((p.V + kVT - 1) / kVT);
-  chunk_scan_kernel<T, kMaxK><<<n, kThreads, bytes, st>>>(p);
+  kernel<<<n, kThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The steps a sub-block holds at K channels (the kernel the launcher
-// picks for K); 0 where K is out of range
+// picks for K; past 128 the channel-block kernel's 256-channel tiles); 0
+// where K is out of range or the dtype unknown
 int sub_steps(int dtype, int K) {
-  const bool bf16 = dtype == 1;
-  if (K <= 0 || K > 256) return 0;
+  const bool half = dtype == 1 || dtype == 2;
+  if (K <= 0 || dtype < 0 || dtype > 2) return 0;
   if (K <= 64) return max_steps<float, 64>();
-  if (K <= 128)
-    return bf16 ? max_steps<__nv_bfloat16, 128>() : max_steps<float, 128>();
-  return bf16 ? max_steps<__nv_bfloat16, 256>() : max_steps<float, 256>();
+  if (channel_blocks(K) == 0)
+    return half ? max_steps<__nv_bfloat16, 128>() : max_steps<float, 128>();
+  return half ? max_steps<__nv_bfloat16, kWideK>()
+              : max_steps<float, kWideK>();
 }
 
 template <typename T>
 int launch_k(const Params& p, int BH, cudaStream_t st) {
-  if (p.K <= 64) return launch<T, 64>(p, BH, st);
-  if (p.K <= 128) return launch<T, 128>(p, BH, st);
-  return launch<T, 256>(p, BH, st);
+  if (channel_blocks(p.K))
+    return launch(chunk_scan_wide_kernel<T>, smem_bytes<T, kWideK>(), p, BH,
+                  st);
+  if (p.K <= 64)
+    return launch(chunk_scan_kernel<T, 64>, smem_bytes<T, 64>(), p, BH, st);
+  return launch(chunk_scan_kernel<T, 128>, smem_bytes<T, 128>(), p, BH, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The steps of one sub-block at K channels in `dtype` (0: f32, 1: bf16):
-// a chunk longer than this runs as sub-blocks of it, in order (the last
-// one shorter); 0 for a K out of 1..256.
+// The steps of one sub-block at K channels in `dtype` (0: f32, 1: bf16,
+// 2: f16): a chunk longer than this runs as sub-blocks of it, in order
+// (the last one shorter); 0 for K < 1 or an unknown dtype.
 int chunk_scan_sub_steps(int dtype, int K) { return sub_steps(dtype, K); }
+
+// The blocks of 256 channels the launch at K channels streams (the
+// channel-block kernel, past 128 channels), or 0 (chunk_scan_kernel).
+int chunk_scan_channel_blocks(int K) { return channel_blocks(K); }
 
 // r, k, ld (B, T, H, K) and v (B, T, H, V) with 16 element strides in
 // `strides` (batch, time, head, channel of r, k, v, ld; ld's channel
 // stride 0 for a scalar per-head decay); r, k, v of one dtype (0: f32, 1:
-// bf16), ld f32 as the model gives it (clamped here).  s0 (B, H, K, V)
+// bf16, 2: f16), ld f32 as the model gives it (clamped here).  s0 (B, H, K, V)
 // f32, u (H, K) f32 (read only when !include_current), y (B, T, H, V) in
 // the dtype and s_fin (B, H, K, V) f32, all contiguous on the current
 // device.  Chunks of Lc steps (T % Lc == 0) run as sub-blocks of `sub`
 // steps (0 < sub <= chunk_scan_sub_steps(dtype, K), the last one of a
 // chunk shorter): nc = T / Lc * ceil(Lc / sub) of them.  work (B H, nc, K,
 // V) f32 scratch and sync (1 + B H nc ceil(V / 64) int32) zeroed.  Needs
-// 0 < K <= 256, V > 0.  Launches on `stream` and returns the launch's
+// K > 0, V > 0.  Launches on `stream` and returns the launch's
 // cudaError_t (0 on success); it does not synchronise.
 int chunk_scan_launch(const void* r, const void* k, const void* v,
                       const void* ld, const void* s0, const void* u,
@@ -826,7 +1131,7 @@ int chunk_scan_launch(const void* r, const void* k, const void* v,
       return st4[3] == 1 && st4[0] % e == 0 && st4[1] % e == 0 &&
              st4[2] % e == 0;
     };
-    const int E = dtype == 1 ? 8 : 4;
+    const int E = dtype == 0 ? 4 : 8;
     p.vec = K % E == 0 && V % E == 0 && al(r) && al(k) && al(v) &&
             rows16(strides, E) && rows16(strides + 4, E) &&
             rows16(strides + 8, E);
@@ -835,7 +1140,7 @@ int chunk_scan_launch(const void* r, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_k<float>(p, B * H, st);
   if (dtype == 1) return launch_k<__nv_bfloat16>(p, B * H, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_k<__half>(p, B * H, st);
 }
 
 const char* chunk_scan_error_string(int code) {

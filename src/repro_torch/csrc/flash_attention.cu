@@ -31,7 +31,7 @@
 // into the output (the row sums l come from the same f32 probabilities).
 // That costs P V twice its flops: the work is 1.5 times the algorithm's.
 //
-// Three kernels, picked by the launcher by dtype and head dim:
+// Five kernels, picked by the launcher by dtype and head dim:
 //
 // bf16, hd 64, 80 and 128 (the serving paths): flash_wgmma_kernel, built
 // from Hopper's warpgroup instructions.  A CTA of three warpgroups owns 128
@@ -67,12 +67,12 @@
 //   does).  P is split into its A fragments only after the wait for the
 //   P V that read the last ones.
 //
-// bf16 at every other head dim up to 256, and at hd 64, 80 and 128 where
-// TMA cannot map q, k or v (byte strides or a base that are not multiples
-// of 16) or B * H passes grid.y's 65,535: flash_bf16_kernel,
-// mma.sync.m16n8k16 with 4 warps of 16 rows each, K and V staged by
-// cp.async (see its note), instantiated at tile widths 32, 64, 96, 128,
-// 160, 192 and 256.
+// f16 at every head dim up to 256, bf16 at the others, and bf16 at hd 64,
+// 80 and 128 where TMA cannot map q, k or v (byte strides or a base that
+// are not multiples of 16) or B * H passes grid.y's 65,535:
+// flash_mma_kernel, mma.sync.m16n8k16 with 4 warps of 16
+// rows each, K and V staged by cp.async (see its note), instantiated at
+// tile widths 32, 64, 96, 128, 160, 192 and 256 for each of the two types.
 //
 // f32 (tests and model-level parity), every hd up to 256: flash_f32_kernel,
 // full f32 on the FMA units, never TF32: a CTA of 128 threads owns 32
@@ -85,13 +85,18 @@
 // to P.V, only hd columns are stored, and the scale is the wrapper's
 // 1/sqrt(hd).  Rows that are not 16-byte aligned (a head dim or a stride
 // that is not a multiple of 16 bytes, or a base that is not aligned) take
-// element loads.  Above 256 the tiles pass shared memory and the
-// accumulators the registers: the launcher refuses them.  B * H above
-// 65,535 strides through grid.y inside the mma.sync and f32 kernels (the
-// wgmma kernel's grid keeps one (batch, head) a row of CTAs; the wrapper
-// sends such a B * H to flash_bf16_kernel).
+// element loads.  B * H above 65,535 strides through grid.y inside the
+// mma.sync and f32 kernels (the wgmma kernel's grid keeps one (batch,
+// head) a row of CTAs; the wrapper sends such a B * H to flash_mma_kernel).
+//
+// Above 256, whole tiles of the head dim would pass shared memory and O's
+// accumulator the registers: flash_mma_wide_kernel (bf16, f16) and
+// flash_f32_wide_kernel split O's columns into groups of 256 over grid.z
+// and build each key block's scores from 64-column pieces of Q and K (see
+// their note), at any head dim.  Every group recomputes Q K^T.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -178,7 +183,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 off the wgmma kernel: tensor cores through mma.sync.m16n8k16
+// bf16 and f16 off the wgmma kernel: tensor cores through mma.sync.m16n8k16
 //
 // A CTA of 4 warps owns 64 query rows of one (batch, head), 16 rows a
 // warp, and walks its key range 64 keys at a time: S = Q K^T with Q held
@@ -193,37 +198,79 @@ __device__ __forceinline__ float quad_sum(float x) {
 // its hd columns are stored.  Above 160 columns Q's fragments would not
 // fit beside O's accumulator (HD / 2 floats a thread): Q stays in shared
 // memory and each k-step reads its fragment there (kQSmem).  The tiles
-// are dynamic shared memory: 64 (HD + 8) bf16 each for K and V, and for
-// Q when kQSmem (101 KB at HD 256).
+// are dynamic shared memory: 64 (HD + 8) 16-bit elements each for K and
+// V, and for Q when kQSmem (101 KB at HD 256).  T is __nv_bfloat16 or
+// __half: the same kernel, its operands and P's halves in that type.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+// The 16-bit operand types: their pairs, conversions and m16n8k16 product
+// (c += a (16x16, row) * b (16x8, col); fragments as in the PTX ISA's
+// m16n8k16 layout: g = lane / 4 and t = lane % 4 own rows g and g + 8,
+// columns 2t, 2t + 1 (+ 8 for a[2], a[3] and b[1])).
+template <typename T> struct Half16;
+
+template <> struct Half16<__nv_bfloat16> {
+  using T2 = __nv_bfloat162;
+  static __device__ __forceinline__ T2 pair(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ float2 wide(T2 x) {
+    return __bfloat1622float2(x);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 one(float a) {
+    return __float2bfloat16(a);
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+template <> struct Half16<__half> {
+  using T2 = __half2;
+  static __device__ __forceinline__ T2 pair(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+  static __device__ __forceinline__ float2 wide(T2 x) {
+    return __half22float2(x);
+  }
+  static __device__ __forceinline__ __half one(float a) {
+    return __float2half(a);
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  const typename Half16<T>::T2 v = Half16<T>::pair(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// (x0, x1) = hi + lo, each a bf16 pair: hi is (x0, x1) rounded to bf16, lo
-// the rounded remainder, so hi + lo is within 2^-17 of (x0, x1)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t* hi,
-                                           uint32_t* lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
+// (x0, x1) = hi + lo, each a pair of T: hi is (x0, x1) rounded to T, lo
+// the rounded remainder, so hi + lo is within 2^-17 (bf16; f16 2^-23) of
+// (x0, x1)
+template <typename T>
+__device__ __forceinline__ void split16(float x0, float x1, uint32_t* hi,
+                                        uint32_t* lo) {
+  const typename Half16<T>::T2 h = Half16<T>::pair(x0, x1);
+  const float2 hf = Half16<T>::wide(h);
   *hi = *reinterpret_cast<const uint32_t*>(&h);
-  *lo = pack_bf16(x0 - hf.x, x1 - hf.y);
-}
-
-// c += a (16x16, row) * b (16x8, col); fragments as in the PTX ISA's
-// m16n8k16 layout: g = lane / 4 and t = lane % 4 own rows g and g + 8,
-// columns 2t, 2t + 1 (+ 8 for a[2], a[3] and b[1]).
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  *lo = pack16<T>(x0 - hf.x, x1 - hf.y);
 }
 
 // Four 8x8 b16 matrices from shared memory: lane L gives the address of
@@ -264,16 +311,15 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Starts the copy of rows [row0, row0 + ROWS) and columns [0, hd) of an
-// (nrows, hd) bf16 matrix with row stride `stride` into shared memory with
+// (nrows, hd) matrix of T with row stride `stride` into shared memory with
 // row stride LD; rows at or past `nrows` and columns hd..HD are zero-filled
 // (masked keys must not carry NaN from past the end; the padded columns
 // add nothing to q.k or P.V).  vec: cp.async in 16-byte pieces (hd a
 // multiple of 8, 16-byte aligned rows); else element loads and stores,
 // synchronous, which the barriers that follow every copy order as they
 // order cp.async's.
-template <int HD, int LD, int ROWS>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
+template <typename T, int HD, int LD, int ROWS>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
                                                 long long stride, int row0,
                                                 int nrows, int hd, bool vec) {
   if (vec) {
@@ -291,7 +337,7 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
       const int r = i / HD, c = i - r * HD;
       const int row = row0 + r;
       dst[r * LD + c] = row < nrows && c < hd ? src[row * stride + c]
-                                              : __float2bfloat16(0.f);
+                                              : Half16<T>::one(0.f);
     }
   }
 }
@@ -304,11 +350,134 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// One key block's online softmax in a warp's (16 x BK) score tile s (S's
+// accumulator: rows g, g + 8, of each 8-key tile keys 2t, 2t + 1): scale
+// into log2 units, mask, take the running max m, exponentiate in place and
+// fold the block into the running sum l, and rescale O's accumulator o by
+// the change of the max.
+template <int BQ, int BK, int NT_O>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 8][4],
+                                               float (&o)[NT_O][4],
+                                               float (&m)[2], float (&l)[2],
+                                               const Params& p, int q0,
+                                               int k0, const int (&qpos)[2],
+                                               int t, float scl) {
+  constexpr int NT_S = BK / 8;
+  float mx[2] = {m[0], m[1]};
+  // a block that no mask touches (most of a causal prefill) skips the
+  // per-element mask test
+  const bool whole = k0 + BK <= p.Sk && (!p.causal || k0 + BK <= q0 + 1) &&
+                     (!p.window || q0 + BQ - 1 - k0 < p.window);
+  if (whole) {
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] *= scl;
+        mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kpos = k0 + j * 8 + 2 * t + (c & 1);
+        const float x = allowed(p, qpos[c >> 1], kpos) ? s[j][c] * scl
+                                                       : kNegInf;
+        s[j][c] = x;
+        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+      }
+    }
+  }
+  float corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = quad_max(mx[i]);
+    corr[i] = exp2_approx(m[i] - mx[i]);
+    m[i] = mx[i];
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float e = exp2_approx(s[j][c] - m[c >> 1]);
+      s[j][c] = e;
+      rs[c >> 1] += e;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+  for (int d = 0; d < NT_O; ++d) {
+    o[d][0] *= corr[0];
+    o[d][1] *= corr[0];
+    o[d][2] *= corr[1];
+    o[d][3] *= corr[1];
+  }
+}
+
+// O += P V over one key block: S's accumulator tiles 2kt and 2kt + 1 are
+// P's A fragment, as hi and lo halves of T; V's tile (BK keys, pitch LD)
+// read transposed by ldmatrix.
+template <typename T, int BK, int NT_O, int LD>
+__device__ __forceinline__ void pv_product(float (&o)[NT_O][4],
+                                           const float (&s)[BK / 8][4],
+                                           const T* Vs, int lm, int lr) {
+#pragma unroll
+  for (int kt = 0; kt < BK / 16; ++kt) {
+    uint32_t a[4], a_lo[4];
+    split16<T>(s[2 * kt][0], s[2 * kt][1], &a[0], &a_lo[0]);
+    split16<T>(s[2 * kt][2], s[2 * kt][3], &a[1], &a_lo[1]);
+    split16<T>(s[2 * kt + 1][0], s[2 * kt + 1][1], &a[2], &a_lo[2]);
+    split16<T>(s[2 * kt + 1][2], s[2 * kt + 1][3], &a[3], &a_lo[3]);
+#pragma unroll
+    for (int d = 0; d < NT_O; d += 2) {
+      uint32_t vf[4];   // b0, b1 of n-tile d, then of d + 1
+      ldsm_x4<true>(vf, Vs + (kt * 16 + (lm & 1) * 8 + lr) * LD +
+                            (d + (lm >> 1)) * 8);
+      Half16<T>::mma(o[d], a, vf[0], vf[1]);
+      Half16<T>::mma(o[d], a_lo, vf[0], vf[1]);
+      Half16<T>::mma(o[d + 1], a, vf[2], vf[3]);
+      Half16<T>::mma(o[d + 1], a_lo, vf[2], vf[3]);
+    }
+  }
+}
+
+// O / l of this thread's two rows into og (row stride p.os), the columns
+// below `ncols` of the NT_O tiles
+template <typename T, int NT_O>
+__device__ __forceinline__ void store_rows(const float (&o)[NT_O][4],
+                                           const float (&l)[2], T* og,
+                                           const Params& p,
+                                           const int (&qpos)[2], int t,
+                                           int ncols) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float denom = fmaxf(quad_sum(l[i]), 1e-30f);
+    if (qpos[i] >= p.Sq) continue;
+    T* orow = og + qpos[i] * p.os;
+#pragma unroll
+    for (int d = 0; d < NT_O; ++d) {
+      const int col = d * 8 + 2 * t;
+      const float x0 = o[d][2 * i] / denom, x1 = o[d][2 * i + 1] / denom;
+      if (p.opair && col + 1 < ncols) {
+        *reinterpret_cast<typename Half16<T>::T2*>(orow + col) =
+            Half16<T>::pair(x0, x1);
+      } else {
+        if (col < ncols) orow[col] = Half16<T>::one(x0);
+        if (col + 1 < ncols) orow[col + 1] = Half16<T>::one(x1);
+      }
+    }
+  }
+}
+
 // Three CTAs an SM up to HD 64: a cap of 168 registers a thread; two at 96
 // and 128, where Q's fragments and O's accumulator need more; above, one
 // (O's accumulator alone is HD / 2 registers).
 template <int HD>
-struct Bf16Tile {
+struct MmaTile {
   static constexpr int BQ = 64, BK = 64, LD = HD + 8;
   static constexpr bool kQSmem = HD > 160;
   static constexpr int kMinBlocks = HD <= 64 ? 3 : HD <= 128 ? 2 : 1;
@@ -318,10 +487,10 @@ struct Bf16Tile {
 // The query tiles of (batch, head) blockIdx.y, then of blockIdx.y +
 // gridDim.y, ...: B * H above grid.y's 65,535 strides through the grid,
 // and every head keeps the heaviest-first order of its tiles on grid.x.
-template <int HD>
-__global__ void __launch_bounds__(kThreads, Bf16Tile<HD>::kMinBlocks)
-    flash_bf16_kernel(Params p) {
-  using Tl = Bf16Tile<HD>;
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, MmaTile<HD>::kMinBlocks)
+    flash_mma_kernel(Params p) {
+  using Tl = MmaTile<HD>;
   constexpr int BQ = Tl::BQ, BK = Tl::BK, LD = Tl::LD;
   constexpr bool kQSmem = Tl::kQSmem;
   constexpr int KSTEPS = HD / 16;     // k-steps of S = Q K^T
@@ -329,9 +498,9 @@ __global__ void __launch_bounds__(kThreads, Bf16Tile<HD>::kMinBlocks)
   constexpr int NT_O = HD / 8;        // n-tiles of O
   static_assert(HD % 32 == 0, "two k-steps an ldmatrix.x4");
   extern __shared__ __align__(16) unsigned char flash_smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(flash_smem);
-  __nv_bfloat16* Vs = Ks + BK * LD;
-  __nv_bfloat16* Qs = kQSmem ? Vs + BK * LD : Vs;
+  T* Ks = reinterpret_cast<T*>(flash_smem);
+  T* Vs = Ks + BK * LD;
+  T* Qs = kQSmem ? Vs + BK * LD : Vs;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -347,19 +516,17 @@ __global__ void __launch_bounds__(kThreads, Bf16Tile<HD>::kMinBlocks)
 
   for (int bh = blockIdx.y; bh < p.BH; bh += gridDim.y) {
     const int b = bh / p.H, h = bh % p.H, kvh = h / p.rep;
-    const __nv_bfloat16* qg =
-        static_cast<const __nv_bfloat16*>(p.q) + b * p.qb + h * p.qh;
-    const __nv_bfloat16* kg =
-        static_cast<const __nv_bfloat16*>(p.k) + b * p.kb + kvh * p.kh;
-    const __nv_bfloat16* vg =
-        static_cast<const __nv_bfloat16*>(p.v) + b * p.vb + kvh * p.vh;
-    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.ob + h * p.oh;
+    const T* qg = static_cast<const T*>(p.q) + b * p.qb + h * p.qh;
+    const T* kg = static_cast<const T*>(p.k) + b * p.kb + kvh * p.kh;
+    const T* vg = static_cast<const T*>(p.v) + b * p.vb + kvh * p.vh;
+    T* og = static_cast<T*>(p.o) + b * p.ob + h * p.oh;
 
     // Q through the V buffer (its own when kQSmem), K's first tile into the
     // K buffer
-    load_tile_async<HD, LD, BQ>(Qs, qg, p.qs, q0, p.Sq, hd, vec);
+    load_tile_async<T, HD, LD, BQ>(Qs, qg, p.qs, q0, p.Sq, hd, vec);
     cp_async_commit();
-    if (lo < hi) load_tile_async<HD, LD, BK>(Ks, kg, p.ks, lo, p.Sk, hd, vec);
+    if (lo < hi)
+      load_tile_async<T, HD, LD, BK>(Ks, kg, p.ks, lo, p.Sk, hd, vec);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -382,7 +549,7 @@ __global__ void __launch_bounds__(kThreads, Bf16Tile<HD>::kMinBlocks)
     for (int k0 = lo; k0 < hi; k0 += BK) {
       cp_async_wait<0>();   // this block's K tile has landed
       __syncthreads();      // ... for every thread; V (and Q) reads are done
-      load_tile_async<HD, LD, BK>(Vs, vg, p.vs, k0, p.Sk, hd, vec);
+      load_tile_async<T, HD, LD, BK>(Vs, vg, p.vs, k0, p.Sk, hd, vec);
       cp_async_commit();
 
       // S = Q K^T while V lands
@@ -400,8 +567,8 @@ __global__ void __launch_bounds__(kThreads, Bf16Tile<HD>::kMinBlocks)
           for (int j = 0; j < NT_S; ++j) {
             uint32_t kf[4];   // b0, b1 of k-step kt, then of kt + 1
             ldsm_x4<false>(kf, Ks + (j * 8 + lr) * LD + kt * 16 + lm * 8);
-            mma_bf16(s[j], qa, kf[0], kf[1]);
-            mma_bf16(s[j], qb, kf[2], kf[3]);
+            Half16<T>::mma(s[j], qa, kf[0], kf[1]);
+            Half16<T>::mma(s[j], qb, kf[2], kf[3]);
           }
         }
       } else {
@@ -411,115 +578,150 @@ __global__ void __launch_bounds__(kThreads, Bf16Tile<HD>::kMinBlocks)
           for (int kt = 0; kt < KSTEPS; kt += 2) {
             uint32_t kf[4];   // b0, b1 of k-step kt, then of kt + 1
             ldsm_x4<false>(kf, Ks + (j * 8 + lr) * LD + kt * 16 + lm * 8);
-            mma_bf16(s[j], qf[kt], kf[0], kf[1]);
-            mma_bf16(s[j], qf[kt + 1], kf[2], kf[3]);
+            Half16<T>::mma(s[j], qf[kt], kf[0], kf[1]);
+            Half16<T>::mma(s[j], qf[kt + 1], kf[2], kf[3]);
           }
         }
       }
 
-      // scale, mask, running max
-      float mx[2] = {m[0], m[1]};
-      // a block that no mask touches (most of a causal prefill) skips the
-      // per-element mask test
-      const bool whole = k0 + BK <= p.Sk && (!p.causal || k0 + BK <= q0 + 1) &&
-                         (!p.window || q0 + BQ - 1 - k0 < p.window);
-      if (whole) {
-#pragma unroll
-        for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            s[j][c] *= scl;
-            mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int kpos = k0 + j * 8 + 2 * t + (c & 1);
-            const float x = allowed(p, qpos[c >> 1], kpos) ? s[j][c] * scl
-                                                           : kNegInf;
-            s[j][c] = x;
-            mx[c >> 1] = fmaxf(mx[c >> 1], x);
-          }
-        }
-      }
-      float corr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = quad_max(mx[i]);
-        corr[i] = exp2_approx(m[i] - mx[i]);
-        m[i] = mx[i];
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float e = exp2_approx(s[j][c] - m[c >> 1]);
-          s[j][c] = e;
-          rs[c >> 1] += e;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
-#pragma unroll
-      for (int d = 0; d < NT_O; ++d) {
-        o[d][0] *= corr[0];
-        o[d][1] *= corr[0];
-        o[d][2] *= corr[1];
-        o[d][3] *= corr[1];
-      }
+      online_softmax<BQ, BK, NT_O>(s, o, m, l, p, q0, k0, qpos, t, scl);
 
       cp_async_wait<0>();   // V has landed
       __syncthreads();      // ... for every thread; K reads are done
       if (k0 + BK < hi) {
-        load_tile_async<HD, LD, BK>(Ks, kg, p.ks, k0 + BK, p.Sk, hd, vec);
+        load_tile_async<T, HD, LD, BK>(Ks, kg, p.ks, k0 + BK, p.Sk, hd, vec);
         cp_async_commit();
       }
 
-      // O += P V while the next K lands: S's accumulator tiles 2kt and
-      // 2kt + 1 are P's A fragment, as hi and lo bf16 halves
-#pragma unroll
-      for (int kt = 0; kt < BK / 16; ++kt) {
-        uint32_t a[4], a_lo[4];
-        split_bf16(s[2 * kt][0], s[2 * kt][1], &a[0], &a_lo[0]);
-        split_bf16(s[2 * kt][2], s[2 * kt][3], &a[1], &a_lo[1]);
-        split_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1], &a[2], &a_lo[2]);
-        split_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3], &a[3], &a_lo[3]);
-#pragma unroll
-        for (int d = 0; d < NT_O; d += 2) {
-          uint32_t vf[4];   // b0, b1 of n-tile d, then of d + 1
-          ldsm_x4<true>(vf, Vs + (kt * 16 + (lm & 1) * 8 + lr) * LD +
-                                (d + (lm >> 1)) * 8);
-          mma_bf16(o[d], a, vf[0], vf[1]);
-          mma_bf16(o[d], a_lo, vf[0], vf[1]);
-          mma_bf16(o[d + 1], a, vf[2], vf[3]);
-          mma_bf16(o[d + 1], a_lo, vf[2], vf[3]);
-        }
-      }
+      // O += P V while the next K lands
+      pv_product<T, BK, NT_O, LD>(o, s, Vs, lm, lr);
     }
 
+    store_rows<T, NT_O>(o, l, og, p, qpos, t, hd);
+    __syncthreads();        // every read of Q, K and V before the next head
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 and f16 past 256 columns: column groups, S from pieces of hd
+//
+// Above kMaxHeadDim, Q, K and V tiles of the whole head dim would pass
+// shared memory and O's accumulator the registers.  So grid.z splits O's
+// columns into groups of kWideDV = 256: the CTA of group z owns columns
+// [256 z, 256 z + 256) of 64 query rows, as flash_mma_kernel<T, 256> owns
+// all of them, and holds only V's columns of its group.  Its S = Q K^T
+// still spans the whole head dim: it streams Q's and K's columns through
+// shared memory in pieces of kWideDK = 64, two stages of cp.async (the
+// copy of piece i + 1 lands while piece i's products run; V's tile lands
+// beside the first piece), and adds each piece's product into S's
+// accumulator.  Every CTA of a (batch, head, query tile) computes the same
+// S in the same order, so their running max and sum are bit-equal and the
+// output does not depend on how the columns are grouped.  The cost: Q K^T
+// once a group (twice at hd 512), and Q read again for every key block
+// (from L2).  Shared memory: 2 x (Q + K pieces) + V = 70,656 bytes.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideDV = 256;        // O's columns a CTA
+constexpr int kWideDK = 64;         // columns of a Q or K piece
+
+struct WideTile {
+  static constexpr int BQ = 64, BK = 64;
+  static constexpr int LDK = kWideDK + 8, LDV = kWideDV + 8;
+  static constexpr int kBytes = (2 * (BQ + BK) * LDK + BK * LDV) * 2;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_mma_wide_kernel(Params p) {
+  constexpr int BQ = WideTile::BQ, BK = WideTile::BK;
+  constexpr int LDK = WideTile::LDK, LDV = WideTile::LDV;
+  constexpr int NT_S = BK / 8, NT_O = kWideDV / 8;
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  T* Qp = reinterpret_cast<T*>(flash_smem);   // 2 stages of BQ x LDK
+  T* Kp = Qp + 2 * BQ * LDK;                  // 2 stages of BK x LDK
+  T* Vs = Kp + 2 * BK * LDK;                  // BK x LDV
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lm = lane >> 3, lr = lane & 7;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest first
+  const int c0 = blockIdx.z * kWideDV;                // this CTA's columns
+  const int hd = p.hd, np = (hd + kWideDK - 1) / kWideDK;
+  const bool vec = p.vec;
+  const float scl = p.scale * 1.4426950408889634f;
+  const int r0 = warp * 16 + g;
+  const int qpos[2] = {q0 + r0, q0 + r0 + 8};
+  int lo, hi;
+  key_range(p, q0, BQ, BK, &lo, &hi);
+
+  for (int bh = blockIdx.y; bh < p.BH; bh += gridDim.y) {
+    const int b = bh / p.H, h = bh % p.H, kvh = h / p.rep;
+    const T* qg = static_cast<const T*>(p.q) + b * p.qb + h * p.qh;
+    const T* kg = static_cast<const T*>(p.k) + b * p.kb + kvh * p.kh;
+    const T* vg = static_cast<const T*>(p.v) + b * p.vb + kvh * p.vh + c0;
+    T* og = static_cast<T*>(p.o) + b * p.ob + h * p.oh + c0;
+    // piece pc of key block k0 (Q's and K's columns 64 pc ..) into stage st
+    const auto load_piece = [&](int k0, int pc, int st) {
+      const int col = pc * kWideDK;
+      load_tile_async<T, kWideDK, LDK, BQ>(Qp + st * BQ * LDK, qg + col,
+                                           p.qs, q0, p.Sq, hd - col, vec);
+      load_tile_async<T, kWideDK, LDK, BK>(Kp + st * BK * LDK, kg + col,
+                                           p.ks, k0, p.Sk, hd - col, vec);
+      cp_async_commit();
+    };
+
+    float o[NT_O][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float denom = fmaxf(quad_sum(l[i]), 1e-30f);
-      if (qpos[i] >= p.Sq) continue;
-      __nv_bfloat16* orow = og + qpos[i] * p.os;
+    for (int d = 0; d < NT_O; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    int n = 0;                // pieces consumed: piece n sits in stage n & 1
+    if (lo < hi) load_piece(lo, 0, 0);
+
+    for (int k0 = lo; k0 < hi; k0 += BK) {
+      float s[NT_S][4];
 #pragma unroll
-      for (int d = 0; d < NT_O; ++d) {
-        const int col = d * 8 + 2 * t;
-        const float x0 = o[d][2 * i] / denom, x1 = o[d][2 * i + 1] / denom;
-        if (p.opair && col + 1 < hd) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(x0, x1);
-        } else {
-          if (col < hd) orow[col] = __float2bfloat16(x0);
-          if (col + 1 < hd) orow[col + 1] = __float2bfloat16(x1);
+      for (int j = 0; j < NT_S; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int pc = 0; pc < np; ++pc, ++n) {
+        cp_async_wait<0>();   // piece n has landed
+        __syncthreads();      // ... for every thread; stage (n + 1) & 1 and
+                              // (at pc 0) V are no longer read
+        if (pc == 0) {
+          load_tile_async<T, kWideDV, LDV, BK>(Vs, vg, p.vs, k0, p.Sk,
+                                               hd - c0, vec);
+          cp_async_commit();
+        }
+        if (pc + 1 < np) load_piece(k0, pc + 1, (n + 1) & 1);
+        const T* Qs = Qp + (n & 1) * BQ * LDK;
+        const T* Ks = Kp + (n & 1) * BK * LDK;
+#pragma unroll
+        for (int kt = 0; kt < kWideDK / 16; kt += 2) {
+          uint32_t qa[4], qb[4];
+          ldsm_x4<false>(qa, Qs + (warp * 16 + (lm & 1) * 8 + lr) * LDK +
+                                 kt * 16 + (lm >> 1) * 8);
+          ldsm_x4<false>(qb, Qs + (warp * 16 + (lm & 1) * 8 + lr) * LDK +
+                                 (kt + 1) * 16 + (lm >> 1) * 8);
+#pragma unroll
+          for (int j = 0; j < NT_S; ++j) {
+            uint32_t kf[4];   // b0, b1 of k-step kt, then of kt + 1
+            ldsm_x4<false>(kf, Ks + (j * 8 + lr) * LDK + kt * 16 + lm * 8);
+            Half16<T>::mma(s[j], qa, kf[0], kf[1]);
+            Half16<T>::mma(s[j], qb, kf[2], kf[3]);
+          }
         }
       }
+
+      online_softmax<BQ, BK, NT_O>(s, o, m, l, p, q0, k0, qpos, t, scl);
+
+      cp_async_wait<0>();     // V has landed
+      __syncthreads();        // ... for every thread; the pieces are read
+      if (k0 + BK < hi) load_piece(k0 + BK, 0, n & 1);
+
+      pv_product<T, BK, NT_O, LDV>(o, s, Vs, lm, lr);
     }
-    __syncthreads();        // every read of Q, K and V before the next head
+
+    store_rows<T, NT_O>(o, l, og, p, qpos, t, hd - c0);
+    __syncthreads();          // every read of Vs before the next head
   }
 }
 
@@ -965,8 +1167,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int kt = 0; kt < BK / 16; ++kt)
 #pragma unroll
         for (int a = 0; a < 4; ++a)
-          split_bf16(sc[8 * kt + 2 * a], sc[8 * kt + 2 * a + 1], &ph[kt][a],
-                     &pl[kt][a]);
+          split16<__nv_bfloat16>(sc[8 * kt + 2 * a], sc[8 * kt + 2 * a + 1],
+                                 &ph[kt][a], &pl[kt][a]);
     };
     // O to the running max of the last softmax, before the P V after it
     const auto rescale = [&](const float (&corr)[2]) {
@@ -1071,7 +1273,7 @@ struct F32Tile {
 // HD is the tile's width; a head dim hd below it is zero-filled in shared
 // memory and only its hd columns are stored.  The tiles are dynamic
 // shared memory (67 KB at HD 256).  B * H strides through grid.y as in
-// flash_bf16_kernel.
+// flash_mma_kernel.
 template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
   using Tl = F32Tile<HD>;
@@ -1157,6 +1359,113 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Params p) {
         if (u + 4 * i < hd) orow[u + 4 * i] = acc[i] / denom;
     }
     __syncthreads();     // every read of Q, K and V before the next head
+  }
+}
+
+// f32 past 256 columns: the column groups of flash_mma_wide_kernel on the
+// FMA units.  The CTA of group blockIdx.z owns kWideDV of O's columns of
+// 32 query rows (a quarter of them a thread, ND = 64 accumulators) and
+// holds V's columns of its group; each key block's scores sum over the
+// whole head dim in pieces of kWideDK columns of Q and K, loaded in turn.
+// Every group computes the same scores in the same order.  Shared memory:
+// Q and K pieces, V's 16 x 256 tile and P: 31,872 bytes.
+struct F32WideTile {
+  static constexpr int BQ = 32, BK = 16;
+  static constexpr int LDK = kWideDK + 4, LDV = kWideDV + 4, LDP = BK + 1;
+  static constexpr int kBytes =
+      ((BQ + BK) * LDK + BK * LDV + BQ * LDP) * 4;
+};
+
+__global__ void __launch_bounds__(kThreads) flash_f32_wide_kernel(Params p) {
+  using Tl = F32WideTile;
+  constexpr int BQ = Tl::BQ, BK = Tl::BK, LDK = Tl::LDK, LDV = Tl::LDV,
+                LDP = Tl::LDP;
+  constexpr int NS = BK / 4;          // scores per thread per key block
+  constexpr int ND = kWideDV / 4;     // output columns per thread
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  float* Qs = reinterpret_cast<float*>(flash_smem);
+  float* Ks = Qs + BQ * LDK;
+  float* Vs = Ks + BK * LDK;
+  float* Ps = Vs + BK * LDV;
+
+  const int r = threadIdx.x >> 2, u = threadIdx.x & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int c0 = blockIdx.z * kWideDV;
+  const int hd = p.hd;
+  const bool vec = p.vec;
+  const int qpos = q0 + r;
+  int lo, hi;
+  key_range(p, q0, BQ, BK, &lo, &hi);
+
+  for (int bh = blockIdx.y; bh < p.BH; bh += gridDim.y) {
+    const int b = bh / p.H, h = bh % p.H, kvh = h / p.rep;
+    const float* qg = static_cast<const float*>(p.q) + b * p.qb + h * p.qh;
+    const float* kg = static_cast<const float*>(p.k) + b * p.kb + kvh * p.kh;
+    const float* vg =
+        static_cast<const float*>(p.v) + b * p.vb + kvh * p.vh + c0;
+    float* og = static_cast<float*>(p.o) + b * p.ob + h * p.oh + c0;
+
+    float acc[ND];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+    float m = kNegInf, l = 0.f;
+
+    for (int k0 = lo; k0 < hi; k0 += BK) {
+      __syncthreads();   // every thread is done with the last V tile and P
+      load_tile_f32<kWideDV, LDV, BK>(Vs, vg, p.vs, k0, p.Sk, hd - c0, vec);
+      float s[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j] = 0.f;
+      for (int col = 0; col < hd; col += kWideDK) {
+        __syncthreads();   // every thread is done with the last pieces
+        load_tile_f32<kWideDK, LDK, BQ>(Qs, qg + col, p.qs, q0, p.Sq,
+                                        hd - col, vec);
+        load_tile_f32<kWideDK, LDK, BK>(Ks, kg + col, p.ks, k0, p.Sk,
+                                        hd - col, vec);
+        __syncthreads();
+        for (int d = 0; d < kWideDK; ++d) {
+          const float qv = Qs[r * LDK + d];
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+            s[j] = fmaf(qv, Ks[(u + 4 * j) * LDK + d], s[j]);
+        }
+      }
+      float mx = m;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[j] = allowed(p, qpos, k0 + u + 4 * j) ? s[j] * p.scale : kNegInf;
+        mx = fmaxf(mx, s[j]);
+      }
+      mx = quad_max(mx);
+      const float corr = expf(m - mx);
+      m = mx;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float e = expf(s[j] - m);
+        Ps[r * LDP + u + 4 * j] = e;
+        rs += e;
+      }
+      l = l * corr + rs;
+      __syncwarp();      // the row's four threads share its probabilities
+#pragma unroll
+      for (int i = 0; i < ND; ++i) acc[i] *= corr;
+      for (int kk = 0; kk < BK; ++kk) {
+        const float pk = Ps[r * LDP + kk];
+#pragma unroll
+        for (int i = 0; i < ND; ++i)
+          acc[i] = fmaf(pk, Vs[kk * LDV + u + 4 * i], acc[i]);
+      }
+    }
+
+    const float denom = fmaxf(quad_sum(l), 1e-30f);
+    if (qpos < p.Sq) {
+      float* orow = og + qpos * p.os;
+#pragma unroll
+      for (int i = 0; i < ND; ++i)
+        if (c0 + u + 4 * i < hd) orow[u + 4 * i] = acc[i] / denom;
+    }
+    __syncthreads();     // every read of V and P before the next head
   }
 }
 
@@ -1252,12 +1561,25 @@ int launch_smem(Kernel kernel, dim3 grid, int bytes, const Params& p,
   return 0;
 }
 
-template <int HD>
-int launch_bf16(const Params& p, int gy, cudaStream_t st) {
-  using Tl = Bf16Tile<HD>;
-  return launch_smem(flash_bf16_kernel<HD>,
+template <typename T, int HD>
+int launch_mma(const Params& p, int gy, cudaStream_t st) {
+  using Tl = MmaTile<HD>;
+  return launch_smem(flash_mma_kernel<T, HD>,
                      dim3((p.Sq + Tl::BQ - 1) / Tl::BQ, gy), Tl::kBytes, p,
                      st);
+}
+
+// the smallest tile that holds hd
+template <typename T>
+int launch_mma_hd(const Params& p, int gy, cudaStream_t st) {
+  const int hd = p.hd;
+  return hd <= 32    ? launch_mma<T, 32>(p, gy, st)
+         : hd <= 64  ? launch_mma<T, 64>(p, gy, st)
+         : hd <= 96  ? launch_mma<T, 96>(p, gy, st)
+         : hd <= 128 ? launch_mma<T, 128>(p, gy, st)
+         : hd <= 160 ? launch_mma<T, 160>(p, gy, st)
+         : hd <= 192 ? launch_mma<T, 192>(p, gy, st)
+                     : launch_mma<T, 256>(p, gy, st);
 }
 
 template <int HD>
@@ -1268,20 +1590,42 @@ int launch_f32(const Params& p, int gy, cudaStream_t st) {
                      st);
 }
 
+// The groups of kWideDV output columns the launch at head dim hd splits
+// O into: 0 where one CTA holds the head dim (hd <= kMaxHeadDim)
+int column_groups(int hd) {
+  return hd <= kMaxHeadDim ? 0 : (hd + kWideDV - 1) / kWideDV;
+}
+
+// Past kMaxHeadDim: one CTA a (query tile, (batch, head), group of
+// kWideDV columns)
+int launch_wide(const Params& p, int dtype, int gy, cudaStream_t st) {
+  const int groups = column_groups(p.hd);
+  if (dtype == 0)
+    return launch_smem(flash_f32_wide_kernel,
+                       dim3((p.Sq + F32WideTile::BQ - 1) / F32WideTile::BQ,
+                            gy, groups),
+                       F32WideTile::kBytes, p, st);
+  const dim3 grid((p.Sq + WideTile::BQ - 1) / WideTile::BQ, gy, groups);
+  return dtype == 1 ? launch_smem(flash_mma_wide_kernel<__nv_bfloat16>, grid,
+                                  WideTile::kBytes, p, st)
+                    : launch_smem(flash_mma_wide_kernel<__half>, grid,
+                                  WideTile::kBytes, p, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // q (B, Sq, H, hd), k and v (B, Sk, KV, hd), out (B, Sq, H, hd), all of one
-// dtype (0: f32, 1: bf16) on the current device, head dim contiguous, 1 <=
-// hd <= 256.  `strides` holds 12 element strides: batch, sequence and head
-// of q, k, v and out.  `tma` (bf16 at hd 64, 80, 128 with B * H <= 65,535
-// and views TMA can map, else null) holds the tensor maps of q, k and v,
-// 11 numbers each: dims (hd, S, heads, B), byte strides of S, heads and B,
-// box (box_cols(hd), rows, 1, 1) with 64 rows for q and 128 keys for k and
-// v.  Launches on `stream` and returns the launch's cudaError_t (0 on
-// success), or a tensor-map error (see flash_attention_error_string); it
-// does not synchronise.
+// dtype (0: f32, 1: bf16, 2: f16) on the current device, head dim
+// contiguous, hd >= 1.  `strides` holds 12 element strides: batch, sequence
+// and head of q, k, v and out.  `tma` (bf16 at hd 64, 80, 128 with B * H <=
+// 65,535 and views TMA can map, else null) holds the tensor maps of q, k
+// and v, 11 numbers each: dims (hd, S, heads, B), byte strides of S, heads
+// and B, box (box_cols(hd), rows, 1, 1) with 64 rows for q and 128 keys
+// for k and v.  Launches on `stream` and returns the launch's cudaError_t
+// (0 on success), or a tensor-map error (see flash_attention_error_string);
+// it does not synchronise.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int dtype, int B, int Sq, int Sk,
                            int H, int KV, int hd, const long long* strides,
@@ -1289,8 +1633,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            float scale, void* stream) {
   const long long BH = static_cast<long long>(B) * H;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      window < 0 || hd < 1 || hd > kMaxHeadDim || BH > 2147483647LL ||
-      (tma != nullptr && BH > kMaxGridY))
+      window < 0 || hd < 1 || dtype < 0 || dtype > 2 ||
+      (hd + kWideDV - 1) / kWideDV > kMaxGridY || BH > 2147483647LL ||
+      (tma != nullptr && (BH > kMaxGridY || dtype != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -1311,7 +1656,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   p.window = window;
   p.scale = scale;
   {   // 16-byte loads: hd and the strides in 16-byte pieces, aligned bases
-    const int e = dtype == 1 ? 8 : 4;
+    const int e = dtype == 0 ? 4 : 8;
     const auto al = [](const void* x, int n) {
       return reinterpret_cast<uintptr_t>(x) % n == 0;
     };
@@ -1326,22 +1671,20 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const int gy = static_cast<int>(BH < kMaxGridY ? BH : kMaxGridY);
   // the only dispatch: by dtype, head dim and whether TMA can map q, k, v
   int rc;
-  if (dtype == 1 && tma != nullptr) {
+  if (column_groups(hd)) {
+    rc = launch_wide(p, dtype, gy, st);
+  } else if (tma != nullptr) {
     switch (hd) {
       case 64: rc = launch_wgmma<64>(p, tma, B, st); break;
       case 80: rc = launch_wgmma<80>(p, tma, B, st); break;
       case 128: rc = launch_wgmma<128>(p, tma, B, st); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
-  } else if (dtype == 1) {      // the smallest tile that holds hd
-    rc = hd <= 32    ? launch_bf16<32>(p, gy, st)
-         : hd <= 64  ? launch_bf16<64>(p, gy, st)
-         : hd <= 96  ? launch_bf16<96>(p, gy, st)
-         : hd <= 128 ? launch_bf16<128>(p, gy, st)
-         : hd <= 160 ? launch_bf16<160>(p, gy, st)
-         : hd <= 192 ? launch_bf16<192>(p, gy, st)
-                     : launch_bf16<256>(p, gy, st);
-  } else if (dtype == 0) {
+  } else if (dtype == 1) {
+    rc = launch_mma_hd<__nv_bfloat16>(p, gy, st);
+  } else if (dtype == 2) {
+    rc = launch_mma_hd<__half>(p, gy, st);
+  } else {
     rc = hd <= 32    ? launch_f32<32>(p, gy, st)
          : hd <= 64  ? launch_f32<64>(p, gy, st)
          : hd <= 80  ? launch_f32<80>(p, gy, st)
@@ -1350,12 +1693,14 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
          : hd <= 160 ? launch_f32<160>(p, gy, st)
          : hd <= 192 ? launch_f32<192>(p, gy, st)
                      : launch_f32<256>(p, gy, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
+
+// The groups of 256 output columns the launch at head dim hd runs (the
+// column-group kernels, past 256), or 0 (one CTA holds the head dim).
+int flash_attention_column_groups(int hd) { return column_groups(hd); }
 
 const char* flash_attention_error_string(int code) {
   if (code == kErrNoEncoder)

@@ -124,6 +124,17 @@ def launch_error(lib: ctypes.CDLL, name: str, code: int) -> RuntimeError:
     return RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
 
 
+def widest_dtype(*tensors) -> torch.dtype:
+    """The dtype the LM kernels run operands of mixed dtypes in: the
+    widest present, to which each widens exactly (bf16 and f16, neither of
+    which holds the other, widen to f32), as the JAX package's kernels
+    widen each operand to f32 and round once."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
 def refuse_grad(name: str, *tensors) -> None:
     """Raise ``RuntimeError`` when grad mode is on and any of ``tensors``
     requires grad: the LM kernels are forward-only (the JAX package has no

@@ -24,8 +24,17 @@ from repro_torch.models.scan_ops import (SUB_BLOCK, _prep_decay, check_chunk,
 
 def chunk_scan_ref(r, k, v, log_decay, state0=None, *, include_current=True,
                    bonus=None):
+    """The sequential recurrence; RWKV6 mode without a bonus takes a zero
+    one, as the JAX package's wrapper does."""
     return recurrent_scan(r, k, v, log_decay, state0,
-                          include_current=include_current, bonus=bonus)
+                          include_current=include_current,
+                          bonus=_bonus(r, bonus, include_current))
+
+
+def _bonus(r, bonus, include_current):
+    if include_current or bonus is not None:
+        return bonus
+    return torch.zeros(r.shape[2:], dtype=torch.float32, device=r.device)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -110,6 +119,7 @@ def chunk_scan_blocked_ref(r, k, v, log_decay, state0=None, *,
         parts.append(y)
     y = torch.cat(parts, dim=2)
     if not include_current:
-        diag = torch.einsum("bclhk,bclhk->bclh", rq * bonus.to(f32), kq)
+        u = _bonus(r, bonus, include_current).to(f32)
+        diag = torch.einsum("bclhk,bclhk->bclh", rq * u, kq)
         y = y + diag[..., None] * vq
     return y.reshape(B, T, H, V).to(v.dtype), S

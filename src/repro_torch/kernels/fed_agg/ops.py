@@ -39,11 +39,19 @@ def _check_vector(name: str, t: torch.Tensor, n: int,
     if t.dim() != 1 or t.shape[0] != n:
         raise ValueError(f"fed_agg: {name} must have shape ({n},), "
                          f"got {tuple(t.shape)}")
-    if t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"fed_agg: {name} must be contiguous float32")
+    if not t.is_floating_point():
+        raise ValueError(f"fed_agg: {name} must be floating point, got "
+                         f"{t.dtype}")
     if t.device != device:
         raise ValueError(f"fed_agg: {name} is on {t.device}, the stack on "
                          f"{device}")
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A weight or base vector as the kernel reads it: contiguous float32,
+    cast once when it is not (the reference's ``fed_agg_flat`` casts
+    both)."""
+    return t.to(torch.float32).contiguous()
 
 
 def _stack(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -77,8 +85,9 @@ def fed_agg(stack: torch.Tensor, gamma: torch.Tensor,
     """``out = base_weight * base + gamma @ stack + gamma2 @ stack2``.
 
     ``stack`` (C, N), ``gamma`` (C,), ``base`` and ``out`` (N,) on one
-    device; ``gamma``, ``base`` and ``out`` contiguous float32, the stacks
-    any floating dtype and layout (cast once to contiguous float32).
+    device; ``out`` contiguous float32; the stacks, ``gamma`` and ``base``
+    any floating dtype and layout (each cast once to contiguous float32
+    where it is not, as the JAX package's kernel casts them).
     ``stack2`` (C2, N) with ``gamma2`` (C2,) is an optional second segment
     (the epoch's carried stragglers beside its bank), summed in the same
     launch; both or neither are given.
@@ -107,6 +116,8 @@ def fed_agg(stack: torch.Tensor, gamma: torch.Tensor,
         _check_vector("base", base, N, dev)
     if out is not None:
         _check_vector("out", out, N, dev)
+        if out.dtype != torch.float32 or not out.is_contiguous():
+            raise ValueError("fed_agg: out must be contiguous float32")
         for name, t in (("stack", stack), ("gamma", gamma),
                         ("stack2", stack2), ("gamma2", gamma2)):
             if t is not None and t.numel() and _overlaps(out, t):
@@ -116,6 +127,11 @@ def fed_agg(stack: torch.Tensor, gamma: torch.Tensor,
             raise ValueError("fed_agg: out overlaps base without being it")
     if base is None:
         base_weight = 0.0
+    else:
+        base = _f32(base)
+    gamma = _f32(gamma)
+    if gamma2 is not None:
+        gamma2 = _f32(gamma2)
     if dev.type == "cpu":
         res = fed_agg_ref(stack, gamma, base, base_weight, stack2, gamma2)
         return res if out is None else out.copy_(res)

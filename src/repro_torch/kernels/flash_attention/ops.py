@@ -6,15 +6,25 @@ repeat the KV heads and flatten, as the JAX package's wrapper does); a CUDA
 tensor launches the CUDA kernel (``csrc/flash_attention.cu``), which maps
 query head h to KV head h // (H // KV) and reads every operand through
 its strides, or raises.  ``flash_attention.launches`` counts kernel
-launches.
+launches, and ``flash_attention.wide_launches`` those of them that ran the
+column-group kernels (a head dim above 256).
 
 bf16 at hd 64, 80 and 128 runs the warp-specialised wgmma kernel, which loads
 q, k and v by TMA through 4-D tensor maps; ``tensor_map_spec`` computes
 their dims, byte strides and boxes here, and the launcher encodes them.
-Every other head dim up to ``MAX_HEAD_DIM``, a view TMA cannot map, and a
-B * H above grid.y's 65,535 run the mma.sync kernel (bf16) or the f32
-kernel on the smallest tile that holds hd, zero-filled past it in shared
-memory; rows that are not 16-byte aligned take its element loads.
+Every other head dim up to 256, f16, a view TMA cannot map,
+and a B * H above grid.y's 65,535 run the mma.sync kernel (bf16 or f16) or
+the f32 kernel on the smallest tile that holds hd, zero-filled past it in
+shared memory; rows that are not 16-byte aligned take its element loads.
+A head dim above 256 runs the column-group kernels: each CTA
+owns at most 256 of the output's columns and builds the whole score tile
+from pieces of the head dim.
+
+The kernel takes every input the JAX package's wrapper takes: q, k and v
+of mixed dtypes are widened, exactly, to the widest of them (a bf16 and f16
+mix to f32), the kernel runs on the widened operands, and its output is
+rounded once to q's dtype, as the JAX kernel computes in f32 and rounds
+once; a head dim that is not contiguous is copied once.
 """
 from __future__ import annotations
 
@@ -26,14 +36,11 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention.ref import attention_ref_bshd
 
-# The widest head dim: above it the tiles pass the 227 KB of shared memory
-# a CTA can hold and O's accumulator the registers a thread can hold
-MAX_HEAD_DIM = 256
 TMA_HEAD_DIMS = (64, 80, 128)  # bf16 through the wgmma kernel's tensor maps
 TMA_Q_ROWS = 64                # query rows of one consumer warpgroup
 TMA_KV_ROWS = 128              # keys of one K or V stage
 TMA_MAX_BH = 65535             # the wgmma kernel's grid.y: one (b, h) a row
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -41,6 +48,7 @@ _SIGNATURES = {
     "flash_attention_launch": ([_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                                 _INT, _INT, _INT, _INT, _PTR, _PTR, _INT,
                                 _INT, ctypes.c_float, _PTR], _INT),
+    "flash_attention_column_groups": ([_INT], _INT),
 }
 
 
@@ -89,13 +97,11 @@ def _check(q, k, v, window):
     if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
                          f"q {tuple(q.shape)} (same B and hd, H % KV == 0)")
-    if not 0 < hd <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {hd} not in 1.."
-                         f"{MAX_HEAD_DIM} (the kernel's widest tile: shared "
-                         f"memory and registers)")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: q, k, v must all be float32 or "
-                         f"all bfloat16, got {q.dtype}, {k.dtype}, "
+    if hd == 0:
+        raise ValueError("flash_attention: head dim 0")
+    if any(t.dtype not in _DTYPES for t in (q, k, v)):
+        raise ValueError(f"flash_attention: q, k, v must be float32, "
+                         f"bfloat16 or float16, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"flash_attention: q, k, v on {q.device}, "
@@ -103,34 +109,34 @@ def _check(q, k, v, window):
     if Sk == 0 or window < 0:
         raise ValueError(f"flash_attention: need Sk > 0 and window >= 0, got "
                          f"Sk={Sk}, window={window}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name} needs a contiguous "
-                             f"head dim (strides {t.stride()})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0, all
-    float32 or all bfloat16, 1 <= hd <= ``MAX_HEAD_DIM``, the head dim
-    contiguous.
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0, each
+    float32, bfloat16 or float16, any head dim and any strides.
     Returns (B, Sq, H, hd) in q's dtype: softmax(q k^T / sqrt(hd)) v under
     the causal (kpos <= qpos) and window (qpos - kpos < window) masks, by
-    row and column index.  Forward only: with grad mode on and an input
-    that requires grad it raises ``RuntimeError`` on every device (the
-    kernel has no backward; training takes ``impl="plain"``)."""
+    row and column index, computed in f32 on the operands widened to
+    ``kernels.widest_dtype`` and rounded once.  Forward only: with grad mode on
+    and an input that requires grad it raises ``RuntimeError`` on every
+    device (the kernel has no backward; training takes
+    ``impl="plain"``)."""
     _check(q, k, v, window)
     kernels.refuse_grad("flash_attention", q, k, v)
-    dev = q.device
+    dev, q_dtype = q.device, q.dtype
     if dev.type == "cpu":
         return attention_ref_bshd(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
     if Sq == 0 or B == 0:
-        return out
+        return torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    dt = kernels.widest_dtype(q, k, v)
+    q, k, v = (t.to(dt) if t.stride(3) == 1 else t.to(dt).contiguous()
+               for t in (q, k, v))
+    out = torch.empty((B, Sq, H, hd), dtype=dt, device=dev)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3])
@@ -144,7 +150,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(dev):
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, Sq, Sk, H, KV, hd,
+            _DTYPES[dt], B, Sq, Sk, H, KV, hd,
             ctypes.cast(strides, _PTR),
             None if tma is None else ctypes.cast(tma, _PTR),
             int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
@@ -152,7 +158,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc != 0:
         raise kernels.launch_error(lib, "flash_attention", rc)
     flash_attention.launches += 1
-    return out
+    if lib.flash_attention_column_groups(hd):
+        flash_attention.wide_launches += 1
+    return out.to(q_dtype)
 
 
 flash_attention.launches = 0
+flash_attention.wide_launches = 0

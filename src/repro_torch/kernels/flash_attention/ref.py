@@ -8,9 +8,11 @@ import torch
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (BH, Sq, hd); k, v: (BH, Sk, hd).  Masks by row and column
-    index; the result is in v's dtype."""
+                  causal: bool = True, window: int = 0,
+                  out_dtype=None) -> torch.Tensor:
+    """q: (BH, Sq, hd); k, v: (BH, Sk, hd), any float dtypes.  Masks by row
+    and column index; computes in f32 and rounds once to ``out_dtype``
+    (v's dtype, as the JAX package's oracle, where not given)."""
     hd = q.shape[-1]
     s = torch.einsum("bqh,bkh->bqk", q.float(), k.float()) / math.sqrt(hd)
     Sq, Sk = q.shape[1], k.shape[1]
@@ -23,14 +25,16 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ok &= (qpos - kpos) < window
     s = torch.where(ok[None], s, -1e30)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkh->bqh", p, v.float()).to(v.dtype)
+    return torch.einsum("bqk,bkh->bqh", p, v.float()).to(
+        v.dtype if out_dtype is None else out_dtype)
 
 
 def attention_ref_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: int = 0) -> torch.Tensor:
     """The wrapper's plain version over the model's layout: q (B, Sq, H,
-    hd), k and v (B, Sk, KV, hd); KV heads repeated to H, flattened to
-    (B*H, S, hd) for :func:`attention_ref`, and back."""
+    hd), k and v (B, Sk, KV, hd) of any float dtypes and strides; KV heads
+    repeated to H, flattened to (B*H, S, hd) for :func:`attention_ref`,
+    and back.  The result is in q's dtype, as the kernel's."""
     B, Sq, H, hd = q.shape
     rep = H // k.shape[2]
     k = k.repeat_interleave(rep, dim=2)
@@ -40,5 +44,5 @@ def attention_ref_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return x.transpose(1, 2).reshape(B * H, x.shape[1], hd)
 
     out = attention_ref(flat(q), flat(k), flat(v), causal=causal,
-                        window=window)
+                        window=window, out_dtype=q.dtype)
     return out.reshape(B, H, Sq, hd).transpose(1, 2)

@@ -96,6 +96,30 @@ def test_fed_agg_plain_matches_pallas(C, N, base_weight):
     np.testing.assert_allclose(b.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float64", "bfloat16"])
+@pytest.mark.parametrize("what", ["gamma", "base", "both"])
+def test_fed_agg_casts_gamma_and_base_as_the_reference(dtype, what):
+    """gamma and base in float64 or bf16: the JAX kernel casts both to
+    f32 (``fed_agg_flat``), and so does the port's wrapper; the f32 sums
+    at the sweep's tolerance."""
+    rng = np.random.default_rng(3)
+    C, N = 7, 10_000
+    stack = rng.standard_normal((C, N)).astype(np.float32)
+    gamma = (rng.uniform(0, 1, C) / C).astype(np.float32)
+    base = rng.standard_normal(N).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    cast = {"gamma": what in ("gamma", "both"),
+            "base": what in ("base", "both")}
+    jg, jb = (jnp.asarray(a).astype(jd) if cast[n] else jnp.asarray(a)
+              for n, a in (("gamma", gamma), ("base", base)))
+    tg, tb = (torch.from_numpy(a).to(td) if cast[n] else torch.from_numpy(a)
+              for n, a in (("gamma", gamma), ("base", base)))
+    want = np.asarray(jfed.fed_agg(jnp.asarray(stack), jg, jb, 0.35))
+    got = fed_agg(torch.from_numpy(stack), tg, tb, 0.35)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 @pytest.mark.parametrize("C2", [0, 1, 4])
 @pytest.mark.parametrize("C,N", [(7, 10_000), (16, 2050), (1, 1001)])
 def test_fed_agg_two_segments_match_two_pallas_passes(C, N, C2):
@@ -164,7 +188,12 @@ def test_fed_agg_edge_cases_and_checks():
     with pytest.raises(ValueError):
         fed_agg(stack, torch.zeros(2))                    # wrong C
     with pytest.raises(ValueError):
-        fed_agg(stack.double(), g.double())               # gamma not f32
+        fed_agg(stack, g.long())                          # gamma not float
+    with pytest.raises(ValueError):
+        fed_agg(stack, g, base, 1.0, out=base.double())   # out not f32
+    # a gamma that is not f32 is cast once, as the stacks are
+    assert torch.equal(fed_agg(stack.double(), g.double()),
+                       fed_agg_ref(stack, g, None, 0.0))
     # stacks that are not contiguous f32 are cast once (the reference's
     # fed_agg_flat_ref casts its stack)
     assert torch.equal(fed_agg(stack.double(), g),

@@ -23,11 +23,16 @@ the same sweep, in f32 and with its products' operands split into TF32
 hi and lo halves (3 passes, the kernel's split), at the sweep's
 tolerances; with one TF32 pass the state misses 5e-5.
 
-The kernel's whole domain, K 1 to 256 (``MAX_K``), any V and any chunk
-that divides T: the same comparison at (K, V, chunk, T) = (128, 64, 256,
-512), (256, 64, 64, 256), (6, 10, 16, 64) and (96, 130, 32, 96), and at
-the shapes the wrapper once refused (K 128, V 15, a chunk of 288 steps);
-K past the cap refused on every device.
+The kernel's whole domain, any K, any V and any chunk that divides T: the
+same comparison at (K, V, chunk, T) = (128, 64, 256, 512), (256, 64, 64,
+256), (6, 10, 16, 64) and (96, 130, 32, 96), and at the shapes the
+wrapper once refused (K 128, V 15, a chunk of 288 steps); then every input
+the JAX wrapper takes: K past one sub-block's 256-channel tiles (264,
+300), f16, r, k and v in three dtypes, RWKV6 mode without a bonus, each
+against the JAX kernel in interpret mode and its oracle: f32 y and every
+final state within 5e-5, f16 and bf16 y within one spacing of their dtype
+beyond it (both sides compute in f32 and round once).  The wrapper
+refuses a ragged chunk and float64 (which JAX narrows to f32).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -39,10 +44,10 @@ from repro.kernels.chunk_scan.ref import chunk_scan_ref as jchunk_scan_ref
 from repro.models import scan_ops as JS
 from repro_torch.kernels import chunk_scan as cs_pkg
 from repro_torch.kernels.chunk_scan import chunk_scan
-from repro_torch.kernels.chunk_scan.ops import MAX_K
 from repro_torch.kernels.chunk_scan.ref import (chunk_scan_blocked_ref,
                                                 chunk_scan_ref, tf32_round)
 from repro_torch.models import scan_ops as S
+from torch_spacing import assert_within_one_spacing
 
 SWEEP = [(1, 64, 2, 8, 16, 16), (2, 128, 3, 16, 32, 32),
          (1, 96, 1, 4, 64, 32)]
@@ -206,27 +211,87 @@ def test_kernel_route_calls_the_wrapper(monkeypatch):
                        chunk=32, impl="pallas")
 
 
-@pytest.mark.parametrize("case", ["ragged_chunk", "wide_k", "mixed_dtype",
-                                  "no_bonus"])
+@pytest.mark.parametrize("case", ["ragged_chunk", "float64", "meta"])
 def test_chunk_scan_refuses_what_the_kernel_does_not_take(case):
     r, k, v, ld, s0, u = _torch(_inputs(1, 96, 2, 8, 16, "rwkv"), "float32")
+    if case == "meta":                        # no kernel for the device
+        r, k, v, ld, s0, u = (t.to("meta") for t in (r, k, v, ld, s0, u))
     kw = dict(include_current=False, bonus=u, chunk=32)
     if case == "ragged_chunk":
         kw["chunk"] = 40                      # 96 % 40 != 0
         with pytest.raises(ValueError, match="multiple of the chunk"):
             S.chunked_scan(r, k, v, ld, s0, **kw)
-    elif case == "wide_k":                    # past the cap, MAX_K = 256
-        K = MAX_K + 4
-        r = k = torch.zeros((1, 96, 2, K))
-        ld = torch.zeros((1, 96, 2, K))
-        s0 = torch.zeros((1, 2, K, 16))
-        kw["bonus"] = torch.zeros((2, K))
-    elif case == "mixed_dtype":
-        v = v.bfloat16()
-    elif case == "no_bonus":
-        kw["bonus"] = None
+    elif case == "float64":                   # JAX narrows it to f32
+        v = v.double()
     with pytest.raises(ValueError, match="chunk_scan|chunk"):
         chunk_scan(r, k, v, ld, s0, **kw)
+
+
+def _against_jax(arrs, dtypes, chunk, mode, bonus=True):
+    """The port's wrapper and the JAX package's (its Pallas kernel in
+    interpret mode) and oracle on the same numpy inputs, r, k and v cast
+    to ``dtypes``: y within the f32 tolerance where v is f32, else within
+    one spacing of v's dtype beyond it; the f32 state within 5e-5."""
+    r, k, v, ld, s0, u = arrs
+    u = u if bonus else None
+    jargs = [jnp.asarray(a).astype(d) for a, d in zip((r, k, v), dtypes)]
+    targs = [torch.tensor(a).to(getattr(torch, d))
+             for a, d in zip((r, k, v), dtypes)]
+    kw = dict(include_current=mode == "mamba")
+    y, s_fin = chunk_scan(*targs, torch.tensor(ld), torch.tensor(s0),
+                          bonus=None if u is None else torch.tensor(u),
+                          chunk=chunk, **kw)
+    B, T, H, _ = r.shape
+    assert y.dtype == targs[2].dtype and y.shape == (B, T, H, v.shape[-1])
+    assert s_fin.dtype == torch.float32
+    jrest = (jnp.asarray(ld), jnp.asarray(s0))
+    ju = None if u is None else jnp.asarray(u)
+    # the JAX oracle takes no missing bonus: it gets the zeros that the
+    # JAX wrapper puts in its place
+    ju0 = jnp.zeros((H, r.shape[3]), jnp.float32) if ju is None else ju
+    for want_y, want_s in (
+            jchunk_scan_ref(*jargs, *jrest, bonus=ju0, **kw),
+            jchunk_scan(*jargs, *jrest, bonus=ju, chunk=chunk,
+                        interpret=True, **kw)):
+        if dtypes[2] == "float32":
+            _close(y, want_y, TOL["float32"])
+        else:
+            assert_within_one_spacing(y, want_y, dtypes[2], TOL["float32"])
+        _close(s_fin, want_s, TOL["float32"])
+
+
+@pytest.mark.parametrize("K", [264, 300])
+@pytest.mark.parametrize("mode", ["rwkv", "mamba"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_chunk_scan_wide_k_matches_jax_kernel_and_oracle(K, mode, dtype):
+    """K past one sub-block's tiles (the kernel streams 256 channels at a
+    time), T 64 in chunks of 32."""
+    _against_jax(_inputs(1, 64, 2, K, 16, mode, seed=5), (dtype,) * 3, 32,
+                 mode)
+
+
+@pytest.mark.parametrize("B,T,H,K,V,chunk", SWEEP[:2] + [
+    (1, 64, 2, 300, 16, 32)])
+@pytest.mark.parametrize("mode", ["rwkv", "mamba"])
+@pytest.mark.parametrize("dtypes", [("float16",) * 3,
+                                    ("float16", "float32", "bfloat16")],
+                         ids=["f16", "f16-f32-bf16"])
+def test_chunk_scan_f16_and_mixed_dtypes_match_jax(B, T, H, K, V, chunk,
+                                                   mode, dtypes):
+    """f16, and r, k, v in three dtypes (both packages widen each to f32
+    and write y in v's dtype)."""
+    _against_jax(_inputs(B, T, H, K, V, mode, seed=6), dtypes, chunk, mode)
+
+
+@pytest.mark.parametrize("B,T,H,K,V,chunk", [SWEEP[0],
+                                             (1, 64, 2, 264, 16, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_scan_rwkv_without_a_bonus_matches_jax(B, T, H, K, V, chunk,
+                                                     dtype):
+    """RWKV6 mode with no bonus: a zero (H, K) bonus, as the JAX wrapper
+    takes it."""
+    _against_jax(_inputs(B, T, H, K, V, "rwkv", seed=7), (dtype,) * 3,
+                 chunk, "rwkv", bonus=False)
 
 
 @pytest.mark.parametrize("B,T,H,K,V,chunk", SWEEP)

@@ -6,14 +6,20 @@ heads, flatten, ``attention_ref``); it is held against the JAX package's
 subset of that package's sweep (``tests/test_kernels.py``) that keeps the
 ragged S = 200 with one KV head, the hd = 128 case, all three mask modes
 and both dtypes, plus hubert-xlarge's head dim 80 at a small S, and the
-kernel's whole domain (head dims 1 to ``MAX_HEAD_DIM`` = 256: 1, 8, 36,
-40, 96, 192 and 256 at S = 200).  Tolerances are the sweep's: f32 differs
-only in the order of the sums (2e-6); bf16 outputs round to bf16, whose
-spacing near the outputs' magnitude (about 0.5) is 2e-3, and both sides
-accumulate in f32 (2e-2).  The CUDA kernel itself is held against the
-same plain version on the card by ``chip_smoke.py``.  The wrapper refuses
-head dims past the cap on every device, and ``takes_tma`` sends to the
-wgmma kernel only what TMA can map.
+kernel's whole domain (head dims 1, 8, 36, 40, 96, 192 and 256 at S =
+200).  Tolerances are the sweep's: f32 differs only in the order of the
+sums (2e-6); bf16 outputs round to bf16, whose spacing near the outputs'
+magnitude (about 0.5) is 2e-3, and both sides accumulate in f32 (2e-2).
+
+Beyond the sweep, every input the JAX wrapper takes: head dims past one
+CTA's tile (264, 300, 512), f16, q, k and v in three dtypes, and a head
+dim that is not contiguous, each against the JAX kernel in interpret
+mode: f32 within 1e-5, f16 and bf16 outputs within one spacing of their
+dtype (both sides compute in f32 and round once).  The CUDA kernel itself
+is held against the same plain version on the card by ``chip_smoke.py``.
+The wrapper refuses what the JAX kernel would not compute the same (float64,
+which JAX narrows to f32), and ``takes_tma`` sends to the wgmma kernel only
+what TMA can map.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,10 +29,11 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as jflash
 from repro.kernels.flash_attention.ref import attention_ref as jref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ops import (MAX_HEAD_DIM,
-                                                     takes_tma,
+from repro_torch.kernels import widest_dtype
+from repro_torch.kernels.flash_attention.ops import (takes_tma,
                                                      tensor_map_spec)
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from torch_spacing import assert_within_one_spacing
 
 TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 
@@ -119,22 +126,106 @@ def test_wrapper_reads_strided_views():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(hd=MAX_HEAD_DIM + 8), "head dim"),
-    (dict(dtype=torch.float16), "float32 or all bfloat16"),
-    (dict(kv_dtype=torch.bfloat16), "float32 or all bfloat16"),
     (dict(KV=3), "H % KV"),
     (dict(window=-1), "window"),
-    (dict(transposed=True), "contiguous head dim"),
+    (dict(dtype=torch.float64), "float32, bfloat16 or float16"),
+    (dict(device="meta"), "no kernel for device"),
 ])
 def test_wrapper_refuses_what_the_kernel_does_not_take(change, match):
     hd, KV = change.get("hd", 32), change.get("KV", 2)
     dtype = change.get("dtype", torch.float32)
-    q = torch.zeros((1, 8, 4, hd), dtype=dtype)
-    k = torch.zeros((1, 8, KV, hd), dtype=change.get("kv_dtype", dtype))
-    if change.get("transposed"):
-        q = torch.zeros((1, 8, hd, 4), dtype=dtype).transpose(2, 3)
+    dev = change.get("device", "cpu")
+    q = torch.zeros((1, 8, 4, hd), dtype=dtype, device=dev)
+    k = torch.zeros((1, 8, KV, hd), dtype=dtype, device=dev)
     with pytest.raises(ValueError, match=match):
         flash_attention(q, k, k.clone(), window=change.get("window", 0))
+
+
+# head dims past one CTA's tile (the column-group kernels): the sweep's
+# S 40, H 4, KV 2 shapes at 264 (one group of 256 and one of 8), 300 and
+# 512 (two of 256)
+WIDE = [(1, 40, 4, 2, hd) for hd in (264, 300, 512)]
+# q, k, v of three dtypes: widened to f32 (f16 and bf16 have no common
+# narrower type), the output rounded once to q's dtype
+MIXED = ("float16", "bfloat16", "float32")
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", WIDE)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 6),
+                                           (False, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_attention_wide_head_dims_match_jax_kernel(B, S, H, KV, hd,
+                                                         causal, window,
+                                                         dtype):
+    """The head dims the wrapper once refused, against the JAX kernel in
+    interpret mode: f32 within 1e-5 (the order of the sums), f16 and bf16
+    within one spacing of the output dtype."""
+    (jq, jk, jv), (q, k, v) = _both(_inputs(B, S, S, H, KV, hd), dtype)
+    want = jflash(jq, jk, jv, causal=causal, window=window, interpret=True)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == (B, S, H, hd)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
+    else:
+        assert_within_one_spacing(got, want, dtype, TOL["float32"])
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 200, 4, 1, 32),
+                                         (2, 64, 8, 8, 128),
+                                         (1, 72, 2, 1, 80),
+                                         (1, 40, 4, 2, 300)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 6),
+                                           (False, 0)])
+@pytest.mark.parametrize("dtypes", [("float16",) * 3, MIXED,
+                                    MIXED[::-1]],
+                         ids=["f16", "f16-bf16-f32", "f32-bf16-f16"])
+def test_flash_attention_f16_and_mixed_dtypes_match_jax_kernel(
+        B, S, H, KV, hd, causal, window, dtypes):
+    """f16, and q, k, v in three dtypes (the JAX kernel widens each to f32
+    and writes q's dtype), within one spacing of the output dtype, or 1e-5
+    where the output is f32."""
+    arrs = _inputs(B, S, S, H, KV, hd)
+    jargs = [jnp.asarray(a).astype(d) for a, d in zip(arrs, dtypes)]
+    targs = [torch.tensor(a).to(getattr(torch, d))
+             for a, d in zip(arrs, dtypes)]
+    want = jflash(*jargs, causal=causal, window=window, interpret=True)
+    got = flash_attention(*targs, causal=causal, window=window)
+    assert got.dtype == targs[0].dtype and got.shape == (B, S, H, hd)
+    if dtypes[0] == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
+    else:
+        assert_within_one_spacing(got, want, dtypes[0], TOL["float32"])
+
+
+@pytest.mark.parametrize("hd", [32, 300])
+def test_wrapper_takes_a_head_dim_that_is_not_contiguous(hd):
+    """q, k and v with the head dim strided (a transposed layout), as the
+    JAX function takes any array: the same result as contiguous copies."""
+    q, k, v = (torch.tensor(a) for a in _inputs(1, 8, 8, 4, 2, hd))
+    qt, kt, vt = (x.transpose(2, 3).contiguous().transpose(2, 3)
+                  for x in (q, k, v))
+    assert qt.stride(3) != 1
+    want = jflash(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                  causal=True, window=0, interpret=True)
+    got = flash_attention(qt, kt, vt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(got, flash_attention(q, k, v), atol=0,
+                               rtol=0)
+
+
+def test_widest_dtype_widens_exactly():
+    """The dtype the kernel runs in: the widest present; bf16 and f16,
+    neither of which holds the other, widen to f32."""
+    def t(dt):
+        return torch.zeros(1, dtype=dt)
+    f16, bf16, f32 = torch.float16, torch.bfloat16, torch.float32
+    assert widest_dtype(t(f16), t(f16), t(f16)) == f16
+    assert widest_dtype(t(bf16), t(bf16), t(bf16)) == bf16
+    assert widest_dtype(t(f16), t(bf16), t(bf16)) == f32
+    assert widest_dtype(t(bf16), t(f32), t(bf16)) == f32
 
 
 @pytest.mark.parametrize("B,S,heads,hd,rows,cols", [
